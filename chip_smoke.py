@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives the port's serving path at the full width of ``preset("full")``
+(ContextUnet v2, n_feat 192, 256 px, 5 classes, GroupNorm, 353M
+parameters, weights drawn from a fixed torch seed) with
+``model.use_pallas=True``, so that SE and CoordAttn run through the
+hand-written CUDA kernels. Phases, each printing JSON lines:
+
+1. env      the card (nvidia-smi's name and power limit), torch/CUDA
+            versions, and the TF32 settings, both switched off: every
+            number here is float32.
+2. build    nvcc for each kernel source, all in parallel.
+3. kernels  each kernel against its plain PyTorch twin at every site the
+            flagship forward gives it at batch 16 (CoordAttn under both
+            norm kinds): max |diff| (tolerance 1e-4 on standard-normal
+            inputs: the same fp32 arithmetic summed in another order),
+            kernel and twin times, and the least time the card could take.
+4. forward  one full-width forward at batch 16 through the kernels against
+            the plain path on the same weights (relative L2 tolerance
+            1e-4), with 5 SE and 4 CoordAttn launches.
+5. serve    the main path, with every launch count zeroed just before it:
+            ``SamplerService`` with DDIM-50 (mixed classes, two guidance
+            scales, a pinned request alone and then batched with others,
+            which must give the same images bit for bit, and one HTTP round
+            trip), then DPM++-20, then the ancestral sampler over the last
+            10 steps. Every image must be finite and of the right shape.
+
+Then a ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
+not 0 and the last line is not printed. Without CUDA it exits 2 at once.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import re
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+KERNEL_ATOL = 1e-4
+FORWARD_RTOL = 1e-4
+BATCH = 16  # the sampler's doubled CFG batch at max_batch 8
+# (H, C) of each site in one flagship forward, in forward order.
+SE_SITES = [(256, 192), (256, 192), (128, 384), (64, 768), (32, 1536)]
+CA_SITES = [(128, 192), (64, 384), (32, 768), (16, 1536)]
+
+
+def emit(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_times(fn) -> dict:
+    """Device ms per CUDA kernel name over one call of ``fn``
+    (torch.profiler); the port's kernels by their short names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()", e.key)
+            name = short.group(0) if short else e.key[:80]
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return out
+
+
+def bound(nbytes: float, flops: float):
+    """Least time in ms: bytes over HBM rate vs fp32 ops over fp32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_env() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    before = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+              "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), tf32_default=before,
+         tf32_set={"cudnn.allow_tf32": False,
+                   "cuda.matmul.allow_tf32": False})
+    return {"nvidia_smi": smi}
+
+
+def phase_build() -> None:
+    from diffusionmodel_tpu_torch.kernels import _build
+
+    t0 = time.monotonic()
+    report = _build.build()
+    regs = {}
+    for r in report.values():  # ptxas -v: registers of each kernel
+        for chunk in r["log"].split("Function properties for ")[1:]:
+            fn = re.search(r"(?:se|ca)_[a-z_]+(?=E)", chunk)
+            used = re.search(r"Used (\d+) registers", chunk)
+            if fn and used:
+                regs[fn.group(0)] = int(used.group(1))
+    emit("build", seconds=time.monotonic() - t0,
+         per_source={k: v["seconds"] for k, v in report.items()},
+         registers=regs)
+
+
+def _site_x(b, h, c, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, h, h, c), generator=g, device="cuda")
+
+
+def phase_kernels() -> list:
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        CoordAttnWeights,
+        coord_attn,
+        coord_attn_plain,
+    )
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        se_block,
+        se_block_plain,
+    )
+    from diffusionmodel_tpu_torch.nn.blocks import gn_groups
+    from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
+
+    rows = {"se_block": [], "coord_attn": [], "coord_attn_affine": []}
+    with torch.no_grad():
+        for i, (h, c) in enumerate(SE_SITES):
+            r = c // 16
+            x = _site_x(BATCH, h, c, i)
+            g = torch.Generator(device="cuda").manual_seed(100 + i)
+            w1 = torch.randn((c, r), generator=g, device="cuda") / c ** 0.5
+            w2 = torch.randn((r, c), generator=g, device="cuda") / r ** 0.5
+            err = (se_block(x, w1, w2) - se_block_plain(x, w1, w2)
+                   ).abs().max().item()
+            xb = x.numel() * 4
+            b_ms, b_by = bound(2 * xb + 2 * c * r * 4,
+                               3 * x.numel() + 4 * BATCH * c * r)
+            rows["se_block"].append(dict(
+                shape=list(x.shape), max_abs_err=err,
+                ms=cuda_ms(lambda: se_block(x, w1, w2), 20),
+                plain_ms=cuda_ms(lambda: se_block_plain(x, w1, w2), 10),
+                device_ms=device_times(lambda: se_block(x, w1, w2)),
+                bound_ms=b_ms, bound_by=b_by,
+                design_bound_ms=3 * xb / HBM_BYTES_PER_S * 1e3))
+            emit("kernels", kernel="se_block", **rows["se_block"][-1])
+            check(err <= KERNEL_ATOL, f"se_block {x.shape}: |diff| {err}")
+            del x
+
+        for kind, key in (("group", "coord_attn"),
+                          ("affine", "coord_attn_affine")):
+            for i, (h, c) in enumerate(CA_SITES):
+                r = c // 16
+                torch.manual_seed(200 + i)
+                mod = CoordAttn(c, 16, norm="group" if kind == "group"
+                                else "batch").cuda().eval()
+                g = torch.Generator(device="cuda").manual_seed(300 + i)
+                for p in (mod.gamma_h, mod.gamma_w, mod.alpha, mod.beta):
+                    p.copy_(torch.randn(1, generator=g, device="cuda"))
+                for nl in (mod.bn1_h, mod.bn1_w):
+                    nl.weight.copy_(1 + 0.1 * torch.randn(
+                        r, generator=g, device="cuda"))
+                    nl.bias.copy_(0.1 * torch.randn(r, generator=g,
+                                                    device="cuda"))
+                    if kind == "affine":
+                        nl.running_mean.copy_(0.1 * torch.randn(
+                            r, generator=g, device="cuda"))
+                        nl.running_var.copy_(torch.rand(
+                            r, generator=g, device="cuda") + 0.5)
+                wts = CoordAttnWeights.from_module(mod, kind)
+                groups = gn_groups(r, 8)
+                x = _site_x(BATCH, h, c, 10 + i)
+                err = (coord_attn(x, wts, kind, groups)
+                       - coord_attn_plain(x, wts, kind, groups)
+                       ).abs().max().item()
+                xb = x.numel() * 4
+                wbytes = sum(t.numel() * 4 for t in vars(wts).values())
+                mlp = BATCH * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
+                b_ms, b_by = bound(2 * xb + wbytes, 4 * x.numel() + mlp)
+                rows[key].append(dict(
+                    shape=list(x.shape), norm_kind=kind, max_abs_err=err,
+                    ms=cuda_ms(lambda: coord_attn(x, wts, kind, groups), 20),
+                    plain_ms=cuda_ms(
+                        lambda: coord_attn_plain(x, wts, kind, groups), 10),
+                    device_ms=device_times(
+                        lambda: coord_attn(x, wts, kind, groups)),
+                    bound_ms=b_ms, bound_by=b_by,
+                    design_bound_ms=3 * xb / HBM_BYTES_PER_S * 1e3))
+                emit("kernels", kernel="coord_attn", **rows[key][-1])
+                check(err <= KERNEL_ATOL,
+                      f"coord_attn {kind} {x.shape}: |diff| {err}")
+                del x
+    return rows
+
+
+def _flagship(use_pallas: bool):
+    from diffusionmodel_tpu_torch.config import preset
+    from diffusionmodel_tpu_torch.nn import build_model
+
+    cfg = preset("full", **{"model.use_pallas": use_pallas})
+    torch.manual_seed(0)
+    return cfg, build_model(cfg.model, cfg.diffusion.high_thresh,
+                            device="cuda")
+
+
+def phase_forward(counters):
+    cfg, model = _flagship(True)
+    _, plain = _flagship(False)
+    plain.load_state_dict(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((BATCH, 256, 256, 3), generator=g, device="cuda")
+    c = torch.arange(BATCH, device="cuda") % cfg.model.n_classes
+    t = torch.rand(BATCH, generator=g, device="cuda")
+    ctx = (torch.arange(BATCH, device="cuda") >= BATCH // 2).float()
+    with torch.no_grad():
+        before = [f.launches for f in counters]
+        got = model(x, c, t, ctx)
+        torch.cuda.synchronize()
+        launched = [f.launches - b for f, b in zip(counters, before)]
+        want = plain(x, c, t, ctx)
+        rel = ((got - want).norm() / want.norm()).item()
+        times = {}
+        for name, m in (("kernel_path", model), ("plain_path", plain),
+                        ("kernel_path_2", model), ("plain_path_2", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m(x, c, t, ctx)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+        by_kernel = device_times(lambda: model(x, c, t, ctx))
+    total = sum(by_kernel.values())
+    ours = sum(v for k, v in by_kernel.items() if k[:3] in ("se_", "ca_"))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("forward", device_ms=total, se_ca_device_ms=ours,
+         top_kernels=[[k, v] for k, v in top])
+    emit("forward", params=n_params, shape=list(got.shape),
+         se_launches=launched[0], ca_launches=launched[1], rel_l2=rel,
+         max_abs_err=(got - want).abs().max().item(),
+         max_abs_out=want.abs().max().item(), ms=times)
+    check(n_params > 300e6, f"flagship has {n_params} parameters")
+    check(tuple(got.shape) == (BATCH, 256, 256, 3)
+          and bool(torch.isfinite(got).all()), "forward output")
+    check(launched == [5, 4], f"launches per forward {launched}")
+    check(rel <= FORWARD_RTOL, f"forward relative L2 {rel}")
+    del plain
+    torch.cuda.empty_cache()
+    return cfg, model
+
+
+def _finite(imgs, n):
+    return imgs.shape == (n, 256, 256, 3) and bool(np.isfinite(imgs).all())
+
+
+def _http_round_trip(svc):
+    from diffusionmodel_tpu_torch.serving import make_http_server
+
+    httpd = make_http_server(svc, host="127.0.0.1", port=0,
+                             class_names=[f"class_{i}" for i in range(5)])
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        body = json.dumps({"classes": ["class_2", 3], "guide_w": 4.0,
+                           "seed": 5}).encode()
+        req = urllib.request.Request(f"{url}/generate", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            pngs = [base64.b64decode(s) for s in json.loads(r.read())["images"]]
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    check(len(pngs) == 2 and all(
+        p[:8] == b"\x89PNG\r\n\x1a\n" and p[16:24] == (256).to_bytes(4, "big")
+        * 2 for p in pngs), "HTTP /generate returned two 256x256 PNGs")
+    check(health["status"] == "ok", "HTTP /healthz")
+    return health["stats"]
+
+
+def phase_serve(cfg, model, counters) -> list:
+    from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg
+    from diffusionmodel_tpu_torch.serving import SamplerService
+
+    dc = cfg.diffusion
+    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, "cuda")
+    for f in counters:
+        f.launches = 0
+    t_serve = time.perf_counter()
+
+    with SamplerService(model, cfg, sched, max_batch=8, sampler="ddim",
+                        service_seed=0) as svc:
+        t0 = time.perf_counter()
+        alone = svc.generate([0, 1, 2], guide_w=2.0, seed=1234)
+        alone_s = time.perf_counter() - t0
+        n0 = svc.stats["batches"]
+        t0 = time.perf_counter()
+        futs = [svc.submit([3, 4], guide_w=4.0),
+                svc.submit([0, 1, 2], guide_w=2.0, seed=1234),
+                svc.submit([4, 0, 1], guide_w=4.0, seed=99)]
+        outs = [f.result(timeout=900) for f in futs]
+        batched_s = time.perf_counter() - t0
+        batched_runs = svc.stats["batches"] - n0
+        http_stats = _http_round_trip(svc)
+        st = dict(svc.stats)
+    pin_err = float(np.abs(outs[1] - alone).max())
+    emit("serve", sampler="ddim", steps=cfg.sample.ddim_steps, max_batch=8,
+         pinned_alone_vs_batched_max_abs=pin_err, batched_runs=batched_runs,
+         alone_s=alone_s, batched_s=batched_s,
+         images_per_s=st["slots_used"] / st["busy_seconds"],
+         slot_images_per_s=st["slots_dispatched"] / st["busy_seconds"],
+         stats=st, http_stats=http_stats)
+    check(_finite(alone, 3) and all(_finite(o, len(o)) for o in outs),
+          "DDIM images finite, [n,256,256,3]")
+    check(batched_runs == 1, f"three requests took {batched_runs} batches")
+    check(pin_err == 0.0, f"pinned request moved by {pin_err} when batched")
+
+    with SamplerService(model, cfg, sched, max_batch=8, sampler="dpmpp",
+                        service_seed=0) as svc:
+        t0 = time.perf_counter()
+        imgs = svc.generate([0, 1, 2, 3, 4, 0, 1, 2], guide_w=3.0, seed=7)
+        dpm_s = time.perf_counter() - t0
+    emit("serve", sampler="dpmpp", steps=cfg.sample.dpm_steps, max_batch=8,
+         seconds=dpm_s, images_per_s=8 / dpm_s)
+    check(_finite(imgs, 8), "DPM++ images finite, [8,256,256,3]")
+
+    x_init = np.random.default_rng(3).standard_normal(
+        (8, 256, 256, 3), np.float32)
+    t0 = time.perf_counter()
+    tail = sample_cfg(model, None, 8, (256, 256, 3), cfg.model.n_classes,
+                      sched, dc, guide_w=torch.full((8,), 2.0),
+                      classes=torch.arange(8) % 5, steps=range(10, 0, -1),
+                      x_init=x_init, slot_seeds=list(range(8))).cpu().numpy()
+    tail_s = time.perf_counter() - t0
+    emit("serve", sampler="ancestral", steps=10, max_batch=8,
+         seconds=tail_s, images_per_s=8 / tail_s)
+    check(_finite(tail, 8), "ancestral images finite, [8,256,256,3]")
+
+    torch.cuda.synchronize()
+    launches = [f.launches for f in counters]
+    forwards = 3 * cfg.sample.ddim_steps + cfg.sample.dpm_steps + 10
+    emit("serve", seconds=time.perf_counter() - t_serve, forwards=forwards,
+         se_launches=launches[0], ca_launches=launches[1],
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(launches == [5 * forwards, 4 * forwards],
+          f"main-path launches {launches} for {forwards} forwards")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn
+    from diffusionmodel_tpu_torch.kernels.se_block import se_block
+
+    counters = [se_block, coord_attn]
+    phase_env()
+    phase_build()
+    rows = phase_kernels()
+    cfg, model = phase_forward(counters)
+    launches = phase_serve(cfg, model, counters)
+
+    def entry(name, key, launched, replaces):
+        sites = rows[key]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"diffusionmodel_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launched,
+            "max_abs_err": max(s["max_abs_err"] for s in sites),
+            "ms": sum(s["ms"] for s in sites),
+            "plain_ms": sum(s["plain_ms"] for s in sites),
+            "bound_ms": sum(s["bound_ms"] for s in sites),
+            "bound_by": "bytes" if all(s["bound_by"] == "bytes"
+                                       for s in sites) else "operations",
+            "library_ms": None,
+            "per": f"one batch-{BATCH} forward ({len(sites)} sites)",
+        }
+
+    print(json.dumps({"kernels": [
+        entry("se_block", "se_block", launches[0],
+              "diffusionmodel_tpu/kernels/se_block.py:202"),
+        entry("coord_attn", "coord_attn", launches[1],
+              "diffusionmodel_tpu/kernels/coord_attn.py:296"),
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

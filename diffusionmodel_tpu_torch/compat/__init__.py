@@ -1,0 +1,1 @@
+"""Weight bridges between the JAX package and the port."""

@@ -1,0 +1,274 @@
+"""Classifier-free-guided samplers (counterpart of the sampling half of
+``diffusionmodel_tpu/diffusion.py``): ancestral, DDIM and DPM-Solver++(2M).
+
+Each step evaluates the conditional and unconditional branches in one
+network call on the doubled batch; the JAX package's ``lax.scan`` becomes
+a Python loop, the network runs eagerly. All sampler arithmetic is fp32
+on the device, with the same per-step scalars as the JAX package (fp32
+tensors, never Python doubles, so the roundings match).
+
+Quirk Q1: the v2.0 sampler computes ``eps = (1+w)*eps(uncond) - w*eps(cond)``
+(first half mask 0, second half mask 1); ``cfg_fixed_orientation=True``
+swaps the halves. Q3: no spatial mask exists while sampling, so the
+LocalEnhancer is the identity.
+
+``eps_fn(x, c, t_norm, ctx_mask)`` is the denoiser in eval mode (a
+``ContextUnet`` is one). Noise: ``x_init`` pins the start noise; the
+per-step noise of the stochastic samplers comes from ``noise_fn(step)``
+when given (tests inject the JAX package's draws through it), else from
+per-slot generators seeded by ``slot_seeds``, else from ``generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from diffusionmodel_tpu_torch.config import DiffusionConfig
+from diffusionmodel_tpu_torch.schedules import ddpm_schedules
+
+EpsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+                 torch.Tensor]
+NoiseFn = Callable[[int], torch.Tensor]
+
+
+class Schedule(NamedTuple):
+    """The 7 precomputed buffers, each [T+1] float32, on one device."""
+
+    alpha_t: torch.Tensor
+    oneover_sqrta: torch.Tensor
+    sqrt_beta_t: torch.Tensor
+    alphabar_t: torch.Tensor
+    sqrtab: torch.Tensor
+    sqrtmab: torch.Tensor
+    mab_over_sqrtmab: torch.Tensor
+
+    @classmethod
+    def create(cls, beta1: float, beta2: float, n_T: int,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> "Schedule":
+        """On ``device``: CUDA by default, raising when it is absent."""
+        return cls(**ddpm_schedules(beta1, beta2, n_T, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.alpha_t.device
+
+
+def _guide_arr(guide_w, n_sample: int, device: torch.device) -> torch.Tensor:
+    """A scalar stays 0-dim; a [n] vector (per-sample guidance) becomes
+    [n,1,1,1]."""
+    w = torch.as_tensor(guide_w, dtype=torch.float32, device=device)
+    if w.dim() == 0:
+        return w
+    if tuple(w.shape) != (n_sample,):
+        raise ValueError(f"guide_w must be a scalar or shape ({n_sample},), "
+                         f"got {tuple(w.shape)}")
+    return w.reshape(n_sample, 1, 1, 1)
+
+
+def _cfg_inputs(n_sample: int, n_classes: int, dc: DiffusionConfig,
+                classes, device: torch.device):
+    if classes is None:
+        c = torch.arange(n_sample, device=device, dtype=torch.int64) % n_classes
+    else:
+        c = torch.as_tensor(classes, device=device).to(torch.int64)
+    c2 = torch.cat([c, c])
+    first = 1.0 if dc.cfg_fixed_orientation else 0.0
+    mask2 = torch.cat([torch.full((n_sample,), first),
+                       torch.full((n_sample,), 1.0 - first)]).to(
+        device=device, dtype=torch.float32)
+    return c2, mask2
+
+
+def _slot_normal(slot_seeds: Sequence[int], step: int, img_shape,
+                 device: torch.device) -> torch.Tensor:
+    """Per-slot Gaussian noise for ``step`` from each slot's own seed, so a
+    seed-pinned request reproduces its run-alone images under the
+    stochastic samplers whatever shares its batch. (The draws differ from
+    the JAX package's threefry ones; tests inject those via ``noise_fn``.)"""
+    out = []
+    for s in slot_seeds:
+        # a generator seed that depends on (slot seed, absolute step) only
+        seed = np.random.SeedSequence([int(s), int(step)]).generate_state(
+            1, np.uint64)[0]
+        g = torch.Generator(device=device).manual_seed(int(seed))
+        out.append(torch.randn(tuple(img_shape), generator=g, device=device))
+    return torch.stack(out)
+
+
+def _step_noise(step: int, x: torch.Tensor, noise_fn: Optional[NoiseFn],
+                slot_seeds, generator: Optional[torch.Generator]
+                ) -> torch.Tensor:
+    if noise_fn is not None:
+        return noise_fn(step).to(device=x.device, dtype=torch.float32)
+    if slot_seeds is not None:
+        return _slot_normal(slot_seeds, step, x.shape[1:], x.device)
+    return torch.randn(x.shape, generator=generator, device=x.device)
+
+
+def _start_noise(x_init, n_sample, img_shape, generator, device):
+    if x_init is not None:
+        return torch.as_tensor(x_init, dtype=torch.float32).to(device)
+    h, w, ch = img_shape
+    return torch.randn((n_sample, h, w, ch), generator=generator,
+                       device=device)
+
+
+def _cfg_eps(eps_fn: EpsFn, x, c2, mask2, t_int: int, n_T: int, gw):
+    n = x.shape[0]
+    t_norm = torch.full((2 * n,), float(t_int), device=x.device) / n_T
+    eps = eps_fn(torch.cat([x, x]), c2, t_norm, mask2).float()
+    e1, e2 = eps[:n], eps[n:]
+    return (1.0 + gw) * e1 - gw * e2
+
+
+@torch.inference_mode()
+def sample_cfg(eps_fn: EpsFn, generator: Optional[torch.Generator],
+               n_sample: int, img_shape: Tuple[int, int, int], n_classes: int,
+               sched: Schedule, dc: DiffusionConfig, guide_w=0.0,
+               classes=None, steps: Optional[Sequence[int]] = None,
+               x_init=None, slot_seeds=None,
+               noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+    """Ancestral CFG sampling (new_scripy.py:441-477) over the descending
+    ``steps`` (default n_T..1; entries < 1 are no-op padding, as in the
+    JAX package's chunked runs). Returns x_0 [n_sample, H, W, C]."""
+    dev = sched.device
+    x = _start_noise(x_init, n_sample, img_shape, generator, dev)
+    c2, mask2 = _cfg_inputs(n_sample, n_classes, dc, classes, dev)
+    gw = _guide_arr(guide_w, n_sample, dev)
+    if steps is None:
+        steps = range(dc.n_T, 0, -1)
+    for i in (int(s) for s in steps):
+        if i < 1:
+            continue
+        e = _cfg_eps(eps_fn, x, c2, mask2, i, dc.n_T, gw)
+        x_new = sched.oneover_sqrta[i] * (x - e * sched.mab_over_sqrtmab[i])
+        if i > 1:
+            z = _step_noise(i, x, noise_fn, slot_seeds, generator)
+            x_new = x_new + sched.sqrt_beta_t[i] * z
+        x = x_new
+    return x
+
+
+def ddim_taus(n_T: int, n_steps: int, discretize: str = "uniform"):
+    """Ascending tau subsequence over [1, n_T] (the JAX package's rule,
+    including the refill of collided "quad" taus)."""
+    if n_steps > n_T:
+        raise ValueError(f"n_steps={n_steps} exceeds n_T={n_T}")
+    if discretize == "quad":
+        taus = ((np.linspace(0, np.sqrt(n_T * 0.8), n_steps) ** 2)
+                .astype(np.int64) + 1).clip(1, n_T)
+        uniq = np.unique(taus)
+        if len(uniq) < n_steps:
+            unused = np.setdiff1d(np.arange(1, n_T + 1, dtype=np.int64),
+                                  uniq)
+            uniq = np.sort(np.concatenate(
+                [uniq, unused[:n_steps - len(uniq)]]))
+        return uniq
+    if discretize == "uniform":
+        return np.linspace(1, n_T, n_steps).round().astype(np.int64)
+    raise ValueError(f"unknown discretize {discretize!r}")
+
+
+@torch.inference_mode()
+def sample_cfg_ddim(eps_fn: EpsFn, generator: Optional[torch.Generator],
+                    n_sample: int, img_shape: Tuple[int, int, int],
+                    n_classes: int, sched: Schedule, dc: DiffusionConfig,
+                    guide_w=0.0, n_steps: int = 50, eta: float = 0.0,
+                    classes=None, discretize: str = "uniform", x_init=None,
+                    slot_seeds=None, noise_fn: Optional[NoiseFn] = None
+                    ) -> torch.Tensor:
+    """DDIM over a tau-subsequence of the main family's schedule. With
+    ``eta == 0`` the trajectory is deterministic given ``x_init``."""
+    dev = sched.device
+    x = _start_noise(x_init, n_sample, img_shape, generator, dev)
+    c2, mask2 = _cfg_inputs(n_sample, n_classes, dc, classes, dev)
+    gw = _guide_arr(guide_w, n_sample, dev)
+    taus = [int(t) for t in ddim_taus(dc.n_T, n_steps, discretize)[::-1]]
+    taus_prev = taus[1:] + [0]
+    ab = torch.cat([torch.ones(1, device=dev), sched.alphabar_t[1:]])
+    return _ddim_scan(eps_fn, generator, x, taus, taus_prev, c2, mask2, gw,
+                      ab, dc, eta, slot_seeds, noise_fn)
+
+
+def _ddim_scan(eps_fn, generator, x, taus, taus_prev, c2, mask2, gw, ab, dc,
+               eta, slot_seeds=None, noise_fn=None):
+    """The DDIM update loop (the JAX package's ``lax.scan`` body)."""
+    for tau, tau_p in zip(taus, taus_prev):
+        e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
+        a, a_prev = ab[tau], ab[tau_p]
+        x0 = (x - torch.sqrt(1.0 - a) * e) / torch.sqrt(a)
+        sigma = eta * torch.sqrt((1 - a_prev) / (1 - a) * (1 - a / a_prev))
+        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)) * e
+        x = torch.sqrt(a_prev) * x0 + dir_xt
+        if eta > 0 and tau_p > 0:
+            x = x + sigma * _step_noise(tau, x, noise_fn, slot_seeds,
+                                        generator)
+    return x
+
+
+def dpmpp_terms(a_cur, a_nxt):
+    """DPM-Solver++(2M) per-step terms from (alphabar_k, alphabar_{k+1})
+    pairs, in float64 on the host, returned as float32 numpy arrays
+    (al_cur, si_cur, al_nxt, sigma_ratio, expm1_neg_h, inv2r)."""
+    a_cur = np.asarray(a_cur, np.float64)
+    a_nxt = np.asarray(a_nxt, np.float64)
+    al_c, si_c = np.sqrt(a_cur), np.sqrt(1.0 - a_cur)
+    al_n, si_n = np.sqrt(a_nxt), np.sqrt(1.0 - a_nxt)
+    with np.errstate(divide="ignore"):
+        lam_c = np.log(al_c / si_c)
+        lam_n = np.log(al_n / si_n)  # +inf at a final (sigma=0) target
+    h = lam_n - lam_c
+    inv2r = np.zeros_like(h)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv2r[1:] = h[1:] / (2.0 * h[:-1])
+    inv2r[~np.isfinite(inv2r)] = 0.0  # first/final step: lower-order
+    return tuple(np.asarray(v, np.float32) for v in (
+        al_c, si_c, al_n,
+        si_n / np.maximum(si_c, 1e-20),
+        (al_c * si_n) / (si_c * al_n) - 1.0,
+        inv2r,
+    ))
+
+
+def _dpmpp_coeffs(sched: Schedule, n_T: int, n_steps: int, discretize: str):
+    """Descending taus and the per-step fp32 coefficients, from the fp32
+    alphabar buffer taken to float64 (as the JAX package does)."""
+    taus = np.asarray(ddim_taus(n_T, n_steps, discretize))[::-1]
+    ab = np.concatenate([np.ones(1), sched.alphabar_t.cpu().numpy()
+                         .astype(np.float64)[1:]])
+    a_cur = ab[taus]
+    a_nxt = ab[np.concatenate([taus[1:], np.zeros(1, np.int64)])]
+    return taus.copy(), dpmpp_terms(a_cur, a_nxt)
+
+
+@torch.inference_mode()
+def sample_cfg_dpmpp(eps_fn: EpsFn, generator: Optional[torch.Generator],
+                     n_sample: int, img_shape: Tuple[int, int, int],
+                     n_classes: int, sched: Schedule, dc: DiffusionConfig,
+                     guide_w=0.0, n_steps: int = 20, classes=None,
+                     discretize: str = "uniform", x_init=None
+                     ) -> torch.Tensor:
+    """DPM-Solver++(2M) in x0-prediction form (Lu et al. 2022):
+        x0_k = (x - sigma_k * eps_cfg) / alpha_k
+        D    = (1 + 1/(2r)) x0_k - 1/(2r) x0_{k-1}
+        x   <- (sigma_{k+1}/sigma_k) x - alpha_{k+1} (exp(-h_k) - 1) D
+    First and final steps run first-order. Deterministic given x_init."""
+    dev = sched.device
+    x = _start_noise(x_init, n_sample, img_shape, generator, dev)
+    c2, mask2 = _cfg_inputs(n_sample, n_classes, dc, classes, dev)
+    gw = _guide_arr(guide_w, n_sample, dev)
+    taus, terms = _dpmpp_coeffs(sched, dc.n_T, n_steps, discretize)
+    al_c, si_c, al_n, ratio, em1, inv2r = (
+        torch.from_numpy(v).to(dev) for v in terms)
+    x0_prev = torch.zeros_like(x)
+    for k, tau in enumerate(int(t) for t in taus):
+        e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
+        x0 = (x - si_c[k] * e) / al_c[k]
+        d = (1.0 + inv2r[k]) * x0 - inv2r[k] * x0_prev
+        x = ratio[k] * x - al_n[k] * em1[k] * d
+        x0_prev = x0
+    return x

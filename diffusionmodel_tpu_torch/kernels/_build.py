@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, and loaded with
+``ctypes``. The build happens at first use (or up front through
+:func:`build`, which starts one ``nvcc`` per source, all in parallel) into
+``kernels/build/``, a directory git ignores. A library's file name carries
+a hash of its source and flags, so an edited source is rebuilt and a stale
+library is never loaded.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("se_block", "coord_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           f"{home}/bin); the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
+    """Compile the named sources that are not built yet, one ``nvcc``
+    process per source, all started together. Returns per source the
+    seconds it took and ``nvcc``'s report (``-Xptxas -v``: registers,
+    shared memory and spills per kernel). Raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.monotonic())
+    report, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        report[name] = {"seconds": time.monotonic() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    Every library exports ``const char* error_string(int)``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what}: CUDA error {err}: {lib.error_string(err).decode()}")

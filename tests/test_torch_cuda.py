@@ -1,0 +1,168 @@
+"""The port's CUDA kernels on the card, held to their plain twins.
+
+Marked ``cuda``: every test here skips where CUDA is absent (the CPU
+tier). On a machine with a card, where JAX is not installed, run them
+without the repository's conftest (it imports jax):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerance: max |kernel - twin| <= 1e-4 on standard-normal inputs. Both
+compute in fp32 (TF32 is switched off for the twin's products); the
+kernels sum in another order, which moves results by ~1e-6.
+"""
+
+import pytest
+import torch
+
+from diffusionmodel_tpu_torch.kernels.coord_attn import (
+    CoordAttnWeights,
+    coord_attn,
+    coord_attn_plain,
+)
+from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_plain
+from diffusionmodel_tpu_torch.nn.blocks import SEBlock, channels_last, gn_groups
+from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
+from diffusionmodel_tpu_torch.nn.context_unet import ContextUnet
+
+pytestmark = pytest.mark.cuda
+
+ATOL = 1e-4
+# Flagship sites (n_feat 192, 256 px) at batch 2, plus odd widths.
+SE_SHAPES = [(2, 256, 256, 192), (2, 128, 128, 384), (2, 64, 64, 768),
+             (2, 32, 32, 1536), (3, 5, 7, 20), (1, 1, 1, 4)]
+CA_SHAPES = [(2, 128, 128, 192), (2, 64, 64, 384), (2, 32, 32, 768),
+             (2, 16, 16, 1536), (3, 9, 9, 32), (1, 256, 256, 64)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _se_inputs(shape, dev, seed=0):
+    b, h, w, c = shape
+    r = max(1, c // 16)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    w1 = torch.randn((c, r), generator=g, device=dev) / c ** 0.5
+    w2 = torch.randn((r, c), generator=g, device=dev) / r ** 0.5
+    return x, w1, w2
+
+
+def _ca_module(c, norm, dev, seed=0):
+    torch.manual_seed(seed)
+    mod = CoordAttn(c, 16, norm=norm).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in (mod.gamma_h, mod.gamma_w, mod.alpha, mod.beta):
+            p.copy_(torch.randn(1, generator=g, device=dev))
+        for nl in (mod.bn1_h, mod.bn1_w):
+            n = nl.weight.shape[0]
+            nl.weight.copy_(1 + 0.1 * torch.randn(n, generator=g, device=dev))
+            nl.bias.copy_(0.1 * torch.randn(n, generator=g, device=dev))
+            if norm == "batch":
+                nl.running_mean.copy_(
+                    0.1 * torch.randn(n, generator=g, device=dev))
+                nl.running_var.copy_(
+                    torch.rand(n, generator=g, device=dev) + 0.5)
+    return mod
+
+
+@pytest.mark.parametrize("shape", SE_SHAPES)
+def test_se_kernel_matches_twin(dev, shape):
+    x, w1, w2 = _se_inputs(shape, dev)
+    n = se_block.launches
+    got = se_block(x, w1, w2)
+    torch.cuda.synchronize()
+    assert se_block.launches == n + 1
+    want = se_block_plain(x, w1, w2)
+    assert (got - want).abs().max().item() <= ATOL
+    # fixed summation order: bit-identical reruns, and a sample's output
+    # does not depend on what else is in its batch
+    assert torch.equal(se_block(x, w1, w2), got)
+    assert torch.equal(se_block(x[-1:].contiguous(), w1, w2), got[-1:])
+
+
+@pytest.mark.parametrize("kind", ["group", "affine"])
+@pytest.mark.parametrize("shape", CA_SHAPES)
+def test_coord_attn_kernel_matches_twin(dev, shape, kind):
+    c = shape[-1]
+    mod = _ca_module(c, "group" if kind == "group" else "batch", dev)
+    wts = CoordAttnWeights.from_module(mod, kind)
+    groups = gn_groups(c // 16, 8)
+    x = torch.randn(shape, generator=torch.Generator(device=dev)
+                    .manual_seed(2), device=dev)
+    n = coord_attn.launches
+    with torch.no_grad():
+        got = coord_attn(x, wts, kind, groups)
+        torch.cuda.synchronize()
+        assert coord_attn.launches == n + 1
+        want = coord_attn_plain(x, wts, kind, groups)
+        assert (got - want).abs().max().item() <= ATOL
+        assert torch.equal(coord_attn(x, wts, kind, groups), got)
+        assert torch.equal(coord_attn(x[-1:].contiguous(), wts, kind, groups),
+                           got[-1:])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, w1, w2 = _se_inputs((2, 8, 8, 64), dev)
+    wts = CoordAttnWeights.from_module(_ca_module(64, "group", dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        se_block(x.transpose(1, 2), w1, w2)
+    with pytest.raises(TypeError, match="float32"):
+        se_block(x.half(), w1, w2)
+    with pytest.raises(ValueError, match="C % 4"):
+        se_block(x[..., :62].contiguous(), w1[:62], w2[:, :62])
+    with pytest.raises(ValueError, match="square"):
+        coord_attn(x[:, :4].contiguous(), wts, "group", 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        coord_attn(x.transpose(1, 2), wts, "group", 4)
+    big = torch.zeros((1, 264, 264, 64), device=dev)
+    with pytest.raises(ValueError, match="side"):
+        coord_attn(big, wts, "group", 4)
+
+
+def test_modules_dispatch_on_the_card(dev):
+    """SE takes the kernel iff use_pallas and eval; CoordAttn takes it iff
+    use_pallas and GroupNorm, and its twin in train mode."""
+    x = channels_last(torch.randn(2, 64, 16, 16, device=dev))
+    se = SEBlock(64, 16, use_pallas=True).to(dev).eval()
+    ca = _ca_module(64, "group", dev)
+    ca.use_pallas = True
+    with torch.no_grad():
+        n_se, n_ca = se_block.launches, coord_attn.launches
+        se(x), ca(x)
+        assert (se_block.launches, coord_attn.launches) == (n_se + 1, n_ca + 1)
+        se.train(), ca.train()
+        se(x), ca(x)
+        assert (se_block.launches, coord_attn.launches) == (n_se + 1, n_ca + 1)
+
+
+@pytest.mark.parametrize("norm", ["group", "batch"])
+def test_context_unet_kernel_path_matches_plain_path(dev, norm):
+    kw = dict(in_ch=3, n_feat=16, n_classes=3, img_size=64, norm=norm)
+    torch.manual_seed(0)
+    plain = ContextUnet(**kw).to(dev).to(memory_format=torch.channels_last)
+    fused = ContextUnet(**kw, use_pallas=True).to(dev).to(
+        memory_format=torch.channels_last)
+    fused.load_state_dict(plain.state_dict())
+    plain.eval(), fused.eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((4, 64, 64, 3), generator=g, device=dev)
+    c = torch.tensor([0, 1, 2, 0], device=dev)
+    t = torch.tensor([0.1, 0.4, 0.7, 1.0], device=dev)
+    ctx = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
+    with torch.no_grad():
+        n_se, n_ca = se_block.launches, coord_attn.launches
+        got = fused(x, c, t, ctx)
+        torch.cuda.synchronize()
+        # five SE sites; CoordAttn's kernel only under GroupNorm
+        assert se_block.launches - n_se == 5
+        assert coord_attn.launches - n_ca == (4 if norm == "group" else 0)
+        want = plain(x, c, t, ctx)
+    assert got.shape == (4, 64, 64, 3) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
