@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the full width of ``preset("full")``
+Drives the port's two main paths at full width, with weights drawn from
+fixed torch seeds: the ContextUnet serving path of ``preset("full")``
 (ContextUnet v2, n_feat 192, 256 px, 5 classes, GroupNorm, 353M
-parameters, weights drawn from a fixed torch seed) with
-``model.use_pallas=True``, so that SE and CoordAttn run through the
-hand-written CUDA kernels. Phases, each printing JSON lines:
+parameters) with ``model.use_pallas=True``, so that SE and CoordAttn run
+through the hand-written CUDA kernels; and the latent-diffusion path
+(``LdmRunner(arch="sd")``: the SD-v1 UNet, 860M parameters, and VAE at
+512 px), whose level-0 self-attention runs through the hand-written
+flash-attention kernel. Phases, each printing JSON lines:
 
 1. env      the card (nvidia-smi's name and power limit), torch/CUDA
             versions, and the TF32 settings, both switched off: every
@@ -18,15 +21,35 @@ hand-written CUDA kernels. Phases, each printing JSON lines:
             norm kinds): max |diff| (tolerance 1e-4 on standard-normal
             inputs: the same fp32 arithmetic summed in another order),
             kernel and twin times, and the least time the card could take.
-4. forward  one full-width forward at batch 16 through the kernels against
+4. flash    the flash-attention kernel against its twin (output and
+            logsumexp) at the SD UNet's 512 px site (4, 4096, 8, 40), a
+            ragged 416 px site, D = 80 and 160, an M != N case and the tiny
+            and mid head dims: max |diff| (tolerance 1e-4 on standard-normal
+            inputs: the same fp32 arithmetic summed in another order, with
+            exp2 in place of exp), kernel, twin and SDPA times, the bound.
+5. forward  one full-width forward at batch 16 through the kernels against
             the plain path on the same weights (relative L2 tolerance
             1e-4), with 5 SE and 4 CoordAttn launches.
-5. serve    the main path, with every launch count zeroed just before it:
+6. serve    the ContextUnet main path, with every launch count zeroed just
+            before it:
             ``SamplerService`` with DDIM-50 (mixed classes, two guidance
             scales, a pinned request alone and then batched with others,
             which must give the same images bit for bit, and one HTTP round
             trip), then DPM++-20, then the ancestral sampler over the last
             10 steps. Every image must be finite and of the right shape.
+7. ldm_forward  the SD UNet at 512 px on a CFG batch of 4 through the
+            kernel (5 launches: down_0_{0,1}, up_0_{0,1,2}) against the
+            plain attention path on the same weights (relative L2
+            tolerance 1e-4), device time per kernel name.
+8. ldm      the latent-diffusion main path through ``LdmRunner``, with the
+            launch counts zeroed just before it: txt2img DDIM-50 at 512 px
+            (batch 2, scale 7.5), txt2img DPM++-20, DDPM over its last 10
+            steps, img2img and inpaint at strength 0.75. Images must be
+            finite, [2, 512, 512, 3], and at least 98% of their values in
+            [-1.5, 1.5]: a trained VAE keeps all of them in about [-1, 1];
+            this random one gives values of std ~0.35-0.43 whose tail
+            passes 1.5 (99.0-99.98% inside on an H100). Flash launches must
+            be 5 per UNet forward.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -51,7 +74,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-4
 FORWARD_RTOL = 1e-4
+IMG_FRAC = 0.98  # share of decoded values that must lie in [-1.5, 1.5]
 BATCH = 16  # the sampler's doubled CFG batch at max_batch 8
+# (B, N, M, H, D) flash-attention sites: the SD UNet's level 0 at 512 px
+# (CFG batch 4), 416 px (ragged: 52² tokens), D = 80 / 160 (SD levels 1
+# and 2 at larger sizes), M != N, and the tiny / mid head dims.
+FLASH_MAIN = (4, 4096, 4096, 8, 40)
+FLASH_SITES = [FLASH_MAIN, (2, 2704, 2704, 8, 40), (2, 2304, 2304, 8, 80),
+               (2, 2048, 2048, 8, 160), (2, 2048, 3000, 8, 40),
+               (2, 4096, 4096, 2, 16), (4, 4096, 4096, 4, 32),
+               (2, 4096, 4096, 4, 64)]
+FLASH_PER_FORWARD = 5  # level-0 self-attentions of the SD UNet at 512 px
 # (H, C) of each site in one flagship forward, in forward order.
 SE_SITES = [(256, 192), (256, 192), (128, 384), (64, 768), (32, 1536)]
 CA_SITES = [(128, 192), (64, 384), (32, 768), (16, 1536)]
@@ -92,11 +125,12 @@ def device_times(fn) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "self_device_time_total", None)
         if us is None:
-            us = e.cuda_time_total
+            us = e.self_cuda_time_total
         if us > 0:
-            short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()", e.key)
+            short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()|flash_fwd<\d+, ?\d+>",
+                              e.key)
             name = short.group(0) if short else e.key[:80]
             out[name] = out.get(name, 0.0) + us / 1e3
     return out
@@ -136,8 +170,11 @@ def phase_build() -> None:
     for r in report.values():  # ptxas -v: registers of each kernel
         for chunk in r["log"].split("Function properties for ")[1:]:
             fn = re.search(r"(?:se|ca)_[a-z_]+(?=E)", chunk)
+            flash = re.search(r"flash_fwdILi(\d+)ELi(\d+)E", chunk)
             used = re.search(r"Used (\d+) registers", chunk)
-            if fn and used:
+            if flash and used:
+                regs["flash_fwd<%s,%s>" % flash.groups()] = int(used.group(1))
+            elif fn and used:
                 regs[fn.group(0)] = int(used.group(1))
     emit("build", seconds=time.monotonic() - t0,
          per_source={k: v["seconds"] for k, v in report.items()},
@@ -388,20 +425,186 @@ def phase_serve(cfg, model, counters) -> list:
           f"main-path launches {launches} for {forwards} forwards")
     return launches
 
+def phase_flash() -> list:
+    import torch.nn.functional as F
+
+    from diffusionmodel_tpu_torch.kernels.flash_attn import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    rows = []
+    with torch.no_grad():
+        for i, (b, n, m, h, d) in enumerate(FLASH_SITES):
+            g = torch.Generator(device="cuda").manual_seed(500 + i)
+            q = torch.randn((b, n, h, d), generator=g, device="cuda")
+            k = torch.randn((b, m, h, d), generator=g, device="cuda")
+            v = torch.randn((b, m, h, d), generator=g, device="cuda")
+            o, lse = flash_attention(q, k, v, want_lse=True)
+            want_o, want_lse = flash_attention_plain(q, k, v, want_lse=True)
+            err = (o - want_o).abs().max().item()
+            err_lse = (lse - want_lse).abs().max().item()
+            del o, lse, want_o, want_lse
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            iters = 10 if (b, n, m, h, d) == FLASH_MAIN else 3
+            b_ms, b_by = bound(4 * (2 * b * n * h * d + 2 * b * m * h * d),
+                               4 * b * h * n * m * d)
+            rows.append(dict(
+                shape=[b, n, m, h, d], max_abs_err=err,
+                max_abs_err_lse=err_lse,
+                ms=cuda_ms(lambda: flash_attention(q, k, v), iters),
+                plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v),
+                                 iters),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt), iters),
+                device_ms=device_times(lambda: flash_attention(q, k, v)),
+                bound_ms=b_ms, bound_by=b_by))
+            rows[-1]["bound_share"] = b_ms / rows[-1]["ms"]
+            emit("flash", **rows[-1])
+            check(max(err, err_lse) <= KERNEL_ATOL,
+                  f"flash_attn {[b, n, m, h, d]}: |diff| {err}, lse {err_lse}")
+            del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _sd_unet(seed: int):
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import ARCHS
+    from diffusionmodel_tpu_torch.models.latent_diffusion.unet import (
+        UNetModel,
+    )
+
+    a = {k: v for k, v in ARCHS["sd"].items() if not k.startswith("ae_")}
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        unet = UNetModel(**a)
+    return unet.to(memory_format=torch.channels_last).eval()
+
+
+def phase_ldm_forward(flash) -> None:
+    unet = _sd_unet(0)
+    n_params = sum(p.numel() for p in unet.parameters())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((4, 64, 64, 4), generator=g, device="cuda")
+    t = torch.tensor([981, 981, 500, 21], device="cuda")
+    cond = torch.randn((4, 77, 768), generator=g, device="cuda")
+    with torch.no_grad():
+        before = flash.launches
+        got = unet(x, t, cond)
+        torch.cuda.synchronize()
+        launched = flash.launches - before
+        unet.set_use_flash(False)
+        want = unet(x, t, cond)
+        rel = ((got - want).norm() / want.norm()).item()
+        times = {}
+        for name, on in (("kernel_path", True), ("plain_path", False),
+                         ("kernel_path_2", True), ("plain_path_2", False)):
+            unet.set_use_flash(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unet(x, t, cond)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+        unet.set_use_flash(True)
+        event_ms = cuda_ms(lambda: unet(x, t, cond), 3)
+        by_kernel = device_times(lambda: unet(x, t, cond))
+    total = sum(by_kernel.values())
+    ours = sum(v for k, v in by_kernel.items() if k.startswith("flash_fwd"))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    emit("ldm_forward", device_ms=total, event_ms=event_ms,
+         flash_device_ms=ours,
+         top_kernels=[[k, v] for k, v in top])
+    emit("ldm_forward", params=n_params, shape=list(got.shape),
+         flash_launches=launched, rel_l2=rel,
+         max_abs_err=(got - want).abs().max().item(),
+         max_abs_out=want.abs().max().item(), ms=times)
+    check(n_params > 800e6, f"SD UNet has {n_params} parameters")
+    check(tuple(got.shape) == (4, 64, 64, 4)
+          and bool(torch.isfinite(got).all()), "SD UNet output")
+    check(launched == FLASH_PER_FORWARD,
+          f"flash launches per SD UNet forward: {launched}")
+    check(rel <= FORWARD_RTOL, f"SD UNet relative L2 {rel}")
+    del unet, got, want
+    torch.cuda.empty_cache()
+
+
+def _check_images(imgs, what) -> dict:
+    finite = bool(np.isfinite(imgs).all())
+    inside = float((np.abs(imgs) <= 1.5).mean())
+    check(imgs.shape == (2, 512, 512, 3) and finite,
+          f"{what}: images finite, [2,512,512,3], got {imgs.shape}")
+    check(inside >= IMG_FRAC, f"{what}: {inside:.5f} of values in [-1.5, 1.5]")
+    return dict(shape=list(imgs.shape), min=float(imgs.min()),
+                max=float(imgs.max()), std=float(imgs.std()),
+                share_in_1p5=inside)
+
+
+def phase_ldm(flash) -> int:
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
+        LdmRunner,
+    )
+
+    t0 = time.perf_counter()
+    runner = LdmRunner(arch="sd", device="cuda", verbose=False)
+    emit("ldm", build_s=time.perf_counter() - t0)
+    img = np.random.default_rng(11).uniform(
+        -1, 1, (2, 512, 512, 3)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = 0
+    t_all = time.perf_counter()
+    runs = [("txt2img", "ddim", 50, 50), ("txt2img", "dpmpp", 20, 20),
+            ("txt2img", "ddpm", 50, 10), ("img2img", "ddim", 50, 37),
+            ("inpaint", "ddim", 50, 37)]
+    forwards = 0
+    for mode, sampler, steps, n_fwd in runs:
+        runner.sampler_name, runner.steps = sampler, steps
+        g = torch.Generator(device="cuda").manual_seed(forwards)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "txt2img":
+            out = runner.txt2img("a road with a long crack", batch_size=2,
+                                 uncond_scale=7.5, generator=g,
+                                 skip_steps=990 if sampler == "ddpm" else 0)
+        else:
+            fn = runner.img2img if mode == "img2img" else runner.inpaint
+            out = fn(img, "a road with a long crack", strength=0.75,
+                     generator=g)
+        sec = time.perf_counter() - t0
+        forwards += n_fwd
+        emit("ldm", mode=mode, sampler=sampler, unet_forwards=n_fwd,
+             seconds=sec, images_per_s=2 / sec,
+             **_check_images(out, f"{mode}/{sampler}"))
+    torch.cuda.synchronize()
+    launches = flash.launches
+    emit("ldm", seconds=time.perf_counter() - t_all, unet_forwards=forwards,
+         flash_launches=launches,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(launches == FLASH_PER_FORWARD * forwards,
+          f"flash launches {launches} for {forwards} UNet forwards")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn
+    from diffusionmodel_tpu_torch.kernels.flash_attn import flash_attention
     from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     counters = [se_block, coord_attn]
     phase_env()
     phase_build()
     rows = phase_kernels()
+    flash_rows = phase_flash()
     cfg, model = phase_forward(counters)
     launches = phase_serve(cfg, model, counters)
+    del model
+    torch.cuda.empty_cache()
+    phase_ldm_forward(flash_attention)
+    flash_launches = phase_ldm(flash_attention)
 
     def entry(name, key, launched, replaces):
         sites = rows[key]
@@ -419,11 +622,31 @@ def main() -> int:
             "per": f"one batch-{BATCH} forward ({len(sites)} sites)",
         }
 
+    def flash_entry(sites, launched):
+        main_site = sites[FLASH_SITES.index(FLASH_MAIN)]
+        per = FLASH_PER_FORWARD
+        return {
+            "name": "flash_attn", "route": "cuda",
+            "source": "diffusionmodel_tpu_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "diffusionmodel_tpu/kernels/flash_attn.py:128",
+            "launches": launched,
+            "max_abs_err": max(max(s["max_abs_err"], s["max_abs_err_lse"])
+                               for s in sites),
+            "ms": per * main_site["ms"],
+            "plain_ms": per * main_site["plain_ms"],
+            "bound_ms": per * main_site["bound_ms"],
+            "bound_by": main_site["bound_by"],
+            "library_ms": per * main_site["library_ms"],
+            "per": f"one batch-4 SD UNet forward at 512 px ({per} sites of "
+                   f"(B, N, M, H, D) = {list(FLASH_MAIN)})",
+        }
+
     print(json.dumps({"kernels": [
         entry("se_block", "se_block", launches[0],
               "diffusionmodel_tpu/kernels/se_block.py:202"),
         entry("coord_attn", "coord_attn", launches[1],
               "diffusionmodel_tpu/kernels/coord_attn.py:296"),
+        flash_entry(flash_rows, flash_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

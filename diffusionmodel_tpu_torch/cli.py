@@ -2,10 +2,15 @@
 
     python -m diffusionmodel_tpu_torch.cli --mode serve --ckpt PATH \
         [--port 8000] [--max_batch 8] [--sampler ddim] [--steps 50]
+    python -m diffusionmodel_tpu_torch.cli --mode txt2img --prompt TEXT \
+        [--ldm_arch sd] [--ldm_sampler ddim] [--steps 50] [--batch_size 1]
+    python -m diffusionmodel_tpu_torch.cli --mode img2img|inpaint \
+        --orig_img FILE [--strength 0.75]
 
-Only ``--mode serve`` is ported; the other modes of the JAX CLI print that
-they are not ported yet and return 1. Flags keep the JAX CLI's spellings;
-``--device`` (default cuda) is the port's own.
+``--mode serve`` and the latent-diffusion modes txt2img / img2img /
+inpaint are ported; the other modes of the JAX CLI (and ``--family main``
+editing) print that they are not ported yet and return 1. Flags keep the
+JAX CLI's spellings; ``--device`` (default cuda) is the port's own.
 """
 
 from __future__ import annotations
@@ -23,11 +28,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA port of the enhanced diffusion model")
     p.add_argument("--mode", type=str, default="train", choices=_MODES,
-                   help="serve (HTTP generation service) is ported; the "
-                        "other modes are not yet")
+                   help="serve (HTTP generation service) and the "
+                        "latent-diffusion pipelines txt2img / img2img / "
+                        "inpaint are ported; the other modes are not yet")
     p.add_argument("--ckpt", "--checkpoint", dest="ckpt", type=str,
-                   default=None, help="JAX package checkpoint (.pkl or a "
-                   "directory with payload.pkl)")
+                   default=None, help="serve: a JAX package checkpoint "
+                   "(.pkl or a directory with payload.pkl); LDM modes: an "
+                   "SD-v1 .ckpt")
     p.add_argument("--sampler", type=str, default=None,
                    choices=["ancestral", "ddim", "dpmpp"])
     p.add_argument("--steps", type=int, default=None,
@@ -46,6 +53,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve mode: fixed sampler batch (slot) size")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--seed", type=int, default=None)
+    # LDM modes (txt2img / img2img / inpaint)
+    p.add_argument("--prompt", type=str,
+                   default="a painting of a virus monster playing guitar",
+                   help="LDM modes: the text prompt")
+    p.add_argument("--orig_img", "--orig-img", dest="orig_img", type=str,
+                   default=None, help="img2img/inpaint: input image file")
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="LDM modes: images per prompt")
+    p.add_argument("--scale", type=float, default=None,
+                   help="LDM unconditional guidance scale (default 7.5 "
+                        "txt2img / 5.0 img2img+inpaint)")
+    p.add_argument("--strength", type=float, default=0.75,
+                   help="img2img/inpaint: noising strength")
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--flash", dest="flash", action="store_true",
+                   default=True, help="self-attention through the CUDA "
+                   "flash-attention kernel at N >= 2048 (default on)")
+    p.add_argument("--no_flash", dest="flash", action="store_false")
+    p.add_argument("--ldm_arch", type=str, default="sd",
+                   choices=["sd", "tiny", "mid"],
+                   help="sd = SD-v1 scale (860M); tiny = smoke-test size; "
+                        "mid = ~1/10 of sd")
+    p.add_argument("--family", type=str, default="ldm",
+                   choices=["ldm", "main"],
+                   help="img2img/inpaint: ldm (ported) or main (the "
+                        "flagship's editing, not ported yet)")
+    p.add_argument("--ldm_sampler", type=str, default="ddim",
+                   choices=["ddim", "ddpm", "dpmpp"],
+                   help="txt2img sampler (img2img/inpaint use DDIM)")
+    p.add_argument("--ldm_native", type=str, default=None,
+                   help="LDM modes: a JAX --mode train_ldm checkpoint "
+                        "({arch, unet, ae} pickle)")
+    p.add_argument("--out_dir", type=str, default="./output/ldm/")
     return p
 
 
@@ -70,10 +112,52 @@ def _class_names(data_root: str):
                   if os.path.isdir(os.path.join(img_root, d))) or None
 
 
+def _ldm(args) -> int:
+    """--mode txt2img | img2img | inpaint (the latent-diffusion stack)."""
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
+        LdmRunner,
+    )
+    from diffusionmodel_tpu_torch.models.latent_diffusion.util import (
+        load_img,
+        save_images,
+        set_seed,
+    )
+
+    if args.mode != "txt2img" and not args.orig_img:
+        print(f"Error: --orig_img required for {args.mode} mode")
+        return 1
+    runner = LdmRunner(sd_ckpt=args.ckpt, arch=args.ldm_arch,
+                       use_flash=args.flash, sampler=args.ldm_sampler,
+                       steps=args.steps or 50, native_ckpt=args.ldm_native,
+                       device=args.device)
+    gen = set_seed(args.seed if args.seed is not None else 42, runner.device)
+    if args.mode == "txt2img":
+        imgs = runner.txt2img(
+            args.prompt, batch_size=args.batch_size, h=args.height,
+            w=args.width, uncond_scale=7.5 if args.scale is None
+            else args.scale, generator=gen)
+    else:
+        img = load_img(args.orig_img, size=(args.height, args.width))
+        img = img.repeat(args.batch_size, axis=0)
+        fn = runner.img2img if args.mode == "img2img" else runner.inpaint
+        imgs = fn(img, args.prompt, strength=args.strength,
+                  uncond_scale=5.0 if args.scale is None else args.scale,
+                  generator=gen)
+    paths = save_images(imgs, args.out_dir, prefix=f"{args.mode}_")
+    print(f"Wrote {len(paths)} image(s): {paths[0]}"
+          + (f" .. {paths[-1]}" if len(paths) > 1 else ""))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.mode in ("txt2img", "img2img", "inpaint") \
+            and not (args.family == "main" and args.mode != "txt2img"):
+        return _ldm(args)
     if args.mode != "serve":
-        print(f"--mode {args.mode} is not ported to the PyTorch package yet; "
+        what = f"--mode {args.mode}" + (" --family main" if args.mode in (
+            "img2img", "inpaint") else "")
+        print(f"{what} is not ported to the PyTorch package yet; "
               "use python -m diffusionmodel_tpu.cli (see ROADMAP.md)")
         return 1
     if args.ckpt is None:

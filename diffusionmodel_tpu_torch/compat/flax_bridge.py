@@ -148,3 +148,169 @@ def state_dict_from_flax(params: Dict[str, Any],
     m.conv(("out_conv2",), "out.3")
     return {k: torch.from_numpy(np.copy(v, order="C"))
             for k, v in m.sd.items()}
+
+
+# --- latent diffusion: flax trees -> SD-v1 names ---------------------------
+#
+# The port's LDM modules carry the SD-v1 checkpoint's names, so these are
+# the inverse of ``diffusionmodel_tpu/compat/sd_convert.py``
+# (``convert_sd_unet`` / ``convert_sd_autoencoder``): the same
+# (flax path, SD key, kind) rules, kept here as the port's own copy.
+
+def ldm_unet_rules(channel_multipliers=(1, 2, 4, 4),
+                   attention_levels=(0, 1, 2), n_res_blocks: int = 2,
+                   tf_layers: int = 1):
+    """(flax path, SD key, kind) for every parameterised layer of the LDM
+    UNet; kind is conv, dense, dense_nobias or norm."""
+    rules = []
+
+    def resblock(fp, tk):
+        rules.extend([
+            (fp + ("in_norm",), f"{tk}.in_layers.0", "norm"),
+            (fp + ("in_conv",), f"{tk}.in_layers.2", "conv"),
+            (fp + ("emb",), f"{tk}.emb_layers.1", "dense"),
+            (fp + ("out_norm",), f"{tk}.out_layers.0", "norm"),
+            (fp + ("out_conv",), f"{tk}.out_layers.3", "conv"),
+            (fp + ("skip",), f"{tk}.skip_connection", "conv")])
+
+    def transformer(fp, tk):
+        rules.append((fp + ("norm",), f"{tk}.norm", "norm"))
+        rules.append((fp + ("proj_in",), f"{tk}.proj_in", "conv"))
+        for i in range(tf_layers):
+            bf, bt = fp + (f"block_{i}",), f"{tk}.transformer_blocks.{i}"
+            for attn in ("attn1", "attn2"):
+                for qkv in ("to_q", "to_k", "to_v"):
+                    rules.append((bf + (attn, qkv), f"{bt}.{attn}.{qkv}",
+                                  "dense_nobias"))
+                rules.append((bf + (attn, "to_out"), f"{bt}.{attn}.to_out.0",
+                              "dense"))
+            for n in (1, 2, 3):
+                rules.append((bf + (f"norm{n}",), f"{bt}.norm{n}", "norm"))
+            rules.append((bf + ("geglu", "proj"), f"{bt}.ff.net.0.proj",
+                          "dense"))
+            rules.append((bf + ("ff_out",), f"{bt}.ff.net.2", "dense"))
+        rules.append((fp + ("proj_out",), f"{tk}.proj_out", "conv"))
+
+    rules.append((("time_0",), "time_embed.0", "dense"))
+    rules.append((("time_2",), "time_embed.2", "dense"))
+    rules.append((("in_conv",), "input_blocks.0.0", "conv"))
+    n_levels = len(channel_multipliers)
+    idx = 1
+    for i in range(n_levels):
+        for j in range(n_res_blocks):
+            resblock((f"down_{i}_{j}_res",), f"input_blocks.{idx}.0")
+            if i in attention_levels:
+                transformer((f"down_{i}_{j}_attn",), f"input_blocks.{idx}.1")
+            idx += 1
+        if i != n_levels - 1:
+            rules.append(((f"down_{i}_downsample",),
+                          f"input_blocks.{idx}.0.op", "conv"))
+            idx += 1
+    resblock(("mid_res1",), "middle_block.0")
+    transformer(("mid_attn",), "middle_block.1")
+    resblock(("mid_res2",), "middle_block.2")
+    idx = 0
+    for i in reversed(range(n_levels)):
+        for j in range(n_res_blocks + 1):
+            resblock((f"up_{i}_{j}_res",), f"output_blocks.{idx}.0")
+            if i in attention_levels:
+                transformer((f"up_{i}_{j}_attn",), f"output_blocks.{idx}.1")
+            if i != 0 and j == n_res_blocks:
+                sub = 2 if i in attention_levels else 1
+                rules.append(((f"up_{i}_upsample",),
+                              f"output_blocks.{idx}.{sub}.conv", "conv"))
+            idx += 1
+    rules.append((("out_norm",), "out.0", "norm"))
+    rules.append((("out_conv",), "out.2", "conv"))
+    return rules
+
+
+def autoencoder_rules(ch_mults=(1, 2, 4, 4), n_resnet: int = 2):
+    """(flax path, SD key, kind) for every layer of the LDM autoencoder."""
+    rules = []
+
+    def resnet(fp, tk):
+        rules.extend([
+            (fp + ("GroupNorm_0",), f"{tk}.norm1", "norm"),
+            (fp + ("conv1",), f"{tk}.conv1", "conv"),
+            (fp + ("GroupNorm_1",), f"{tk}.norm2", "norm"),
+            (fp + ("conv2",), f"{tk}.conv2", "conv"),
+            (fp + ("nin_shortcut",), f"{tk}.nin_shortcut", "conv")])
+
+    def attn(fp, tk):
+        rules.append((fp + ("norm",), f"{tk}.norm", "norm"))
+        for n in ("q", "k", "v", "proj_out"):
+            rules.append((fp + (n,), f"{tk}.{n}", "conv"))
+
+    n_levels = len(ch_mults)
+    rules.append((("encoder", "conv_in"), "encoder.conv_in", "conv"))
+    for i in range(n_levels):
+        for j in range(n_resnet):
+            resnet(("encoder", f"down_{i}_block_{j}"),
+                   f"encoder.down.{i}.block.{j}")
+        if i != n_levels - 1:
+            rules.append((("encoder", f"down_{i}_downsample"),
+                          f"encoder.down.{i}.downsample.conv", "conv"))
+    resnet(("encoder", "mid_block_1"), "encoder.mid.block_1")
+    attn(("encoder", "mid_attn"), "encoder.mid.attn_1")
+    resnet(("encoder", "mid_block_2"), "encoder.mid.block_2")
+    rules.append((("encoder", "norm_out"), "encoder.norm_out", "norm"))
+    rules.append((("encoder", "conv_out"), "encoder.conv_out", "conv"))
+    rules.append((("decoder", "conv_in"), "decoder.conv_in", "conv"))
+    resnet(("decoder", "mid_block_1"), "decoder.mid.block_1")
+    attn(("decoder", "mid_attn"), "decoder.mid.attn_1")
+    resnet(("decoder", "mid_block_2"), "decoder.mid.block_2")
+    for i in range(n_levels):
+        for j in range(n_resnet + 1):
+            resnet(("decoder", f"up_{i}_block_{j}"),
+                   f"decoder.up.{i}.block.{j}")
+        if i != 0:
+            rules.append((("decoder", f"up_{i}_upsample"),
+                          f"decoder.up.{i}.upsample.conv", "conv"))
+    rules.append((("decoder", "norm_out"), "decoder.norm_out", "norm"))
+    rules.append((("decoder", "conv_out"), "decoder.conv_out", "conv"))
+    rules.append((("quant_conv",), "quant_conv", "conv"))
+    rules.append((("post_quant_conv",), "post_quant_conv", "conv"))
+    return rules
+
+
+def _from_rules(tree: Dict[str, Any], rules) -> Dict[str, torch.Tensor]:
+    """Apply (flax path, key, kind) rules to a flax tree; a path the tree
+    lacks (an optional skip / shortcut conv) is left out."""
+    sd: Dict[str, np.ndarray] = {}
+    for fpath, tkey, kind in rules:
+        node = tree
+        for p in fpath:
+            node = node.get(p) if isinstance(node, dict) else None
+        if node is None:
+            continue
+        if kind == "norm":
+            sd[f"{tkey}.weight"] = np.asarray(node["scale"])
+            sd[f"{tkey}.bias"] = np.asarray(node["bias"])
+            continue
+        k = np.asarray(node["kernel"])
+        sd[f"{tkey}.weight"] = _conv(k) if kind == "conv" else _lin(k)
+        if kind != "dense_nobias" and "bias" in node:
+            sd[f"{tkey}.bias"] = np.asarray(node["bias"])
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def ldm_unet_state_dict_from_flax(params: Dict[str, Any],
+                                  channel_multipliers=(1, 2, 4, 4),
+                                  attention_levels=(0, 1, 2),
+                                  n_res_blocks: int = 2, tf_layers: int = 1
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX ``UNetModel`` parameter tree -> the port's ``UNetModel``
+    state_dict (SD-v1 names, no prefix)."""
+    return _from_rules(params, ldm_unet_rules(
+        channel_multipliers, attention_levels, n_res_blocks, tf_layers))
+
+
+def autoencoder_state_dict_from_flax(params: Dict[str, Any],
+                                     ch_mults=(1, 2, 4, 4),
+                                     n_resnet: int = 2
+                                     ) -> Dict[str, torch.Tensor]:
+    """A JAX ``Autoencoder`` parameter tree -> the port's ``Autoencoder``
+    state_dict (SD-v1 names, no prefix)."""
+    return _from_rules(params, autoencoder_rules(ch_mults, n_resnet))

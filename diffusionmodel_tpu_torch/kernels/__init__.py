@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin.
 
 - ``se_block``: squeeze-excitation (replaces the Pallas ``se_block_fused``);
-- ``coord_attn``: coordinate attention (replaces ``coord_attn_fused``).
+- ``coord_attn``: coordinate attention (replaces ``coord_attn_fused``);
+- ``flash_attn``: the flash-attention forward (replaces ``_flash_forward``).
 
 Sources live in ``csrc/`` and are built by ``_build`` at first use.
 """

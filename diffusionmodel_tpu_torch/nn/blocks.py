@@ -50,12 +50,22 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm (eps 1e-5) whose output stays channels_last."""
+    """GroupNorm whose output stays channels_last. ``eps`` is PyTorch's
+    1e-5 by default (the ContextUnet reference); flax's GroupNorm, which
+    the latent-diffusion modules mirror, uses 1e-6.
 
-    def __init__(self, num_groups: int, num_channels: int):
-        super().__init__(num_groups, num_channels, eps=1e-5)
+    On a CPU tensor each sample is normalised on its own: the CPU kernel
+    splits its work across samples by thread count (3 intra-op threads do),
+    which would let batch neighbours move a sample's result. CUDA tensors
+    take one call for the batch."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__(num_groups, num_channels, eps=eps)
 
     def forward(self, x):
+        if x.device.type == "cpu" and x.shape[0] > 1:
+            return torch.cat([channels_last(super(GroupNorm, self).forward(s))
+                              for s in x.split(1)])
         return channels_last(super().forward(x))
 
 

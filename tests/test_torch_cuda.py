@@ -19,7 +19,12 @@ from diffusionmodel_tpu_torch.kernels.coord_attn import (
     coord_attn,
     coord_attn_plain,
 )
+from diffusionmodel_tpu_torch.kernels.flash_attn import (
+    flash_attention,
+    flash_attention_plain,
+)
 from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_plain
+from diffusionmodel_tpu_torch.models.latent_diffusion.unet import UNetModel
 from diffusionmodel_tpu_torch.nn.blocks import SEBlock, channels_last, gn_groups
 from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
 from diffusionmodel_tpu_torch.nn.context_unet import ContextUnet
@@ -165,4 +170,83 @@ def test_context_unet_kernel_path_matches_plain_path(dev, norm):
         assert coord_attn.launches - n_ca == (4 if norm == "group" else 0)
         want = plain(x, c, t, ctx)
     assert got.shape == (4, 64, 64, 3) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+# Flash attention: (B, N, M, H, D) — every head dim the LDM archs send, a
+# ragged N (416 px: 52² = 2704 tokens), M != N, and a sequence shorter than
+# one tile.
+FLASH_SHAPES = [(2, 2704, 2704, 8, 40), (1, 300, 200, 2, 16),
+                (1, 1000, 1500, 4, 32), (2, 257, 257, 8, 64),
+                (1, 2304, 2304, 8, 80), (1, 2048, 333, 8, 160),
+                (3, 17, 5, 1, 40)]
+
+
+def _qkv(b, n, m, h, d, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, n, h, d), generator=g, device=dev),
+            torch.randn((b, m, h, d), generator=g, device=dev),
+            torch.randn((b, m, h, d), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_matches_twin(dev, shape):
+    q, k, v = _qkv(*shape, dev)
+    n = flash_attention.launches
+    o, lse = flash_attention(q, k, v, want_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    want_o, want_lse = flash_attention_plain(q, k, v, want_lse=True)
+    assert o.shape == q.shape and lse.shape == (shape[0], shape[3], shape[1])
+    assert (o - want_o).abs().max().item() <= ATOL
+    assert (lse - want_lse).abs().max().item() <= ATOL
+    assert torch.equal(flash_attention(q, k, v), o)
+
+
+def test_flash_kernel_reads_strided_heads(dev):
+    """q/k/v as views of one [B, N, 3·H·D] projection, the way a fused
+    QKV product would leave them: no copy, same result."""
+    b, n, h, d = 2, 300, 4, 40
+    qkv = torch.randn((b, n, 3 * h * d), device=dev)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    assert (got - want).abs().max().item() <= ATOL
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v = _qkv(1, 64, 64, 2, 40, dev)
+    n = flash_attention.launches
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*_qkv(1, 64, 64, 2, 24, dev))
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, k[:, :, :1], v)
+    assert flash_attention.launches == n
+
+
+def test_ldm_unet_flash_path_matches_plain_path(dev):
+    """The tiny LDM UNet with its gate lowered so the kernel runs at every
+    level-0 self-attention (2 of them), against the plain path."""
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import ARCHS
+
+    a = {k: v for k, v in ARCHS["tiny"].items() if not k.startswith("ae_")}
+    torch.manual_seed(0)
+    unet = UNetModel(flash_min_seq=512, **a).to(dev).to(
+        memory_format=torch.channels_last).eval()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 32, 32, 4), generator=g, device=dev)
+    t = torch.tensor([10, 900], device=dev)
+    cond = torch.randn((2, 77, a["d_cond"]), generator=g, device=dev)
+    with torch.no_grad():
+        n = flash_attention.launches
+        got = unet(x, t, cond)
+        torch.cuda.synchronize()
+        assert flash_attention.launches - n == 3  # down_0_0, up_0_{0,1}
+        unet.set_use_flash(False)
+        want = unet(x, t, cond)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)

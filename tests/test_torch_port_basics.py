@@ -191,7 +191,7 @@ def test_checkpoint_loader_stubs_unknown_classes(tmp_path):
         load_checkpoint(str(tmp_path / "missing"))
 
 
-@pytest.mark.parametrize("mode", ["train", "generate", "eval", "txt2img"])
+@pytest.mark.parametrize("mode", ["train", "generate", "eval", "train_ldm"])
 def test_cli_unported_modes_return_1(mode, capsys):
     from diffusionmodel_tpu_torch.cli import main
 
