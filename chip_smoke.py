@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width, with weights drawn from
-fixed torch seeds: the ContextUnet serving path of ``preset("full")``
+Drives the port's three main paths at full width, with weights drawn
+from fixed torch seeds: the ContextUnet serving path of ``preset("full")``
 (ContextUnet v2, n_feat 192, 256 px, 5 classes, GroupNorm, 353M
 parameters) with ``model.use_pallas=True``, so that SE and CoordAttn run
-through the hand-written CUDA kernels; and the latent-diffusion path
+through the hand-written CUDA kernels; the latent-diffusion path
 (``LdmRunner(arch="sd")``: the SD-v1 UNet, 860M parameters, and VAE at
 512 px), whose level-0 self-attention runs through the hand-written
-flash-attention kernel. Phases, each printing JSON lines:
+flash-attention kernel; and LDM training on that runner (``fit_ldm``,
+``fit_ae``), whose backward runs the two hand-written flash-attention
+backward kernels. Phases, each printing JSON lines:
 
 1. env      the card (nvidia-smi's name and power limit), torch/CUDA
             versions, and the TF32 settings, both switched off: every
@@ -50,6 +52,27 @@ flash-attention kernel. Phases, each printing JSON lines:
             this random one gives values of std ~0.35-0.43 whose tail
             passes 1.5 (99.0-99.98% inside on an H100). Flash launches must
             be 5 per UNet forward.
+9. flash_bwd  the dQ and dK/dV kernels against their plain twins at the
+            training site (2, 4096, 4096, 8, 40) and the flash sites above:
+            max |diff| over max |reference| (tolerance 1e-4: fp32 sums over
+            a whole sequence taken in another order, with exp2 in place of
+            exp), the dQ pass's Delta (tolerance 1e-4 absolute), each pass's
+            time, its twin's, the backward of fp32
+            ``scaled_dot_product_attention`` (timed only: the port never
+            calls it), and the bound by operations.
+10. ldm_grad  one ``loss.backward()`` of the SD UNet at 512 px, batch 2,
+            through the kernels against the plain attention path on the
+            same weights and draws: relative L2 of the whole gradient
+            (tolerance 1e-4) and of the level-0 attn1 projections, and 5
+            forward, 5 dQ and 5 dK/dV launches.
+11. train_ldm the training path, with the launch counts zeroed just before
+            each run: ``fit_ldm`` on ``LdmRunner(arch="sd")`` at 512 px,
+            batch 2, 8 synthetic images, 2 epochs (finite losses, 5
+            launches of each kernel per step), its checkpoint reloaded by
+            a new ``LdmRunner`` with a bit-identical UNet output, 2 steps
+            with ``remat=True`` on images through the frozen VAE (10
+            forward launches per step), and ``fit_ae`` for 2 steps at
+            512 px. Seconds per step, images/s and peak memory.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -85,6 +108,11 @@ FLASH_SITES = [FLASH_MAIN, (2, 2704, 2704, 8, 40), (2, 2304, 2304, 8, 80),
                (2, 4096, 4096, 2, 16), (4, 4096, 4096, 4, 32),
                (2, 4096, 4096, 4, 64)]
 FLASH_PER_FORWARD = 5  # level-0 self-attentions of the SD UNet at 512 px
+# The training site: the SD UNet's level 0 at 512 px and batch 2.
+FLASH_TRAIN = (2, 4096, 4096, 8, 40)
+BWD_RTOL = 1e-4  # backward kernels: max |diff| over max |reference|
+GRAD_RTOL = 1e-4  # relative L2 of a whole UNet gradient, kernels vs plain
+TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 2, 2
 # (H, C) of each site in one flagship forward, in forward order.
 SE_SITES = [(256, 192), (256, 192), (128, 384), (64, 768), (32, 1536)]
 CA_SITES = [(128, 192), (64, 384), (32, 768), (16, 1536)]
@@ -113,27 +141,43 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn) -> dict:
-    """Device ms per CUDA kernel name over one call of ``fn``
-    (torch.profiler); the port's kernels by their short names."""
+def kernel_breakdown(fn) -> tuple:
+    """Profile one call of ``fn`` (torch.profiler, CUDA activity): device ms
+    per kernel name (the port's kernels by their short names), the busy ms
+    (the union of the kernels' intervals) and the wall ms of the call.
+    Only kernel events are counted, and an event the profiler reports twice
+    (same name and interval) once."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()|flash_fwd<\d+, ?\d+>",
-                              e.key)
-            name = short.group(0) if short else e.key[:80]
-            out[name] = out.get(name, 0.0) + us / 1e3
-    return out
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out, seen = {}, set()
+    for e in prof.events():
+        start, end = e.time_range.start, e.time_range.end
+        if e.device_type != DeviceType.CUDA or end <= start \
+                or (e.name, start, end) in seen:
+            continue
+        seen.add((e.name, start, end))
+        short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()|flash_(?:fwd|bwd_dq|"
+                          r"bwd_dkv)<\d+, ?\d+>", e.name)
+        name = short.group(0) if short else e.name[:80]
+        out[name] = out.get(name, 0.0) + (end - start) / 1e3
+    busy_us, reach = 0.0, float("-inf")
+    for _, start, end in sorted(seen, key=lambda s: s[1]):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return out, busy_us / 1e3, wall_ms
+
+
+def device_times(fn) -> dict:
+    """Device ms per CUDA kernel name over one call of ``fn``."""
+    return kernel_breakdown(fn)[0]
 
 
 def bound(nbytes: float, flops: float):
@@ -170,10 +214,15 @@ def phase_build() -> None:
     for r in report.values():  # ptxas -v: registers of each kernel
         for chunk in r["log"].split("Function properties for ")[1:]:
             fn = re.search(r"(?:se|ca)_[a-z_]+(?=E)", chunk)
-            flash = re.search(r"flash_fwdILi(\d+)ELi(\d+)E", chunk)
+            flash = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))ILi(\d+)ELi(\d+)E",
+                              chunk)
             used = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
             if flash and used:
-                regs["flash_fwd<%s,%s>" % flash.groups()] = int(used.group(1))
+                regs["%s<%s,%s>" % flash.groups()] = int(used.group(1))
+                if spill and int(spill.group(1)):
+                    regs["%s<%s,%s> spill bytes" % flash.groups()] = int(
+                        spill.group(1))
             elif fn and used:
                 regs[fn.group(0)] = int(used.group(1))
     emit("build", seconds=time.monotonic() - t0,
@@ -507,11 +556,13 @@ def phase_ldm_forward(flash) -> None:
             times[name] = (time.perf_counter() - t0) * 1e3
         unet.set_use_flash(True)
         event_ms = cuda_ms(lambda: unet(x, t, cond), 3)
-        by_kernel = device_times(lambda: unet(x, t, cond))
+        by_kernel, busy_ms, wall_ms = kernel_breakdown(
+            lambda: unet(x, t, cond))
     total = sum(by_kernel.values())
     ours = sum(v for k, v in by_kernel.items() if k.startswith("flash_fwd"))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     emit("ldm_forward", device_ms=total, event_ms=event_ms,
+         busy_ms=busy_ms, wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms,
          flash_device_ms=ours,
          top_kernels=[[k, v] for k, v in top])
     emit("ldm_forward", params=n_params, shape=list(got.shape),
@@ -586,12 +637,303 @@ def phase_ldm(flash) -> int:
     return launches
 
 
+def _bwd_inputs(b, n, m, h, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, n, h, d), generator=g, device="cuda")
+    k = torch.randn((b, m, h, d), generator=g, device="cuda")
+    v = torch.randn((b, m, h, d), generator=g, device="cuda")
+    do = torch.randn((b, n, h, d), generator=g, device="cuda")
+    return q, k, v, do
+
+
+def _rel_max(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_flash_bwd() -> list:
+    """The two backward kernels against their twins; per site and pass the
+    numbers a kernels-line entry needs."""
+    import torch.nn.functional as F
+
+    from diffusionmodel_tpu_torch.kernels.flash_attn import (
+        flash_attention,
+        flash_attention_dkv,
+        flash_attention_dkv_plain,
+        flash_attention_dq,
+        flash_attention_dq_plain,
+    )
+
+    rows = []
+    for i, (b, n, m, h, d) in enumerate([FLASH_TRAIN] + FLASH_SITES):
+        q, k, v, do = _bwd_inputs(b, n, m, h, d, 700 + i)
+        with torch.no_grad():
+            o, lse = flash_attention(q, k, v, want_lse=True)
+            dq, delta = flash_attention_dq(q, k, v, o, lse, do)
+            dk, dv = flash_attention_dkv(q, k, v, do, lse, delta)
+            want_dq, want_delta = flash_attention_dq_plain(q, k, v, o, lse, do)
+            want_dk, want_dv = flash_attention_dkv_plain(q, k, v, do, lse,
+                                                         want_delta)
+            errs = {"dq": _rel_max(dq, want_dq), "dk": _rel_max(dk, want_dk),
+                    "dv": _rel_max(dv, want_dv)}
+            abs_errs = {"dq": (dq - want_dq).abs().max().item(),
+                        "dk": (dk - want_dk).abs().max().item(),
+                        "dv": (dv - want_dv).abs().max().item()}
+            err_delta = (delta - want_delta).abs().max().item()
+            del dq, dk, dv, want_dq, want_dk, want_dv, want_delta
+            torch.cuda.empty_cache()
+            iters = 10 if (b, n, m, h, d) == FLASH_TRAIN else 3
+            ms_dq = cuda_ms(lambda: flash_attention_dq(q, k, v, o, lse, do),
+                            iters)
+            ms_dkv = cuda_ms(lambda: flash_attention_dkv(q, k, v, do, lse,
+                                                         delta), iters)
+            plain_dq = cuda_ms(lambda: flash_attention_dq_plain(
+                q, k, v, o, lse, do), iters)
+            plain_dkv = cuda_ms(lambda: flash_attention_dkv_plain(
+                q, k, v, do, lse, delta), iters)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters)
+        del out, qt, kt, vt
+        prod = 2 * b * h * n * m * d  # flops of one [N,M,D] product
+        qb, kb, rb = 4 * b * n * h * d, 4 * b * m * h * d, 4 * b * h * n
+        bound_dq = bound(3 * qb + 2 * kb + rb + qb + rb, 3 * prod)
+        bound_dkv = bound(2 * qb + 2 * kb + 2 * rb + 2 * kb, 4 * prod)
+        rows.append(dict(
+            shape=[b, n, m, h, d], max_rel_err=errs, max_abs_err=abs_errs,
+            max_abs_err_delta=err_delta, ms_dq=ms_dq, ms_dkv=ms_dkv,
+            plain_ms_dq=plain_dq, plain_ms_dkv=plain_dkv,
+            library_ms_backward=library_ms,
+            bound_ms_dq=bound_dq[0], bound_by_dq=bound_dq[1],
+            bound_ms_dkv=bound_dkv[0], bound_by_dkv=bound_dkv[1],
+            bound_share_dq=bound_dq[0] / ms_dq,
+            bound_share_dkv=bound_dkv[0] / ms_dkv))
+        emit("flash_bwd", **rows[-1])
+        check(max(errs.values()) <= BWD_RTOL and err_delta <= KERNEL_ATOL,
+              f"flash backward {[b, n, m, h, d]}: {errs}, delta {err_delta}")
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _counts(counters) -> list:
+    return [f.launches for f in counters]
+
+
+def phase_ldm_grad(counters) -> None:
+    """One backward of the SD UNet at 512 px through the kernels against
+    the plain attention path, same weights and draws."""
+    from diffusionmodel_tpu_torch.models.latent_diffusion.latent_diffusion import (  # noqa: E501
+        ldm_schedule,
+    )
+    from diffusionmodel_tpu_torch.models.latent_diffusion.training import (
+        ldm_loss,
+    )
+
+    unet = _sd_unet(0)
+    sched = ldm_schedule(device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    z0 = 0.18215 * torch.randn((TRAIN_BATCH, 64, 64, 4), generator=g,
+                               device="cuda")
+    cond = torch.randn((TRAIN_BATCH, 77, 768), generator=g, device="cuda")
+    t = torch.tensor([981, 21], device="cuda")
+    eps = torch.randn(z0.shape, generator=g, device="cuda")
+    attn1 = unet.input_blocks[1][1].transformer_blocks[0].attn1
+    projections = {n: getattr(attn1, n).weight for n in ("to_q", "to_k",
+                                                        "to_v")}
+    grads, losses, times = [], [], {}
+    for name, flash in (("kernel_path", True), ("plain_path", False)):
+        unet.set_use_flash(flash)
+        unet.zero_grad(set_to_none=True)
+        for f in counters:
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ldm_loss(unet, z0, cond, sched, t=t, eps=eps)
+        loss.backward()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        launched = _counts(counters)
+        check(launched == ([FLASH_PER_FORWARD] * 3 if flash else [0, 0, 0]),
+              f"ldm_grad {name}: launches {launched}")
+        losses.append(loss.item())
+        grads.append({k: p.grad for k, p in unet.named_parameters()})
+        unet.zero_grad(set_to_none=True)
+    for name, flash in (("kernel_path_2", True), ("plain_path_2", False)):
+        unet.set_use_flash(flash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ldm_loss(unet, z0, cond, sched, t=t, eps=eps).backward()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        unet.zero_grad(set_to_none=True)
+    unet.set_use_flash(True)
+
+    def step():
+        ldm_loss(unet, z0, cond, sched, t=t, eps=eps).backward()
+        unet.zero_grad(set_to_none=True)
+
+    by_kernel, busy_ms, wall_ms = kernel_breakdown(step)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit("ldm_grad", profile="kernel path, loss + backward",
+         device_ms=sum(by_kernel.values()), busy_ms=busy_ms, wall_ms=wall_ms,
+         idle_share=1.0 - busy_ms / wall_ms,
+         flash_ms={k: v for k, v in by_kernel.items()
+                   if k.startswith("flash_")},
+         top_kernels=[[k, v] for k, v in top])
+    on, off = grads
+    diff2 = sum((on[k] - off[k]).square().sum() for k in off).item()
+    ref2 = sum(g.square().sum() for g in off.values()).item()
+    rel = (diff2 / ref2) ** 0.5
+    proj = {}
+    for n, w in projections.items():
+        key = next(k for k, p in unet.named_parameters() if p is w)
+        proj[n] = dict(norm=off[key].norm().item(),
+                       rel_l2=((on[key] - off[key]).norm()
+                               / off[key].norm()).item())
+    emit("ldm_grad", batch=TRAIN_BATCH, losses=losses, rel_l2=rel,
+         attn1_level0=proj, ms=times,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]),
+          f"ldm_grad losses {losses}")
+    check(rel <= GRAD_RTOL, f"ldm_grad relative L2 {rel}")
+    check(all(v["norm"] > 0 and v["rel_l2"] <= 1e-3 for v in proj.values()),
+          f"level-0 attn1 projection gradients {proj}")
+    del unet, grads, on, off
+    torch.cuda.empty_cache()
+
+
+def _train_images() -> tuple:
+    """8 synthetic 512 px images in [-1, 1] (smooth random fields, made from
+    a numpy seed) and a prompt for each, two classes."""
+    rng = np.random.default_rng(21)
+    low = rng.standard_normal((TRAIN_IMAGES, 16, 16, 3)).astype(np.float32)
+    img = np.tanh(low.repeat(32, axis=1).repeat(32, axis=2)
+                  + 0.1 * rng.standard_normal(
+                      (TRAIN_IMAGES, 512, 512, 3)).astype(np.float32))
+    prompts = [f"a photo of a {'crack' if i % 2 else 'pothole'}"
+               for i in range(TRAIN_IMAGES)]
+    return img, prompts
+
+
+def phase_train_ldm(counters) -> list:
+    """The LDM training path through ``LdmRunner(arch="sd")``; returns the
+    backward kernels' launches in its runs (forward, dQ, dK/dV)."""
+    import os
+    import shutil
+
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
+        LdmRunner,
+    )
+    from diffusionmodel_tpu_torch.models.latent_diffusion.training import (
+        fit_ae,
+        fit_ldm,
+        make_ldm_train_step,
+    )
+
+    images, prompts = _train_images()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "output", "chip_smoke")
+    ckpt = os.path.join(out_dir, "ldm_native.pkl")
+    runner = LdmRunner(arch="sd", device="cuda", verbose=False)
+    steps_per_epoch = TRAIN_IMAGES // TRAIN_BATCH
+    marks = []
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    state, history = fit_ldm(
+        runner, images, prompts, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+        lr=1e-4, uncond_prob=0.1, seed=0, out_path=ckpt,
+        log=lambda msg: marks.append((time.perf_counter(), msg)))
+    fit_s = time.perf_counter() - t0
+    fit_launches = _counts(counters)
+    fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the second epoch's four steps, timed between the two epoch logs
+    step_s = (marks[1][0] - marks[0][0]) / steps_per_epoch
+    save_s = marks[2][0] - marks[1][0]
+    emit("train_ldm", run="fit_ldm", images=TRAIN_IMAGES,
+         batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps=state.steps,
+         history=history, seconds=fit_s, seconds_per_step=step_s,
+         images_per_s=TRAIN_BATCH / step_s, checkpoint_write_s=save_s,
+         launches=fit_launches, peak_mem_gib=fit_peak)
+    check(state.steps == TRAIN_EPOCHS * steps_per_epoch
+          and len(history) == TRAIN_EPOCHS
+          and all(np.isfinite(history)), f"fit_ldm history {history}")
+    check(fit_launches == [FLASH_PER_FORWARD * state.steps] * 3,
+          f"fit_ldm launches {fit_launches} for {state.steps} steps")
+
+    t0 = time.perf_counter()
+    loaded = LdmRunner(arch="sd", device="cuda", verbose=False, seed=7,
+                       native_ckpt=ckpt)
+    load_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((TRAIN_BATCH, 64, 64, 4), generator=g, device="cuda")
+    t = torch.tensor([500, 20], device="cuda")
+    cond = runner.cond(prompts[:TRAIN_BATCH])
+    with torch.no_grad():
+        same = torch.equal(runner.unet(x, t, cond), loaded.unet(x, t, cond))
+    size_gib = os.path.getsize(ckpt) / 2 ** 30
+    emit("train_ldm", run="checkpoint", bytes_gib=size_gib,
+         load_s=load_s, unet_output_bit_identical=same)
+    check(same, "reloaded checkpoint gives another UNet output")
+    del loaded
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    step = make_ldm_train_step(runner.unet, state.opt, ae=runner.ae,
+                               uncond_prob=0.1, remat=True)
+    batch = torch.from_numpy(images[:TRAIN_BATCH]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters:
+        f.launches = 0
+    losses, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(batch, cond, uncond_cond=runner.cond([""])[0],
+                           generator=gen).item())
+        secs.append(time.perf_counter() - t0)
+    remat_launches = _counts(counters)
+    emit("train_ldm", run="remat_steps", losses=losses, seconds=secs,
+         images_per_s=TRAIN_BATCH / secs[-1], launches=remat_launches,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(all(np.isfinite(losses)), f"remat losses {losses}")
+    check(remat_launches == [4 * FLASH_PER_FORWARD, 2 * FLASH_PER_FORWARD,
+                             2 * FLASH_PER_FORWARD],
+          f"remat launches {remat_launches} for 2 steps")
+    del step, state, batch
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ae_state, ae_hist = fit_ae(runner.ae, images[:2 * TRAIN_BATCH], epochs=1,
+                               batch_size=TRAIN_BATCH, lr=1e-4, seed=0,
+                               log=lambda msg: None)
+    ae_s = time.perf_counter() - t0
+    emit("train_ldm", run="fit_ae", steps=ae_state.steps, history=ae_hist,
+         seconds=ae_s, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(ae_state.steps == 2 and all(np.isfinite(list(h.values())).all()
+                                      for h in ae_hist),
+          f"fit_ae history {ae_hist}")
+    del runner, ae_state
+    torch.cuda.empty_cache()
+    return [a + b for a, b in zip(fit_launches, remat_launches)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn
-    from diffusionmodel_tpu_torch.kernels.flash_attn import flash_attention
+    from diffusionmodel_tpu_torch.kernels.flash_attn import (
+        flash_attention,
+        flash_attention_dkv,
+        flash_attention_dq,
+    )
     from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     counters = [se_block, coord_attn]
@@ -605,6 +947,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ldm_forward(flash_attention)
     flash_launches = phase_ldm(flash_attention)
+    flash_counters = [flash_attention, flash_attention_dq, flash_attention_dkv]
+    bwd_rows = phase_flash_bwd()
+    phase_ldm_grad(flash_counters)
+    train_launches = phase_train_ldm(flash_counters)
 
     def entry(name, key, launched, replaces):
         sites = rows[key]
@@ -641,12 +987,39 @@ def main() -> int:
                    f"(B, N, M, H, D) = {list(FLASH_MAIN)})",
         }
 
+    def bwd_entry(name, key, launched, replaces):
+        main_site = bwd_rows[0]
+        per = FLASH_PER_FORWARD
+        return {
+            "name": name, "route": "cuda",
+            "source": "diffusionmodel_tpu_torch/kernels/csrc/"
+                      "flash_attn_bwd.cu",
+            "replaces": replaces, "launches": launched,
+            "max_abs_err": max(s["max_abs_err"][g] for s in bwd_rows
+                               for g in (("dq",) if key == "dq"
+                                         else ("dk", "dv"))),
+            "ms": per * main_site[f"ms_{key}"],
+            "plain_ms": per * main_site[f"plain_ms_{key}"],
+            "bound_ms": per * main_site[f"bound_ms_{key}"],
+            "bound_by": main_site[f"bound_by_{key}"],
+            "library_ms": per * main_site["library_ms_backward"],
+            "per": f"one SD UNet training step at 512 px, batch 2 ({per} "
+                   f"sites of (B, N, M, H, D) = {list(FLASH_TRAIN)}); "
+                   "library_ms is the whole SDPA backward (dq, dk and dv)",
+        }
+
+    fwd = flash_entry(flash_rows, flash_launches)
+    fwd["train_launches"] = train_launches[0]
     print(json.dumps({"kernels": [
         entry("se_block", "se_block", launches[0],
               "diffusionmodel_tpu/kernels/se_block.py:202"),
         entry("coord_attn", "coord_attn", launches[1],
               "diffusionmodel_tpu/kernels/coord_attn.py:296"),
-        flash_entry(flash_rows, flash_launches),
+        fwd,
+        bwd_entry("flash_attn_dq", "dq", train_launches[1],
+                  "diffusionmodel_tpu/kernels/flash_attn.py:268"),
+        bwd_entry("flash_attn_dkv", "dkv", train_launches[2],
+                  "diffusionmodel_tpu/kernels/flash_attn.py:285"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

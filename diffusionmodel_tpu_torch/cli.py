@@ -6,11 +6,15 @@
         [--ldm_arch sd] [--ldm_sampler ddim] [--steps 50] [--batch_size 1]
     python -m diffusionmodel_tpu_torch.cli --mode img2img|inpaint \
         --orig_img FILE [--strength 0.75]
+    python -m diffusionmodel_tpu_torch.cli --mode train_ldm --data_root DIR \
+        [--img_size 256] [--epochs 10] [--batch_size 4] [--remat] \
+        [--train_ae_epochs 0] [--ldm_native OUT.pkl]
 
-``--mode serve`` and the latent-diffusion modes txt2img / img2img /
-inpaint are ported; the other modes of the JAX CLI (and ``--family main``
-editing) print that they are not ported yet and return 1. Flags keep the
-JAX CLI's spellings; ``--device`` (default cuda) is the port's own.
+``--mode serve``, the latent-diffusion modes txt2img / img2img / inpaint
+and their training, ``train_ldm``, are ported; the other modes of the JAX
+CLI (and ``--family main`` editing) print that they are not ported yet and
+return 1. Flags keep the JAX CLI's spellings and defaults; ``--device``
+(default cuda) is the port's own.
 """
 
 from __future__ import annotations
@@ -28,9 +32,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA port of the enhanced diffusion model")
     p.add_argument("--mode", type=str, default="train", choices=_MODES,
-                   help="serve (HTTP generation service) and the "
+                   help="serve (HTTP generation service), the "
                         "latent-diffusion pipelines txt2img / img2img / "
-                        "inpaint are ported; the other modes are not yet")
+                        "inpaint and train_ldm are ported; the other modes "
+                        "are not yet")
     p.add_argument("--ckpt", "--checkpoint", dest="ckpt", type=str,
                    default=None, help="serve: a JAX package checkpoint "
                    "(.pkl or a directory with payload.pkl); LDM modes: an "
@@ -61,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--orig_img", "--orig-img", dest="orig_img", type=str,
                    default=None, help="img2img/inpaint: input image file")
     p.add_argument("--batch_size", type=int, default=1,
-                   help="LDM modes: images per prompt")
+                   help="LDM modes: images per prompt; train_ldm: the "
+                        "training batch")
     p.add_argument("--scale", type=float, default=None,
                    help="LDM unconditional guidance scale (default 7.5 "
                         "txt2img / 5.0 img2img+inpaint)")
@@ -85,9 +91,29 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ddim", "ddpm", "dpmpp"],
                    help="txt2img sampler (img2img/inpaint use DDIM)")
     p.add_argument("--ldm_native", type=str, default=None,
-                   help="LDM modes: a JAX --mode train_ldm checkpoint "
-                        "({arch, unet, ae} pickle)")
+                   help="LDM modes: load a --mode train_ldm checkpoint "
+                        "({arch, unet, ae} pickle, from either package); "
+                        "train_ldm: where to write it (default "
+                        "OUT_DIR/ldm_native.pkl)")
     p.add_argument("--out_dir", type=str, default="./output/ldm/")
+    # train_ldm
+    p.add_argument("--img_size", type=int, default=256,
+                   help="train_ldm: image size (a multiple of 8)")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-4,
+                   help="train_ldm: Adam learning rate")
+    p.add_argument("--uncond_prob", type=float, default=0.1,
+                   help="train_ldm: CFG conditioning-dropout probability")
+    p.add_argument("--prompt_template", type=str, default="a photo of a {}",
+                   help="train_ldm: per-image prompt from its class "
+                        "subdirectory name ('{}' slot); flat folders use "
+                        "--prompt for every image")
+    p.add_argument("--remat", action="store_true",
+                   help="train_ldm: recompute the UNet forward in the "
+                        "backward (torch.utils.checkpoint)")
+    p.add_argument("--train_ae_epochs", type=int, default=0,
+                   help="train_ldm: first train the VAE on the same images "
+                        "for this many epochs (recon L1 + tiny KL)")
     return p
 
 
@@ -149,11 +175,71 @@ def _ldm(args) -> int:
     return 0
 
 
+def _train_ldm(args) -> int:
+    """--mode train_ldm: the latent UNet (optionally the VAE first) on a
+    folder of images, written as an {arch, unet, ae} pickle."""
+    import json
+
+    import numpy as np
+
+    from diffusionmodel_tpu_torch.data.image_folder import ImageFolderDataset
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
+        LdmRunner,
+    )
+    from diffusionmodel_tpu_torch.models.latent_diffusion.training import (
+        fit_ae,
+        fit_ldm,
+    )
+
+    if not args.data_root:
+        print("Error: --data_root required for train_ldm mode")
+        return 1
+    size = args.img_size
+    if size % 8:
+        print(f"Error: --img_size must be a multiple of 8 (the SD f=8 VAE "
+              f"contract), got {size}")
+        return 1
+    try:
+        ds = ImageFolderDataset(args.data_root, img_size=size, normalize=True)
+    except FileNotFoundError as e:
+        print(f"Error: {e}")
+        return 1
+    images = np.stack([ds.load(i, augment=False)[0] for i in range(len(ds))])
+    multi = len(ds.classes) > 1
+    prompts = [args.prompt_template.format(ds.classes[ds.labels[i]])
+               if multi else args.prompt for i in range(len(ds))]
+    seed = args.seed if args.seed is not None else 0
+    runner = LdmRunner(sd_ckpt=args.ckpt, arch=args.ldm_arch,
+                       use_flash=args.flash, verbose=True,
+                       seed=args.seed if args.seed is not None else 42,
+                       device=args.device)
+    out_path = args.ldm_native or os.path.join(args.out_dir,
+                                               "ldm_native.pkl")
+    bs = min(args.batch_size, len(ds))
+    if args.train_ae_epochs:
+        _, ae_hist = fit_ae(runner.ae, images, epochs=args.train_ae_epochs,
+                            batch_size=bs, lr=args.lr, seed=seed)
+        print(json.dumps({"stage": "train_ae", "epochs": len(ae_hist),
+                          "first": ae_hist[0], "last": ae_hist[-1]}))
+    _, history = fit_ldm(runner, images, prompts, epochs=args.epochs,
+                         batch_size=bs, lr=args.lr,
+                         uncond_prob=args.uncond_prob, remat=args.remat,
+                         seed=seed, out_path=out_path)
+    print(json.dumps({"mode": "train_ldm", "images": len(ds),
+                      "epochs": len(history),
+                      "first_loss": round(history[0], 4),
+                      "last_loss": round(history[-1], 4),
+                      "ckpt": out_path}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mode in ("txt2img", "img2img", "inpaint") \
             and not (args.family == "main" and args.mode != "txt2img"):
         return _ldm(args)
+    if args.mode == "train_ldm":
+        return _train_ldm(args)
     if args.mode != "serve":
         what = f"--mode {args.mode}" + (" --family main" if args.mode in (
             "img2img", "inpaint") else "")

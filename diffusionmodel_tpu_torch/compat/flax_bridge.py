@@ -1,4 +1,5 @@
-"""JAX package parameter trees -> the port's ``state_dict``.
+"""JAX package parameter trees -> the port's ``state_dict`` (and, for the
+latent-diffusion modules, back).
 
 The inverse of ``diffusionmodel_tpu/compat/torch_convert.py::
 convert_context_unet_v2``: the port's modules carry the reference's
@@ -150,12 +151,15 @@ def state_dict_from_flax(params: Dict[str, Any],
             for k, v in m.sd.items()}
 
 
-# --- latent diffusion: flax trees -> SD-v1 names ---------------------------
+# --- latent diffusion: flax trees <-> SD-v1 names --------------------------
 #
 # The port's LDM modules carry the SD-v1 checkpoint's names, so these are
 # the inverse of ``diffusionmodel_tpu/compat/sd_convert.py``
 # (``convert_sd_unet`` / ``convert_sd_autoencoder``): the same
-# (flax path, SD key, kind) rules, kept here as the port's own copy.
+# (flax path, SD key, kind) rules, kept here as the port's own copy. One
+# table serves both directions: ``_from_rules`` reads flax trees into a
+# ``state_dict`` (JAX ``train_ldm`` pickles), ``_to_rules`` writes a
+# ``state_dict`` out as flax trees (the port's ``train_ldm`` pickles).
 
 def ldm_unet_rules(channel_multipliers=(1, 2, 4, 4),
                    attention_levels=(0, 1, 2), n_res_blocks: int = 2,
@@ -296,6 +300,38 @@ def _from_rules(tree: Dict[str, Any], rules) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
+def _conv_inv(w):
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def _to_rules(sd: Dict[str, torch.Tensor], rules) -> Dict[str, Any]:
+    """Apply (flax path, key, kind) rules to a ``state_dict``: the flax
+    tree of float32 numpy arrays that ``_from_rules`` reads back. A rule
+    whose key the dict lacks (a skip conv of a block that keeps its width)
+    is left out, as the flax module has no such layer."""
+    tree: Dict[str, Any] = {}
+
+    def arr(key):
+        return np.ascontiguousarray(
+            sd[key].detach().to("cpu", torch.float32).numpy())
+
+    for fpath, tkey, kind in rules:
+        if f"{tkey}.weight" not in sd:
+            continue
+        node = tree
+        for p in fpath:
+            node = node.setdefault(p, {})
+        w = arr(f"{tkey}.weight")
+        if kind == "norm":
+            node["scale"], node["bias"] = w, arr(f"{tkey}.bias")
+            continue
+        node["kernel"] = np.ascontiguousarray(
+            _conv_inv(w) if kind == "conv" else _lin(w))
+        if kind != "dense_nobias" and f"{tkey}.bias" in sd:
+            node["bias"] = arr(f"{tkey}.bias")
+    return tree
+
+
 def ldm_unet_state_dict_from_flax(params: Dict[str, Any],
                                   channel_multipliers=(1, 2, 4, 4),
                                   attention_levels=(0, 1, 2),
@@ -314,3 +350,24 @@ def autoencoder_state_dict_from_flax(params: Dict[str, Any],
     """A JAX ``Autoencoder`` parameter tree -> the port's ``Autoencoder``
     state_dict (SD-v1 names, no prefix)."""
     return _from_rules(params, autoencoder_rules(ch_mults, n_resnet))
+
+
+def ldm_unet_flax_from_state_dict(sd: Dict[str, torch.Tensor],
+                                  channel_multipliers=(1, 2, 4, 4),
+                                  attention_levels=(0, 1, 2),
+                                  n_res_blocks: int = 2, tf_layers: int = 1
+                                  ) -> Dict[str, Any]:
+    """The port's ``UNetModel`` state_dict -> the JAX ``UNetModel``
+    parameter tree (numpy leaves), the inverse of
+    :func:`ldm_unet_state_dict_from_flax`."""
+    return _to_rules(sd, ldm_unet_rules(
+        channel_multipliers, attention_levels, n_res_blocks, tf_layers))
+
+
+def autoencoder_flax_from_state_dict(sd: Dict[str, torch.Tensor],
+                                     ch_mults=(1, 2, 4, 4),
+                                     n_resnet: int = 2) -> Dict[str, Any]:
+    """The port's ``Autoencoder`` state_dict -> the JAX ``Autoencoder``
+    parameter tree (numpy leaves), the inverse of
+    :func:`autoencoder_state_dict_from_flax`."""
+    return _to_rules(sd, autoencoder_rules(ch_mults, n_resnet))

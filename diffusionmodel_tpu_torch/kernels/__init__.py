@@ -2,7 +2,9 @@
 
 - ``se_block``: squeeze-excitation (replaces the Pallas ``se_block_fused``);
 - ``coord_attn``: coordinate attention (replaces ``coord_attn_fused``);
-- ``flash_attn``: the flash-attention forward (replaces ``_flash_forward``).
+- ``flash_attn``: the flash-attention forward (replaces ``_flash_forward``);
+- ``flash_attn_bwd``: its two backward passes (replace ``_flash_dq_kernel``
+  and ``_flash_dkv_kernel``), behind ``flash_attn.FlashAttentionFunction``.
 
 Sources live in ``csrc/`` and are built by ``_build`` at first use.
 """

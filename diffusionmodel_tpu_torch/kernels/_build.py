@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("se_block", "coord_attn", "flash_attn")
+SOURCES = ("se_block", "coord_attn", "flash_attn", "flash_attn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

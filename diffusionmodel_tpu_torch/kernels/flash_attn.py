@@ -1,16 +1,25 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain twin.
+"""Flash attention: the hand-written CUDA kernels and their plain twins.
 
-Counterpart of ``diffusionmodel_tpu/kernels/flash_attn.py``. The kernel
-(``csrc/flash_attn.cu``) replaces the Pallas forward ``_flash_forward``
-(``flash_attn.py:128``, body ``_flash_kernel``). It is bound by operations:
-4·B·H·N·M·D fp32 flops against q, k, v and o read or written once; the
-source notes what its design does about that. The two backward passes
-(``_flash_dq_kernel``, ``_flash_dkv_kernel``) are not ported yet: this
-module serves inference only.
+Counterpart of ``diffusionmodel_tpu/kernels/flash_attn.py``. Three kernels,
+each bound by operations (the sources note what their designs do about
+that):
 
-:func:`flash_attention` takes the plain twin :func:`flash_attention_plain`
-for a CPU tensor and the kernel for a CUDA tensor, and raises for anything
-the kernel does not take. It never falls back from CUDA to the twin.
+- the forward (``csrc/flash_attn.cu``) replaces the Pallas
+  ``_flash_forward`` (``flash_attn.py:128``, body ``_flash_kernel``):
+  4·B·H·N·M·D flops, o and optionally the per-row logsumexp L;
+- the dQ pass (``csrc/flash_attn_bwd.cu``) replaces ``_flash_dq_kernel``
+  (``flash_attn.py:152``, launched at ``:268``): 6·B·H·N·M·D flops, dq and
+  Delta = rowsum(do∘o);
+- the dK/dV pass (same source) replaces ``_flash_dkv_kernel``
+  (``flash_attn.py:182``, launched at ``:285``): 8·B·H·N·M·D flops.
+
+:func:`flash_attention` is differentiable: where a gradient is wanted it
+runs :class:`FlashAttentionFunction` (the JAX package's ``custom_vjp``),
+whose forward keeps L and whose backward runs the two passes; under
+``torch.no_grad`` or without inputs that need a gradient it runs the
+forward alone, without L. Every kernel has a plain twin here; a CPU tensor
+takes the twin, a CUDA tensor the kernel, and anything the kernel does not
+take raises. Nothing falls back from CUDA to a twin.
 """
 
 from __future__ import annotations
@@ -25,7 +34,10 @@ from diffusionmodel_tpu_torch.kernels import _build
 HEAD_DIMS = (16, 32, 40, 64, 80, 160)  # every d_head the LDM archs send
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
+
+# --- plain twins ---------------------------------------------------------------
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           want_lse: bool = False) -> Result:
@@ -39,6 +51,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def _probs(q, k, lse):
+    """p = exp(q kᵀ/√D − L), [B,H,N,M], recomputed from L as both passes do."""
+    s = torch.einsum("bihd,bjhd->bhij", q, k) * (q.shape[-1] ** -0.5)
+    return torch.exp(s - lse[..., None])
+
+
+def flash_attention_dq_plain(q, k, v, o, lse, do
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dQ pass in plain torch: (dq [B,N,H,D], Delta [B,H,N]) with
+    Delta = rowsum(do∘o), ds = p(do vᵀ − Delta), dq = ds k/√D."""
+    delta = (do * o).sum(-1).transpose(1, 2)
+    ds = _probs(q, k, lse) * (torch.einsum("bihd,bjhd->bhij", do, v)
+                              - delta[..., None])
+    dq = torch.einsum("bhij,bjhd->bihd", ds, k) * (q.shape[-1] ** -0.5)
+    return dq, delta
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV pass in plain torch: (dk, dv), both [B,M,H,D], with
+    dv = pᵀ do and dk = dsᵀ q/√D."""
+    p = _probs(q, k, lse)
+    ds = p * (torch.einsum("bihd,bjhd->bhij", do, v) - delta[..., None])
+    dk = torch.einsum("bhij,bihd->bjhd", ds, q) * (q.shape[-1] ** -0.5)
+    return dk, torch.einsum("bhij,bihd->bjhd", p, do)
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do) -> Grads:
+    """What the two Pallas backward passes compute, in plain torch:
+    (dq, dk, dv) from the forward's inputs, o, L and the output gradient."""
+    dq, delta = flash_attention_dq_plain(q, k, v, o, lse, do)
+    return (dq, *flash_attention_dkv_plain(q, k, v, do, lse, delta))
+
+
+# --- kernel wrappers -----------------------------------------------------------
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn")
     if lib.flash_attn_forward.argtypes is None:
@@ -46,6 +94,21 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attn_forward.argtypes = [p] * 5 + [i] * 5 + [ll] * 8 + [p]
         lib.flash_attn_forward.restype = ctypes.c_int
     return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_bwd")
+    for fn in (lib.flash_attn_backward_dq, lib.flash_attn_backward_dkv):
+        if fn.argtypes is None:
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p] * 8 + [i] * 5 + [p, p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _layout_ok(t: torch.Tensor, d: int) -> bool:
+    return (t.stride(3) == 1 and t.stride(2) == d and t.stride(0) % 4 == 0
+            and t.stride(1) % 4 == 0 and t.data_ptr() % 16 == 0)
 
 
 def _check(name: str, t: torch.Tensor, b: int, h: int, d: int,
@@ -59,33 +122,22 @@ def _check(name: str, t: torch.Tensor, b: int, h: int, d: int,
                         f"{name} is {t.dtype}")
     if t.device.type != "cuda":
         raise ValueError(f"flash_attention: {name} is on {t.device}")
-    if t.stride(3) != 1 or t.stride(2) != d or t.stride(0) % 4 \
-            or t.stride(1) % 4 or t.data_ptr() % 16:
+    if not _layout_ok(t, d):
         raise ValueError(
             f"flash_attention: {name} needs a contiguous last axis, heads "
             f"packed at stride D, 16-byte alignment and batch and sequence "
             f"strides divisible by 4; got strides {t.stride()}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    want_lse: bool = False) -> Result:
-    """q: [B,N,H,D]; k, v: [B,M,H,D], read through their strides (a
-    ``to_q`` output viewed as [B,N,H,D] needs no copy). Returns o
-    [B,N,H,D] contiguous, and with ``want_lse`` also L [B,H,N] fp32.
-
-    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (``flash_attention.launches`` counts those calls)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, want_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check_qkv(q, k, v) -> Tuple[int, int, int, int, int]:
+    """Validate q [B,N,H,D], k, v [B,M,H,D] for the kernels; (b, n, m, h, d)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be [B,N,H,D], got "
                          f"{tuple(q.shape)}")
     b, n, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} is not built; the "
-                         f"kernel takes D in {HEAD_DIMS}")
+                         f"kernels take D in {HEAD_DIMS}")
     _check("q", q, b, h, d)
     _check("k", k, b, h, d)
     m = k.shape[1]
@@ -97,6 +149,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" or k {tuple(k.shape)}")
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds the grid")
+    return b, n, m, h, d
+
+
+def _check_rows(name: str, t: torch.Tensor, b: int, h: int, n: int,
+                dev: torch.device) -> None:
+    if t.shape != (b, h, n) or t.dtype != torch.float32 \
+            or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"flash_attention: {name} must be contiguous fp32 "
+                         f"[B,H,N] = [{b},{h},{n}] on {dev}; got "
+                         f"{tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             want_lse: bool) -> Result:
+    """The forward alone: the twin for a CPU tensor, the kernel for CUDA."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, want_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, n, m, h, d = _check_qkv(q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((b, h, n), device=q.device, dtype=torch.float32)
            if want_lse else None)
@@ -113,4 +185,114 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o, lse) if want_lse else o
 
 
+def _fit(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A gradient (or a saved output) arrives in whatever layout autograd
+    made: copy it to the kernels' layout only when its strides do not
+    already fit."""
+    return t if _layout_ok(t, d) else t.contiguous()
+
+
+def _strides(*ts: torch.Tensor):
+    flat = [s for t in ts for s in (t.stride(0), t.stride(1))]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def flash_attention_dq(q, k, v, o, lse, do
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dQ kernel on CUDA tensors: (dq [B,N,H,D] contiguous,
+    Delta [B,H,N]). q, k, v, o, do are read through their strides
+    (``flash_attention_dq.launches`` counts the launches)."""
+    b, n, m, h, d = _check_qkv(q, k, v)
+    o, do = _fit(o, d), _fit(do, d)
+    _check("o", o, b, h, d, n)
+    _check("do", do, b, h, d, n)
+    _check_rows("lse", lse, b, h, n, q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    delta = torch.empty_like(lse)
+    lib = _lib_bwd()
+    strides = _strides(q, k, v, o, do, dq)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_backward_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+            b, h, n, m, d, ctypes.addressof(strides),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "flash_attention_dq")
+    flash_attention_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel on CUDA tensors: (dk, dv), contiguous
+    [B,M,H,D]; ``delta`` is the dQ pass's [B,H,N]
+    (``flash_attention_dkv.launches`` counts the launches)."""
+    b, n, m, h, d = _check_qkv(q, k, v)
+    do = _fit(do, d)
+    _check("do", do, b, h, d, n)
+    _check_rows("lse", lse, b, h, n, q.device)
+    _check_rows("delta", delta, b, h, n, q.device)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    lib = _lib_bwd()
+    strides = _strides(q, k, v, do, dk, dv)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_backward_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n, m, d, ctypes.addressof(strides),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "flash_attention_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do) -> Grads:
+    """(dq, dk, dv): the plain twin for CPU tensors, the dQ kernel then the
+    dK/dV kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    dq, delta = flash_attention_dq(q, k, v, o, lse, do)
+    return (dq, *flash_attention_dkv(q, k, v, do, lse, delta))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its streaming backward (the JAX package's
+    ``_flash_core`` ``custom_vjp``): the forward keeps (q, k, v, o, L), the
+    backward recomputes p from L in the two passes. Returns (o, L); L
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = _forward(q, k, v, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        return flash_attention_backward(*ctx.saved_tensors, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    want_lse: bool = False) -> Result:
+    """q: [B,N,H,D]; k, v: [B,M,H,D], read through their strides (a
+    ``to_q`` output viewed as [B,N,H,D] needs no copy). Returns o
+    [B,N,H,D] contiguous, and with ``want_lse`` also L [B,H,N] fp32.
+
+    Differentiable in q, k and v. CPU tensors take the plain twins; CUDA
+    tensors launch the kernels (``flash_attention.launches`` counts forward
+    launches; ``flash_attention_dq`` and ``flash_attention_dkv`` count the
+    backward's)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o, lse = FlashAttentionFunction.apply(q, k, v)
+        return (o, lse) if want_lse else o
+    return _forward(q, k, v, want_lse)
+
+
 flash_attention.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0

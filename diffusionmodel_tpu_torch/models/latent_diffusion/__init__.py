@@ -1,7 +1,7 @@
 """The latent-diffusion stack (counterpart of
 ``diffusionmodel_tpu/models/latent_diffusion``): SD-v1-style UNet and VAE,
-DDIM / DPM++ / DDPM samplers, txt2img / img2img / inpaint pipelines and
-``LdmRunner``. Inference only: LDM training is not ported yet."""
+DDIM / DPM++ / DDPM samplers, txt2img / img2img / inpaint pipelines,
+``LdmRunner``, and training (``training``: ``fit_ldm``, ``fit_ae``)."""
 
 from diffusionmodel_tpu_torch.models.latent_diffusion.autoencoder import (  # noqa: F401
     Autoencoder,

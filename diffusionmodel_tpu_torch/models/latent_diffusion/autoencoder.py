@@ -190,7 +190,8 @@ class GaussianDistribution:
 
 class Autoencoder(nn.Module):
     """``encode(img [B,H,W,3])`` -> GaussianDistribution over NHWC latents;
-    ``decode(z [B,h,w,emb])`` -> images [B,H,W,3]."""
+    ``decode(z [B,h,w,emb])`` -> images [B,H,W,3]; calling it does both
+    (first-stage training)."""
 
     def __init__(self, channels: int = 128,
                  ch_mults: Sequence[int] = (1, 2, 4, 4), z_channels: int = 4,
@@ -210,3 +211,12 @@ class Autoencoder(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         x = channels_last(z.permute(0, 3, 1, 2))
         return to_nhwc(self.decoder(self.post_quant_conv(x)))
+
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """The JAX module's ``__call__``: encode, draw from the posterior
+        (``noise`` when given, else from ``generator``) and decode ->
+        (reconstruction [B,H,W,3], the posterior)."""
+        dist = self.encode(img)
+        return self.decode(dist.sample(generator, noise)), dist

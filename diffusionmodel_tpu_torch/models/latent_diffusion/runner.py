@@ -7,7 +7,7 @@ stable-diffusion stack once and exposes txt2img / img2img / inpaint, as
   Gaussian embedding of shape [B, 77, d_cond] (bit-identical to the JAX
   package's). The CLIP text encoder is not ported.
 - Weights: a real SD-v1 checkpoint through ``compat.sd_checkpoint`` when
-  given (non-strict), or a ``--mode train_ldm`` pickle of the JAX package
+  given (non-strict), or a ``--mode train_ldm`` pickle of either package
   (``{arch, unet, ae}`` flax trees) through ``compat.flax_bridge``; else
   PyTorch's default initialisation drawn from a torch seed. Random weights
   differ from the JAX runner's (another generator and another init rule).

@@ -8,7 +8,9 @@ without the repository's conftest (it imports jax):
 
 Tolerance: max |kernel - twin| <= 1e-4 on standard-normal inputs. Both
 compute in fp32 (TF32 is switched off for the twin's products); the
-kernels sum in another order, which moves results by ~1e-6.
+kernels sum in another order, which moves results by ~1e-6. The flash
+backward's gradients are sums over a whole sequence and grow with it, so
+they are held to 1e-4 of the largest reference value instead.
 """
 
 import pytest
@@ -21,6 +23,10 @@ from diffusionmodel_tpu_torch.kernels.coord_attn import (
 )
 from diffusionmodel_tpu_torch.kernels.flash_attn import (
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_dkv,
+    flash_attention_dq,
     flash_attention_plain,
 )
 from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_plain
@@ -250,3 +256,111 @@ def test_ldm_unet_flash_path_matches_plain_path(dev):
         unet.set_use_flash(False)
         want = unet(x, t, cond)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+BWD_RTOL = 1e-4  # of max |reference|: fp32 sums over N or M in another order
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_backward_kernels_match_twin(dev, shape):
+    """The dQ pass and the dK/dV pass against their plain twins, with q, k
+    and v as strided views and ``do`` laid out as the UNet's reshape
+    leaves it."""
+    b, n, m, h, d = shape
+    q, k, v = _qkv(*shape, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    do = torch.randn((b, n, h, d), generator=g, device=dev)
+    o, lse = flash_attention_plain(q, k, v, want_lse=True)
+    nq, nkv = flash_attention_dq.launches, flash_attention_dkv.launches
+    dq, delta = flash_attention_dq(q, k, v, o, lse, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        nq + 1, nkv + 1)
+    want_dq, want_dk, want_dv = flash_attention_backward_plain(
+        q, k, v, o, lse, do)
+    want_delta = (do * o).sum(-1).transpose(1, 2)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert (delta - want_delta).abs().max().item() <= ATOL
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.is_contiguous()
+        assert _rel_err(got, want) <= BWD_RTOL
+    again = flash_attention_backward(q, k, v, o, lse, do)
+    assert all(torch.equal(a, c) for a, c in zip(again, (dq, dk, dv)))
+
+
+def test_flash_function_gradients_through_views(dev):
+    """Autograd through the Function: q, k, v as views of one projection,
+    the output gradient arriving through a reshape, as in the UNet."""
+    b, n, h, d = 2, 300, 4, 40
+    x = torch.randn((b, n, 3 * h * d), device=dev, requires_grad=True)
+    q, k, v = (t.view(b, n, h, d) for t in x.split(h * d, dim=-1))
+    w = torch.randn((h * d, 7), device=dev)
+    loss = (flash_attention(q, k, v).reshape(b, n, h * d) @ w).square().sum()
+    (got,) = torch.autograd.grad(loss, x)
+    loss = (flash_attention_plain(q, k, v).reshape(b, n, h * d)
+            @ w).square().sum()
+    (want,) = torch.autograd.grad(loss, x)
+    assert _rel_err(got, want) <= BWD_RTOL
+
+
+def test_flash_backward_raises_instead_of_falling_back(dev):
+    q, k, v = _qkv(1, 64, 64, 2, 24, dev)
+    do = torch.randn_like(q)
+    lse = torch.zeros((1, 2, 64), device=dev)
+    n = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_backward(q, k, v, q, lse, do)
+    q, k, v = _qkv(1, 64, 64, 2, 40, dev)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward(q, k, v, q, lse[:, :, :10],
+                                 torch.randn_like(q))
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == n
+
+
+def test_ldm_unet_gradients_flash_on_and_off(dev):
+    """loss.backward() through the tiny LDM UNet with the gate lowered so
+    the kernels run at the level-0 self-attentions, against the plain
+    attention path on the same weights: every parameter's gradient agrees,
+    and the attn1 projections get a gradient through the kernel."""
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import ARCHS
+
+    a = {k: v for k, v in ARCHS["tiny"].items() if not k.startswith("ae_")}
+    torch.manual_seed(0)
+    unet = UNetModel(flash_min_seq=512, **a).to(dev).to(
+        memory_format=torch.channels_last)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 32, 32, 4), generator=g, device=dev)
+    t = torch.tensor([10, 900], device=dev)
+    cond = torch.randn((2, 77, a["d_cond"]), generator=g, device=dev)
+    target = torch.randn((2, 32, 32, 4), generator=g, device=dev)
+    grads = []
+    for flash in (True, False):
+        unet.set_use_flash(flash)
+        unet.zero_grad(set_to_none=True)
+        n = (flash_attention.launches, flash_attention_dq.launches,
+             flash_attention_dkv.launches)
+        (unet(x, t, cond) - target).square().mean().backward()
+        torch.cuda.synchronize()
+        launched = [c.launches - b for c, b in zip(
+            (flash_attention, flash_attention_dq, flash_attention_dkv), n)]
+        assert launched == ([3, 3, 3] if flash else [0, 0, 0])
+        grads.append({k: p.grad for k, p in unet.named_parameters()})
+    on, off = grads
+    # some gradients are pure rounding noise (a conv bias that a one-channel
+    # GroupNorm group removes), so each is held to a share of the largest
+    assert all(on[name] is not None for name in off)
+    scale = max(g.abs().max().item() for g in off.values())
+    for name, want in off.items():
+        torch.testing.assert_close(on[name], want, rtol=1e-3,
+                                   atol=1e-4 * scale, msg=name)
+    flat_on = torch.cat([on[name].flatten() for name in off])
+    flat_off = torch.cat([g.flatten() for g in off.values()])
+    assert ((flat_on - flat_off).norm() / flat_off.norm()).item() <= 1e-4
+    attn1 = unet.input_blocks[1][1].transformer_blocks[0].attn1
+    for lin in (attn1.to_q, attn1.to_k, attn1.to_v):
+        assert lin.weight.grad.abs().max().item() > 0
