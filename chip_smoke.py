@@ -17,7 +17,10 @@ backward kernels. Phases, each printing JSON lines:
 1. env      the card (nvidia-smi's name and power limit), torch/CUDA
             versions, and the TF32 settings, both switched off: every
             number here is float32.
-2. build    nvcc for each kernel source, all in parallel.
+2. build    nvcc for each kernel source, all in parallel: registers and
+            spill bytes per kernel (ptxas), and the flash backward
+            kernels' tensor-core instructions (cuobjdump -sass); fails if
+            a backward kernel spills or has no HMMA.
 3. kernels  each kernel against its plain PyTorch twin at every site the
             flagship forward gives it at batch 16 (CoordAttn under both
             norm kinds): max |diff| (tolerance 1e-4 on standard-normal
@@ -54,17 +57,21 @@ backward kernels. Phases, each printing JSON lines:
             be 5 per UNet forward.
 9. flash_bwd  the dQ and dK/dV kernels against their plain twins at the
             training site (2, 4096, 4096, 8, 40) and the flash sites above:
-            max |diff| over max |reference| (tolerance 1e-4: fp32 sums over
-            a whole sequence taken in another order, with exp2 in place of
-            exp), the dQ pass's Delta (tolerance 1e-4 absolute), each pass's
-            time, its twin's, the backward of fp32
-            ``scaled_dot_product_attention`` (timed only: the port never
-            calls it), and the bound by operations.
+            max |diff| over max |reference| (tolerance 1e-4: fp32-accurate
+            sums over a whole sequence taken in another order, each
+            product from three TF32 tensor-core products, exp2 in place of
+            exp), the dQ pass's Delta (tolerance 1e-4 absolute), two runs
+            bit-identical at the training site, each pass's time, its
+            twin's, the backward of fp32 ``scaled_dot_product_attention``
+            (timed only: the port never calls it), and two bounds by
+            operations: 3xTF32 on the tensor cores (what the kernels run)
+            and fp32 on the CUDA cores.
 10. ldm_grad  one ``loss.backward()`` of the SD UNet at 512 px, batch 2,
             through the kernels against the plain attention path on the
             same weights and draws: relative L2 of the whole gradient
-            (tolerance 1e-4) and of the level-0 attn1 projections, and 5
-            forward, 5 dQ and 5 dK/dV launches.
+            (tolerance 1e-4) and of the level-0 attn1 projections, 5
+            forward, 5 dQ and 5 dK/dV launches, and a profile: busy and
+            idle share, the flash kernels' share of busy time.
 11. train_ldm the training path, with the launch counts zeroed just before
             each run: ``fit_ldm`` on ``LdmRunner(arch="sd")`` at 512 px,
             batch 2, 8 synthetic images, 2 epochs (finite losses, 5
@@ -95,6 +102,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
+TF32_PASSES = 3  # TF32 products per fp32-accurate product (3xTF32)
 KERNEL_ATOL = 1e-4
 FORWARD_RTOL = 1e-4
 IMG_FRAC = 0.98  # share of decoded values that must lie in [-1.5, 1.5]
@@ -165,7 +174,7 @@ def kernel_breakdown(fn) -> tuple:
             continue
         seen.add((e.name, start, end))
         short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()|flash_(?:fwd|bwd_dq|"
-                          r"bwd_dkv)<\d+, ?\d+>", e.name)
+                          r"bwd_dkv)<\d+(?:, ?(?:\d+|true|false))*>", e.name)
         name = short.group(0) if short else e.name[:80]
         out[name] = out.get(name, 0.0) + (end - start) / 1e3
     busy_us, reach = 0.0, float("-inf")
@@ -180,11 +189,18 @@ def device_times(fn) -> dict:
     return kernel_breakdown(fn)[0]
 
 
-def bound(nbytes: float, flops: float):
-    """Least time in ms: bytes over HBM rate vs fp32 ops over fp32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
+    """Least time in ms: bytes over HBM rate vs ops over the peak ``rate``
+    (fp32 on the CUDA cores unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bound_3xtf32(nbytes: float, flops: float):
+    """Least time in ms of fp32-accurate products formed as 3xTF32 on the
+    tensor cores: three TF32 products per fp32 product."""
+    return bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
 
 
 def phase_env() -> dict:
@@ -205,29 +221,72 @@ def phase_env() -> dict:
     return {"nvidia_smi": smi}
 
 
+def _flash_name(mangled: re.Match) -> str:
+    """flash_bwd_dkv<40,32,0> from the mangled ``flash_bwd_dkvILi40ELi32ELb0EE``
+    (template arguments: the head dim first, then the tile shape)."""
+    return "%s<%s>" % (mangled.group(1),
+                       ",".join(re.findall(r"L[ib](\d+)E", mangled.group(2))))
+
+
+_FLASH_MANGLED = r"(flash_(?:fwd|bwd_dq|bwd_dkv))I((?:L[ib]\d+E)+)E"
+
+
+def _sass_mma(lib_path) -> dict:
+    """Per flash backward kernel in the built library, its tensor-core
+    instructions by ``cuobjdump -sass``: the count of HMMA lines and the
+    first one. Empty where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = re.search(_FLASH_MANGLED, chunk.split("\n", 1)[0])
+        if not name:
+            continue
+        hmma = re.findall(r"HMMA[^;]*", chunk)
+        out[_flash_name(name)] = {"hmma": len(hmma),
+                                  "first": hmma[0] if hmma else None}
+    return out
+
+
 def phase_build() -> None:
     from diffusionmodel_tpu_torch.kernels import _build
+    from diffusionmodel_tpu_torch.kernels.flash_attn import HEAD_DIMS
 
     t0 = time.monotonic()
     report = _build.build()
-    regs = {}
-    for r in report.values():  # ptxas -v: registers of each kernel
+    regs, spills = {}, {}
+    for r in report.values():  # ptxas -v: registers and spills per kernel
         for chunk in r["log"].split("Function properties for ")[1:]:
             fn = re.search(r"(?:se|ca)_[a-z_]+(?=E)", chunk)
-            flash = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))ILi(\d+)ELi(\d+)E",
-                              chunk)
+            flash = re.search(_FLASH_MANGLED, chunk)
             used = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             if flash and used:
-                regs["%s<%s,%s>" % flash.groups()] = int(used.group(1))
-                if spill and int(spill.group(1)):
-                    regs["%s<%s,%s> spill bytes" % flash.groups()] = int(
-                        spill.group(1))
+                regs[_flash_name(flash)] = int(used.group(1))
+                spills[_flash_name(flash)] = int(spill.group(1)) if spill else 0
             elif fn and used:
                 regs[fn.group(0)] = int(used.group(1))
+    sass = _sass_mma(_build.library_path("flash_attn_bwd"))
     emit("build", seconds=time.monotonic() - t0,
          per_source={k: v["seconds"] for k, v in report.items()},
-         registers=regs)
+         registers=regs, spill_store_bytes=spills, bwd_sass_hmma=sass)
+    bwd = {name: (name.split("<")[0], int(name.split("<")[1].split(",")[0]))
+           for name in spills if name.startswith("flash_bwd")}
+    check(sorted(bwd.values()) == sorted(
+        (f"flash_bwd_{p}", d) for p in ("dq", "dkv") for d in HEAD_DIMS),
+        f"one dQ and one dK/dV kernel per head dim: {sorted(bwd)}")
+    check(all(spills[name] == 0 for name in bwd),
+          f"backward kernels spill: {spills}")
+    check(not sass or all(sass.get(name, {}).get("hmma", 0) > 0
+                          for name in bwd),
+          f"backward kernels without tensor-core (HMMA) instructions: {sass}")
 
 
 def _site_x(b, h, c, seed):
@@ -679,6 +738,14 @@ def phase_flash_bwd() -> list:
                         "dk": (dk - want_dk).abs().max().item(),
                         "dv": (dv - want_dv).abs().max().item()}
             err_delta = (delta - want_delta).abs().max().item()
+            repeat = {}
+            if (b, n, m, h, d) == FLASH_TRAIN:  # fixed order: bit-identical
+                dq2, delta2 = flash_attention_dq(q, k, v, o, lse, do)
+                dk2, dv2 = flash_attention_dkv(q, k, v, do, lse, delta2)
+                repeat = {"repeat_bit_identical": all(
+                    torch.equal(x, y) for x, y in ((dq, dq2), (delta, delta2),
+                                                   (dk, dk2), (dv, dv2)))}
+                del dq2, delta2, dk2, dv2
             del dq, dk, dv, want_dq, want_dk, want_dv, want_delta
             torch.cuda.empty_cache()
             iters = 10 if (b, n, m, h, d) == FLASH_TRAIN else 3
@@ -699,20 +766,31 @@ def phase_flash_bwd() -> list:
         del out, qt, kt, vt
         prod = 2 * b * h * n * m * d  # flops of one [N,M,D] product
         qb, kb, rb = 4 * b * n * h * d, 4 * b * m * h * d, 4 * b * h * n
-        bound_dq = bound(3 * qb + 2 * kb + rb + qb + rb, 3 * prod)
-        bound_dkv = bound(2 * qb + 2 * kb + 2 * rb + 2 * kb, 4 * prod)
+        bytes_dq = 3 * qb + 2 * kb + rb + qb + rb
+        bytes_dkv = 2 * qb + 2 * kb + 2 * rb + 2 * kb
+        # the kernels' bound (3xTF32 on the tensor cores), and beside it the
+        # fp32 CUDA-core bound the first design was held to
+        bound_dq = bound_3xtf32(bytes_dq, 3 * prod)
+        bound_dkv = bound_3xtf32(bytes_dkv, 4 * prod)
+        fp32_dq = bound(bytes_dq, 3 * prod)
+        fp32_dkv = bound(bytes_dkv, 4 * prod)
         rows.append(dict(
             shape=[b, n, m, h, d], max_rel_err=errs, max_abs_err=abs_errs,
-            max_abs_err_delta=err_delta, ms_dq=ms_dq, ms_dkv=ms_dkv,
+            max_abs_err_delta=err_delta, **repeat, ms_dq=ms_dq, ms_dkv=ms_dkv,
             plain_ms_dq=plain_dq, plain_ms_dkv=plain_dkv,
             library_ms_backward=library_ms,
             bound_ms_dq=bound_dq[0], bound_by_dq=bound_dq[1],
             bound_ms_dkv=bound_dkv[0], bound_by_dkv=bound_dkv[1],
             bound_share_dq=bound_dq[0] / ms_dq,
-            bound_share_dkv=bound_dkv[0] / ms_dkv))
+            bound_share_dkv=bound_dkv[0] / ms_dkv,
+            bound_ms_dq_fp32=fp32_dq[0], bound_ms_dkv_fp32=fp32_dkv[0],
+            bound_share_dq_fp32=fp32_dq[0] / ms_dq,
+            bound_share_dkv_fp32=fp32_dkv[0] / ms_dkv))
         emit("flash_bwd", **rows[-1])
         check(max(errs.values()) <= BWD_RTOL and err_delta <= KERNEL_ATOL,
               f"flash backward {[b, n, m, h, d]}: {errs}, delta {err_delta}")
+        check(repeat.get("repeat_bit_identical", True),
+              f"flash backward {[b, n, m, h, d]}: two runs differ")
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return rows
@@ -777,11 +855,11 @@ def phase_ldm_grad(counters) -> None:
 
     by_kernel, busy_ms, wall_ms = kernel_breakdown(step)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    flash_ms = {k: v for k, v in by_kernel.items() if k.startswith("flash_")}
     emit("ldm_grad", profile="kernel path, loss + backward",
          device_ms=sum(by_kernel.values()), busy_ms=busy_ms, wall_ms=wall_ms,
-         idle_share=1.0 - busy_ms / wall_ms,
-         flash_ms={k: v for k, v in by_kernel.items()
-                   if k.startswith("flash_")},
+         idle_share=1.0 - busy_ms / wall_ms, flash_ms=flash_ms,
+         flash_share_of_busy=sum(flash_ms.values()) / busy_ms,
          top_kernels=[[k, v] for k, v in top])
     on, off = grads
     diff2 = sum((on[k] - off[k]).square().sum() for k in off).item()
@@ -1002,9 +1080,12 @@ def main() -> int:
             "plain_ms": per * main_site[f"plain_ms_{key}"],
             "bound_ms": per * main_site[f"bound_ms_{key}"],
             "bound_by": main_site[f"bound_by_{key}"],
+            "bound_ms_fp32": per * main_site[f"bound_ms_{key}_fp32"],
             "library_ms": per * main_site["library_ms_backward"],
             "per": f"one SD UNet training step at 512 px, batch 2 ({per} "
                    f"sites of (B, N, M, H, D) = {list(FLASH_TRAIN)}); "
+                   "bound_ms is 3xTF32 on the tensor cores (what the kernel "
+                   "runs), bound_ms_fp32 the fp32 CUDA-core bound; "
                    "library_ms is the whole SDPA backward (dq, dk and dv)",
         }
 

@@ -55,20 +55,24 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     """Compile the named sources that are not built yet, one ``nvcc``
     process per source, all started together. Returns per source the
-    seconds it took and ``nvcc``'s report (``-Xptxas -v``: registers,
-    shared memory and spills per kernel). Raises if any build fails."""
+    seconds it took (0 for a library built before) and ``nvcc``'s report
+    (``-Xptxas -v``: registers, shared memory and spills per kernel), which
+    is kept beside the library. Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, report = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "log": log.read_text()
+                            if log.exists() else ""}
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.monotonic())
-    report, failed = {}, []
+    failed = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         report[name] = {"seconds": time.monotonic() - t0, "log": log}
@@ -76,6 +80,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), fp32: two passes.
+// Flash-attention backward for Hopper (sm_90a): two passes on the tensor
+// cores, 3xTF32 at fp32 accuracy.
 //
 //   s = q k^T / sqrt(D),  p = exp(s - L),  Delta = rowsum(do * o),
 //   ds = p * (do v^T - Delta),
@@ -7,115 +8,231 @@
 // q, do, o [B,N,H,D], k, v [B,M,H,D], L (the forward's logsumexp) [B,H,N].
 // Both passes recompute p from L tile by tile, so no [N, M] matrix ever
 // reaches device memory, and each output row is owned by exactly one block:
-// no atomics, and a gradient is the same from run to run.
+// no atomics, and a gradient is the same bit for bit from run to run.
 //
-// Shared design (simple first; TF32 / bf16 tensor cores are a later step):
-//   - A block owns 64 rows of the output it writes, SPLIT threads per row.
-//     A row's D values are split into SPLIT slices of D/SPLIT (8 to 20
-//     values), so that the row's operands and its accumulators stay in
-//     registers; SPLIT grows with D (1 or 2 at D = 16, 8 at D = 160).
-//     Partial dot products are summed across a row's SPLIT lanes with
-//     shuffles.
-//   - The other operand streams through shared memory in tiles of 64 rows
-//     (16-byte loads, rows past the end zero-filled). Every lane of a row
-//     group reads the same streamed row at the same time: broadcasts.
-//   - Streamed rows are taken 8 (dQ) or 4 (dK/dV, which holds four rows of
-//     operands and accumulators) at a time: independent dot products (s
-//     and dp), then p = 2^(s' - L log2 e) with q or k pre-scaled by
-//     log2(e)/sqrt(D), ds = p (dp - Delta), then the FMAs into the
-//     accumulators. Ragged tails are masked here (p = 0), not padded
-//     outside as the JAX package does.
-//   - Operands are read in place through their [B,N,H,D] strides (a to_q
-//     output viewed as heads, a gradient that arrives as a view); outputs
-//     are written contiguous [B,N,H,D].
+// Replaces: the dQ pass the Pallas kernel _flash_dq_kernel
+// (diffusionmodel_tpu/kernels/flash_attn.py:152, launched at :268), the
+// dK/dV pass _flash_dkv_kernel (:182, launched at :285), both inside
+// _flash_core_bwd (:255).
 //
 // Bound: operations. The dQ pass does 3 products of 2*B*H*N*M*D flops
-// (q k^T, do v^T, ds k), the dK/dV pass 4 (q k^T, do v^T, p^T do, ds^T q),
+// (q k^T, do v^T, ds k), the dK/dV pass 4 (k q^T, v do^T, p^T do, ds^T q),
 // against each input read once and each output written once: at the SD
-// site (2, 4096, 4096, 8, 40) about 1000 flops per byte, far above the
-// H100's fp32 ridge (~20 flops per byte), so the least time is the flops
-// over the 67 TFLOP/s fp32 FMA rate. What the design does about it: the
-// streamed tile is read from device memory once per 64 owned rows, the
-// inner loops are FMA chains on registers fed by broadcast shared-memory
-// reads, and exp2 replaces exp.
+// site (2, 4096, 4096, 8, 40) about 1000 flops per byte. Every product is
+// formed at fp32 accuracy from three TF32 tensor-core products, so the
+// least time is 3x the flops over the H100's 495 TFLOP/s dense TF32 rate
+// (0.390 ms dQ, 0.521 ms dK/dV at that site; 0.962 / 1.282 ms at the 67
+// TFLOP/s fp32 CUDA-core rate). What the design does about it:
+//
+//   - Products: mma.sync.m16n8k8 tf32 with fp32 accumulators. Each fp32
+//     operand x is split into hi = tf32(x), rounded to nearest with ties
+//     away (the bits of cvt.rna.tf32.f32, which has no SASS instruction and
+//     is emulated with NaN checks; an integer add and a mask suffice), and
+//     lo = x - hi, exact in fp32, which the tensor core reads as TF32 by
+//     dropping its low 13 bits. A product is lo*hi + hi*lo + hi*hi: about
+//     fp32 accuracy, where one TF32 product misses the 1e-4 tolerance by
+//     5-50x on peaked softmaxes. The split happens in registers as a
+//     fragment is loaded; shared memory holds fp32. mma.sync and not
+//     wgmma: TF32 wgmma takes both operands K-major from shared memory with
+//     no transpose, which dq = ds k and dk = ds^T q would need.
+//   - Sums: the tensor cores truncate as they accumulate, so each streamed
+//     tile's contribution to dq, dk and dv is summed from zero and added to
+//     the running sum with fp32 adds (add_tile).
+//   - Tiling: a block owns 16 rows per warp and row group (FLASH_BWD_*_TILES
+//     below) of the output it writes; the other operand streams through
+//     shared-memory tiles of 16-64 rows. s and dp (or s^T and dp^T in the
+//     dK/dV pass, so that p and ds come out as rows of the k tile the block
+//     owns) accumulate as m16n8 fragments over D/8 k-steps, D = 40 in five
+//     steps with no padding. p and ds stay in registers and become the A
+//     fragments of the second products: an accumulator holds columns
+//     (2t, 2t+1) where a tf32 A fragment wants (t, t+4), so the k8 index is
+//     renumbered (t <- 2t, t+4 <- 2t+1) and the B rows loaded in the same
+//     order.
+//   - Memory: the owned rows are staged once; the streamed tiles (and, in
+//     the dK/dV pass, their L and Delta) by cp.async, double-buffered, so
+//     the next tile is in flight while the current one is multiplied. Rows
+//     past the end are zero-filled through cp.async's src-size operand and
+//     their p masked to 0. Shared-memory rows are D + 4 floats apart, which
+//     makes every fragment load free of bank conflicts. Budget: at D = 40,
+//     68 KB (dQ) and 45 KB (dK/dV); at D = 160, 2 x 128 owned rows + 2 x 2
+//     x 16 streamed rows, 210 KB of the 227 KB a block may use (dQ).
+//   - Operands are read in place through their [B,N,H,D] strides; outputs
+//     are written contiguous [B,N,H,D].
 
 #include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;   // owned rows per block
-constexpr int kTile = 64;   // streamed rows per shared-memory tile
-constexpr int kChunkQ = 8;  // streamed K/V rows per register batch (dQ)
-constexpr int kChunkKV = 4; // streamed q rows per register batch (dK/dV)
 constexpr float kLog2e = 1.4426950408889634f;
-// Blocks per SM the register budget must allow: caps a thread at 128
-// registers, so the compiler does not hoist every shared-memory load of an
-// unrolled batch into registers (it chose 255 and spilled without a cap).
-template <int SPLIT>
-constexpr int kMinBlocks = 8 / SPLIT;
 
-template <int SPLIT>
-__device__ __forceinline__ float lane_sum(float x) {
+// Floats per shared-memory row: D + 4 puts the 8 rows a fragment load
+// touches on 8 distinct groups of 4 banks.
+__host__ __device__ constexpr int pitch(int d) { return d + 4; }
+
+// --- 3xTF32 tensor-core products -------------------------------------------
+
+// x = hi + lo: hi rounded to TF32 (nearest, ties away), lo = x - hi exact;
+// the tensor core reads lo's top 19 bits (round toward zero), so the pair
+// carries x to 2^-21 relative.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// An m16k8 A fragment and a k8n8 B fragment, each as hi and lo halves.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at fp32 accuracy: the two cross terms, then hi * hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
-  for (int off = SPLIT / 2; off > 0; off /= 2) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-template <int DS4>
-__device__ __forceinline__ void load_row(float* dst, const float* src,
-                                         float mul) {
-  const float4* p = reinterpret_cast<const float4*>(src);
+  for (int j = 0; j < N; ++j)
 #pragma unroll
-  for (int i = 0; i < DS4; ++i) {
-    const float4 t = p[i];
-    dst[4 * i] = t.x * mul;
-    dst[4 * i + 1] = t.y * mul;
-    dst[4 * i + 2] = t.z * mul;
-    dst[4 * i + 3] = t.w * mul;
-  }
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
 }
 
-template <int DS4>
-__device__ __forceinline__ void store_row(float* dst, const float* src,
-                                          float mul) {
-  float4* p = reinterpret_cast<float4*>(dst);
+// acc += tile: the tensor cores truncate as they accumulate, so a sum over a
+// whole sequence kept in their accumulator drifts toward zero (3-4e-5 of
+// max |reference| at M = 4096 on an H100, 10x the fp32 kernels' error).
+// Each streamed tile's products go to a fragment that starts at zero and
+// is added here with fp32 adds, which round to nearest.
+template <int N>
+__device__ __forceinline__ void add_tile(float (&acc)[N][4],
+                                         const float (&tile)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < DS4; ++i) {
-    p[i] = make_float4(src[4 * i] * mul, src[4 * i + 1] * mul,
-                       src[4 * i + 2] * mul, src[4 * i + 3] * mul);
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += tile[j][e];
+}
+
+// Fragments from shared memory (row pitch P floats); g = lane / 4,
+// t = lane % 4. A of a row-major [rows, k] block, `s` at (g, t):
+// a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+template <int P>
+__device__ __forceinline__ FragA load_a(const float* s) {
+  FragA f;
+  split(s[0], f.hi[0], f.lo[0]);
+  split(s[8 * P], f.hi[1], f.lo[1]);
+  split(s[4], f.hi[2], f.lo[2]);
+  split(s[8 * P + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B[k][n] = S[n][k] of a row-major streamed tile S (rows are the n index),
+// `s` at S(g, t): b0 (k = t, n = g), b1 (k = t+4, n = g).
+__device__ __forceinline__ FragB load_bt(const float* s) {
+  FragB f;
+  split(s[0], f.hi[0], f.lo[0]);
+  split(s[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B[k][n] = S[k][n] with the k index renumbered as in acc_to_a
+// (k = t -> row 2t, k = t+4 -> row 2t+1), `s` at S(2t, g).
+template <int P>
+__device__ __forceinline__ FragB load_b(const float* s) {
+  FragB f;
+  split(s[0], f.hi[0], f.lo[0]);
+  split(s[P], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// An m16n8 accumulator (rows g, g+8; columns 2t, 2t+1) as the A fragment of
+// the next product, its columns renumbered (2t -> k = t, 2t+1 -> k = t+4).
+__device__ __forceinline__ FragA acc_to_a(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// 2^x by the SFU (ex2.approx.ftz: ~2 ulp; results below 2^-126 flush to
+// 0, where p is negligible), without exp2f's denormal handling.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// --- cp.async staging --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared; with full = false nothing is read and
+// the destination is zero-filled (src-size 0).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group (the newest) is in flight.
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a [*, D] operand (row stride `stride` floats,
+// `src` already at the head's first column) into shared-memory rows of
+// pitch(D); rows at or past `limit` are zero-filled.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long stride, int r0, int limit) {
+  constexpr int C4 = D / 4, P = pitch(D);
+#pragma unroll
+  for (int step = 0; step < (ROWS * C4 + NT - 1) / NT; ++step) {
+    const int i = threadIdx.x + step * NT;
+    if (ROWS * C4 % NT != 0 && i >= ROWS * C4) break;
+    const int r = i / C4, c = 4 * (i % C4);
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * P + c, ok ? src + (r0 + r) * stride + c : src, ok);
   }
 }
 
-// Stage rows [r0, r0 + rn) of two [*, D] operands (row strides a_s, b_s,
-// already offset to the head) into shared memory, zero-filling to kTile.
-template <int D4>
-__device__ __forceinline__ void stage(float4* as, float4* bs, const float* a,
-                                      long long a_s, const float* b,
-                                      long long b_s, int r0, int rn) {
-  for (int i = threadIdx.x; i < kTile * D4; i += blockDim.x) {
-    const int r = i / D4, c = i % D4;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-    if (r < rn) {
-      av = reinterpret_cast<const float4*>(a + (r0 + r) * a_s)[c];
-      bv = reinterpret_cast<const float4*>(b + (r0 + r) * b_s)[c];
-    }
-    as[i] = av;
-    bs[i] = bv;
-  }
-}
-
-// dQ pass. Replaces the Pallas kernel _flash_dq_kernel
-// (diffusionmodel_tpu/kernels/flash_attn.py:152, launched at :268), which
-// walks the K/V tiles of one q tile along the TPU grid's sequential axis,
-// carries dq in VMEM scratch and recomputes Delta on every tile. Here one
-// block owns one (batch*head, 64 q rows) and loops over the K/V tiles; it
-// owns its q rows whole, so it computes Delta once per row and writes it
-// as [B,H,N] for the dK/dV pass. Bound: operations (3 products, above).
-template <int D, int SPLIT>
-__global__ void __launch_bounds__(kRows * SPLIT, kMinBlocks<SPLIT>)
+// dQ pass. Replaces _flash_dq_kernel, which walks the K/V tiles of one q
+// tile along the TPU grid's sequential axis, carries dq in VMEM scratch and
+// recomputes Delta on every tile. Here a block of W warps owns (batch*head,
+// 16 MT W q rows) and loops over the K/V tiles of C rows; it owns its q
+// rows whole, so it computes Delta once per row and writes it as [B,H,N]
+// for the dK/dV pass.
+template <int D, int C, int W, int MT, int MINB>
+__global__ void __launch_bounds__(32 * W, MINB)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ o,
              const float* __restrict__ dout, const float* __restrict__ lse,
@@ -123,97 +240,242 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              int n, int m, long long q_sb, long long q_sn, long long k_sb,
              long long k_sn, long long v_sb, long long v_sn, long long o_sb,
              long long o_sn, long long do_sb, long long do_sn,
-             long long dq_sb, long long dq_sn, float q_mul, float scale) {
-  constexpr int DS = D / SPLIT, D4 = D / 4, DS4 = DS / 4;
-  static_assert(D % (4 * SPLIT) == 0, "D must split into float4 slices");
-  extern __shared__ float4 smem[];
-  float4* ks = smem;                // [kTile][D4]
-  float4* vs = smem + kTile * D4;   // [kTile][D4]
+             long long dq_sb, long long dq_sn, float sl2, float scale) {
+  // MT m16 row groups per warp share every B fragment they load
+  constexpr int P = pitch(D), R = 16 * MT * W, NT = 32 * W, TPR = NT / R;
+  static_assert(TPR == 1 || TPR == 2, "one or two threads per row");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;              // [R][P]
+  float* dos = qs + R * P;       // [R][P]
+  float* kvs = dos + R * P;      // 2 stages of k [C][P], v [C][P]
+  float* dls = kvs + 4 * C * P;  // [R] Delta of the owned rows
 
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int row = blockIdx.x * kRows + threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const bool valid = row < n;
-  const long long hd = (long long)h * D + part * DS;
-
-  float qr[DS], dor[DS], acc[DS];
-  float dsum = 0.f, l2 = 0.f;
-  if (valid) {
-    load_row<DS4>(qr, q + b * q_sb + row * q_sn + hd, q_mul);
-    load_row<DS4>(dor, dout + b * do_sb + row * do_sn + hd, 1.f);
-    load_row<DS4>(acc, o + b * o_sb + row * o_sn + hd, 1.f);
-#pragma unroll
-    for (int i = 0; i < DS; ++i) dsum = fmaf(dor[i], acc[i], dsum);
-    l2 = lse[(long long)bh * n + row] * kLog2e;
-  } else {
-#pragma unroll
-    for (int i = 0; i < DS; ++i) qr[i] = dor[i] = 0.f;
-  }
-  const float dlt = lane_sum<SPLIT>(dsum);
-  if (valid && part == 0) delta[(long long)bh * n + row] = dlt;
-#pragma unroll
-  for (int i = 0; i < DS; ++i) acc[i] = 0.f;
-
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int row0 = blockIdx.x * R;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
+            t = threadIdx.x % 4;
+  const float* qb = q + b * q_sb + (long long)h * D;
   const float* kb = k + b * k_sb + (long long)h * D;
   const float* vb = v + b * v_sb + (long long)h * D;
-  for (int k0 = 0; k0 < m; k0 += kTile) {
-    const int kn = min(kTile, m - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage<D4>(ks, vs, kb, k_sn, vb, v_sn, k0, kn);
-    __syncthreads();
+  const float* ob = o + b * o_sb + (long long)h * D;
+  const float* db = dout + b * do_sb + (long long)h * D;
 
-    for (int j0 = 0; j0 < kn; j0 += kChunkQ) {
-      float s[kChunkQ], dp[kChunkQ];
+  auto stage_kv = [&](int tile) {
+    float* dst = kvs + (tile & 1) * 2 * C * P;
+    stage<D, C, NT>(dst, kb, k_sn, tile * C, m);
+    stage<D, C, NT>(dst + C * P, vb, v_sn, tile * C, m);
+  };
+  stage<D, R, NT>(qs, qb, q_sn, row0, n);
+  stage<D, R, NT>(dos, db, do_sn, row0, n);
+  cp_commit();
+  stage_kv(0);
+  cp_commit();
+
+  // Delta = rowsum(do * o): TPR threads per owned row, D / TPR values each,
+  // summed in a fixed order, while the first tiles are in flight.
+  {
+    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR,
+              row = row0 + r;
+    float sum = 0.f;
+    if (row < n) {
+      const float4* op = reinterpret_cast<const float4*>(
+          ob + row * o_sn + part * (D / TPR));
+      const float4* dp = reinterpret_cast<const float4*>(
+          db + row * do_sn + part * (D / TPR));
 #pragma unroll
-      for (int jj = 0; jj < kChunkQ; ++jj) s[jj] = dp[jj] = 0.f;
+      for (int i = 0; i < D / (4 * TPR); ++i) {
+        const float4 x = op[i], y = dp[i];
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+        sum = fmaf(x.z, y.z, sum);
+        sum = fmaf(x.w, y.w, sum);
+      }
+    }
+    if constexpr (TPR == 2) sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (part == 0) {
+      dls[r] = sum;
+      if (row < n) delta[(long long)bh * n + row] = sum;
+    }
+  }
+  __syncthreads();
+
+  // this thread's rows: ra[i] and ra[i] + 8 of each row group i
+  int ra[MT];
+  float la[MT], lb[MT], dla[MT], dlb[MT];
 #pragma unroll
-      for (int d4 = 0; d4 < DS4; ++d4) {
+  for (int i = 0; i < MT; ++i) {
+    ra[i] = (warp * MT + i) * 16 + g;
+    const int r = row0 + ra[i];
+    la[i] = r < n ? lse[(long long)bh * n + r] * kLog2e : 0.f;
+    lb[i] = r + 8 < n ? lse[(long long)bh * n + r + 8] * kLog2e : 0.f;
+    dla[i] = dls[ra[i]];
+    dlb[i] = dls[ra[i] + 8];
+  }
+
+  float acc[MT][D / 8][4];
 #pragma unroll
-        for (int jj = 0; jj < kChunkQ; ++jj) {
-          const int at = (j0 + jj) * D4 + part * DS4 + d4;
-          const float4 kk = ks[at], vv = vs[at];
-          s[jj] = fmaf(qr[4 * d4], kk.x, s[jj]);
-          s[jj] = fmaf(qr[4 * d4 + 1], kk.y, s[jj]);
-          s[jj] = fmaf(qr[4 * d4 + 2], kk.z, s[jj]);
-          s[jj] = fmaf(qr[4 * d4 + 3], kk.w, s[jj]);
-          dp[jj] = fmaf(dor[4 * d4], vv.x, dp[jj]);
-          dp[jj] = fmaf(dor[4 * d4 + 1], vv.y, dp[jj]);
-          dp[jj] = fmaf(dor[4 * d4 + 2], vv.z, dp[jj]);
-          dp[jj] = fmaf(dor[4 * d4 + 3], vv.w, dp[jj]);
-        }
+  for (int i = 0; i < MT; ++i) zero(acc[i]);
+  const int tiles = (m + C - 1) / C;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) stage_kv(it + 1);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const float* ks = kvs + (it & 1) * 2 * C * P;
+    const float* vs = ks + C * P;
+    const int kn = min(C, m - it * C);
+
+    float s[MT][C / 8][4], dp[MT][C / 8][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      zero(s[i]);
+      zero(dp[i]);
+    }
+#pragma unroll
+    for (int kd = 0; kd < D / 8; ++kd) {
+      FragA aq[MT], ad[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        aq[i] = load_a<P>(qs + ra[i] * P + t + 8 * kd);
+        ad[i] = load_a<P>(dos + ra[i] * P + t + 8 * kd);
       }
 #pragma unroll
-      for (int jj = 0; jj < kChunkQ; ++jj) {
-        const float sj = lane_sum<SPLIT>(s[jj]);
-        const float dpj = lane_sum<SPLIT>(dp[jj]);
-        const float p = (valid && j0 + jj < kn) ? exp2f(sj - l2) : 0.f;
-        s[jj] = p * (dpj - dlt);  // ds
-      }
+      for (int j = 0; j < C / 8; ++j) {
+        const int at = (8 * j + g) * P + 8 * kd + t;
+        const FragB bk = load_bt(ks + at), bv = load_bt(vs + at);
 #pragma unroll
-      for (int d4 = 0; d4 < DS4; ++d4) {
-#pragma unroll
-        for (int jj = 0; jj < kChunkQ; ++jj) {
-          const float4 kk = ks[(j0 + jj) * D4 + part * DS4 + d4];
-          acc[4 * d4] = fmaf(s[jj], kk.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(s[jj], kk.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(s[jj], kk.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(s[jj], kk.w, acc[4 * d4 + 3]);
+        for (int i = 0; i < MT; ++i) {
+          mma3(s[i][j], aq[i], bk);
+          mma3(dp[i][j], ad[i], bv);
         }
       }
     }
+    // p = 2^(s sqrt(D)^-1 log2 e - L log2 e), masked past the tile's end;
+    // ds = p (dp - Delta), kept in s
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo_row = e < 2;
+          const float p =
+              8 * j + 2 * t + (e & 1) < kn
+                  ? exp2_approx(fmaf(s[i][j][e], sl2,
+                                     -(lo_row ? la[i] : lb[i])))
+                  : 0.f;
+          s[i][j][e] = p * (dp[i][j][e] - (lo_row ? dla[i] : dlb[i]));
+        }
+    // dq += ds k
+    float part[MT][D / 8][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) zero(part[i]);
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      FragA a[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) a[i] = acc_to_a(s[i][j]);
+      const float* kr = ks + (8 * j + 2 * t) * P + g;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const FragB bk = load_b<P>(kr + 8 * nd);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma3(part[i][nd], a[i], bk);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) add_tile(acc[i], part[i]);
+    __syncthreads();  // this stage is consumed before it is refilled
   }
-  if (valid) store_row<DS4>(dq + b * dq_sb + row * dq_sn + hd, acc, scale);
+
+  float* out = dq + b * dq_sb + (long long)h * D + 2 * t;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + ra[i] + 8 * half;
+      if (row >= n) continue;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<float2*>(out + row * dq_sn + 8 * nd) =
+            make_float2(acc[i][nd][2 * half] * scale,
+                        acc[i][nd][2 * half + 1] * scale);
+    }
 }
 
-// dK/dV pass. Replaces the Pallas kernel _flash_dkv_kernel
-// (diffusionmodel_tpu/kernels/flash_attn.py:182, launched at :285), which
-// walks the q tiles of one k tile along the TPU grid's sequential axis and
-// carries dk and dv in VMEM scratch. Here one block owns one (batch*head,
-// 64 k rows) and loops over the q tiles, staging q, do, L and the dQ
-// pass's Delta in shared memory. Bound: operations (4 products, above).
-template <int D, int SPLIT>
-__global__ void __launch_bounds__(kRows * SPLIT, kMinBlocks<SPLIT>)
+// One streamed q tile of the dK/dV pass for this thread's k rows: s^T =
+// k q^T and (DK) dp^T = v do^T over D/8 k-steps, p^T (and ds^T), then
+// (DV) dv += p^T do into tv and (DK) dk += ds^T q into tk. Columns are q
+// rows, so L and Delta index columns (2t, 2t+1) of each n8 block.
+template <int D, int C, bool DV, bool DK>
+__device__ __forceinline__ void dkv_tile(
+    const float* ka, const float* va, const float* qs, const float* dos,
+    const float* ls, const float* dls, int qn, int g, int t, float sl2,
+    float (&tv)[D / 8][4], float (&tk)[D / 8][4]) {
+  constexpr int P = pitch(D);
+  float st[C / 8][4], dpt[DK ? C / 8 : 1][4];
+  zero(st);
+  if constexpr (DK) zero(dpt);
+#pragma unroll
+  for (int kd = 0; kd < D / 8; ++kd) {
+    const FragA ak = load_a<P>(ka + 8 * kd);
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+      mma3(st[j], ak, load_bt(qs + (8 * j + g) * P + 8 * kd + t));
+    if constexpr (DK) {
+      const FragA av = load_a<P>(va + 8 * kd);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+        mma3(dpt[j], av, load_bt(dos + (8 * j + g) * P + 8 * kd + t));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    const int c0 = 8 * j + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(ls + c0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool odd = e & 1;
+      const float p =
+          c0 + odd < qn
+              ? exp2_approx(fmaf(st[j][e], sl2, -(odd ? l.y : l.x) * kLog2e))
+              : 0.f;
+      if constexpr (DK) {
+        const float2 dl = *reinterpret_cast<const float2*>(dls + c0);
+        dpt[j][e] = p * (dpt[j][e] - (odd ? dl.y : dl.x));
+      }
+      st[j][e] = p;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    const int at = (8 * j + 2 * t) * P + g;
+    if constexpr (DV) {
+      const FragA ap = acc_to_a(st[j]);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        mma3(tv[nd], ap, load_b<P>(dos + at + 8 * nd));
+    }
+    if constexpr (DK) {
+      const FragA ads = acc_to_a(dpt[j]);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        mma3(tk[nd], ads, load_b<P>(qs + at + 8 * nd));
+    }
+  }
+}
+
+// dK/dV pass. Replaces _flash_dkv_kernel, which walks the q tiles of one k
+// tile along the TPU grid's sequential axis and carries dk and dv in VMEM
+// scratch. Here a block owns (batch*head, 64 k rows) and loops over the q
+// tiles of C rows, staging q, do, L and the dQ pass's Delta. It computes
+// the transposed scores s^T = k q^T, so p and ds are rows of its own k
+// tile. With ROLES, 8 warps: warps 0-3 accumulate dv and warps 4-7 dk for
+// the same 16-row groups (s^T is formed by both); without, 4 warps that
+// accumulate both.
+template <int D, int C, bool ROLES, int MINB>
+__global__ void __launch_bounds__(ROLES ? 256 : 128, MINB)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -221,98 +483,103 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               int n, int m, long long q_sb, long long q_sn, long long k_sb,
               long long k_sn, long long v_sb, long long v_sn,
               long long do_sb, long long do_sn, long long dk_sb,
-              long long dk_sn, long long dv_sb, long long dv_sn, float k_mul,
+              long long dk_sn, long long dv_sb, long long dv_sn, float sl2,
               float scale) {
-  constexpr int DS = D / SPLIT, D4 = D / 4, DS4 = DS / 4;
-  static_assert(D % (4 * SPLIT) == 0, "D must split into float4 slices");
-  extern __shared__ float4 smem[];
-  float4* qs = smem;                 // [kTile][D4]
-  float4* dos = smem + kTile * D4;   // [kTile][D4]
-  float* ls = reinterpret_cast<float*>(smem + 2 * kTile * D4);  // [kTile]
-  float* dls = ls + kTile;                                      // [kTile]
+  constexpr int P = pitch(D), R = 64, NT = ROLES ? 256 : 128;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ks = smem;              // [R][P]
+  float* vs = ks + R * P;        // [R][P]
+  float* qds = vs + R * P;       // 2 stages of q [C][P], do [C][P]
+  float* lds = qds + 4 * C * P;  // 2 stages of L [C], Delta [C]
 
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int row = blockIdx.x * kRows + threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const bool valid = row < m;
-  const long long hd = (long long)h * D + part * DS;
-
-  float kr[DS], vr[DS], dka[DS], dva[DS];
-  if (valid) {
-    load_row<DS4>(kr, k + b * k_sb + row * k_sn + hd, k_mul);
-    load_row<DS4>(vr, v + b * v_sb + row * v_sn + hd, 1.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < DS; ++i) kr[i] = vr[i] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < DS; ++i) dka[i] = dva[i] = 0.f;
-
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int row0 = blockIdx.x * R;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
+            t = threadIdx.x % 4;
+  const bool dk_warp = ROLES && warp >= 4;
   const float* qb = q + b * q_sb + (long long)h * D;
   const float* db = dout + b * do_sb + (long long)h * D;
   const float* lb = lse + (long long)bh * n;
   const float* deb = delta + (long long)bh * n;
-  for (int i0 = 0; i0 < n; i0 += kTile) {
-    const int qn = min(kTile, n - i0);
-    __syncthreads();  // the previous tile is consumed
-    stage<D4>(qs, dos, qb, q_sn, db, do_sn, i0, qn);
-    for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
-      ls[r] = r < qn ? lb[i0 + r] * kLog2e : 0.f;
-      dls[r] = r < qn ? deb[i0 + r] : 0.f;
-    }
-    __syncthreads();
 
-    for (int c0 = 0; c0 < qn; c0 += kChunkKV) {
-      float s[kChunkKV], dp[kChunkKV];
-#pragma unroll
-      for (int ii = 0; ii < kChunkKV; ++ii) s[ii] = dp[ii] = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DS4; ++d4) {
-#pragma unroll
-        for (int ii = 0; ii < kChunkKV; ++ii) {
-          const int at = (c0 + ii) * D4 + part * DS4 + d4;
-          const float4 qq = qs[at], dd = dos[at];
-          s[ii] = fmaf(kr[4 * d4], qq.x, s[ii]);
-          s[ii] = fmaf(kr[4 * d4 + 1], qq.y, s[ii]);
-          s[ii] = fmaf(kr[4 * d4 + 2], qq.z, s[ii]);
-          s[ii] = fmaf(kr[4 * d4 + 3], qq.w, s[ii]);
-          dp[ii] = fmaf(vr[4 * d4], dd.x, dp[ii]);
-          dp[ii] = fmaf(vr[4 * d4 + 1], dd.y, dp[ii]);
-          dp[ii] = fmaf(vr[4 * d4 + 2], dd.z, dp[ii]);
-          dp[ii] = fmaf(vr[4 * d4 + 3], dd.w, dp[ii]);
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < kChunkKV; ++ii) {
-        const float si = lane_sum<SPLIT>(s[ii]);
-        const float dpi = lane_sum<SPLIT>(dp[ii]);
-        const float p = (valid && c0 + ii < qn)
-                            ? exp2f(si - ls[c0 + ii]) : 0.f;
-        s[ii] = p;
-        dp[ii] = p * (dpi - dls[c0 + ii]);  // ds
-      }
-#pragma unroll
-      for (int d4 = 0; d4 < DS4; ++d4) {
-#pragma unroll
-        for (int ii = 0; ii < kChunkKV; ++ii) {
-          const int at = (c0 + ii) * D4 + part * DS4 + d4;
-          const float4 qq = qs[at], dd = dos[at];
-          dva[4 * d4] = fmaf(s[ii], dd.x, dva[4 * d4]);
-          dva[4 * d4 + 1] = fmaf(s[ii], dd.y, dva[4 * d4 + 1]);
-          dva[4 * d4 + 2] = fmaf(s[ii], dd.z, dva[4 * d4 + 2]);
-          dva[4 * d4 + 3] = fmaf(s[ii], dd.w, dva[4 * d4 + 3]);
-          dka[4 * d4] = fmaf(dp[ii], qq.x, dka[4 * d4]);
-          dka[4 * d4 + 1] = fmaf(dp[ii], qq.y, dka[4 * d4 + 1]);
-          dka[4 * d4 + 2] = fmaf(dp[ii], qq.z, dka[4 * d4 + 2]);
-          dka[4 * d4 + 3] = fmaf(dp[ii], qq.w, dka[4 * d4 + 3]);
-        }
-      }
+  auto stage_q = [&](int tile) {
+    float* dst = qds + (tile & 1) * 2 * C * P;
+    stage<D, C, NT>(dst, qb, q_sn, tile * C, n);
+    stage<D, C, NT>(dst + C * P, db, do_sn, tile * C, n);
+    float* ld = lds + (tile & 1) * 2 * C;
+    for (int i = threadIdx.x; i < C; i += NT) {
+      const int r = tile * C + i;
+      const bool ok = r < n;
+      cp_async4(ld + i, ok ? lb + r : lb, ok);
+      cp_async4(ld + C + i, ok ? deb + r : deb, ok);
     }
+  };
+  stage<D, R, NT>(ks, k + b * k_sb + (long long)h * D, k_sn, row0, m);
+  stage<D, R, NT>(vs, v + b * v_sb + (long long)h * D, v_sn, row0, m);
+  cp_commit();
+  stage_q(0);
+  cp_commit();
+
+  const int ra = (warp % 4) * 16 + g;  // this thread's rows: ra and ra + 8
+  const float* ka = ks + ra * P + t;
+  const float* va = vs + ra * P + t;
+  // ROLES: acc0 is dv (warps 0-3) or dk (4-7); else dv and acc1 dk
+  float acc0[D / 8][4], acc1[ROLES ? 1 : D / 8][4];
+  zero(acc0);
+  zero(acc1);
+
+  const int tiles = (n + C - 1) / C;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) stage_q(it + 1);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const float* qs = qds + (it & 1) * 2 * C * P;
+    const float* dos = qs + C * P;
+    const float* ls = lds + (it & 1) * 2 * C;
+    const float* dls = ls + C;
+    const int qn = min(C, n - it * C);
+
+    float part0[D / 8][4];
+    zero(part0);
+    if constexpr (ROLES) {
+      if (dk_warp)
+        dkv_tile<D, C, false, true>(ka, va, qs, dos, ls, dls, qn, g, t, sl2,
+                                    part0, part0);
+      else
+        dkv_tile<D, C, true, false>(ka, va, qs, dos, ls, dls, qn, g, t, sl2,
+                                    part0, part0);
+    } else {
+      float part1[D / 8][4];
+      zero(part1);
+      dkv_tile<D, C, true, true>(ka, va, qs, dos, ls, dls, qn, g, t, sl2,
+                                 part0, part1);
+      add_tile(acc1, part1);
+    }
+    add_tile(acc0, part0);
+    __syncthreads();  // this stage is consumed before it is refilled
   }
-  if (valid) {
-    store_row<DS4>(dk + b * dk_sb + row * dk_sn + hd, dka, scale);
-    store_row<DS4>(dv + b * dv_sb + row * dv_sn + hd, dva, 1.f);
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + ra + 8 * half;
+    if (row >= m) continue;
+    float* outk = dk + b * dk_sb + row * dk_sn + (long long)h * D + 2 * t;
+    float* outv = dv + b * dv_sb + row * dv_sn + (long long)h * D + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const float2 x = make_float2(acc0[nd][2 * half], acc0[nd][2 * half + 1]);
+      if (dk_warp) {
+        *reinterpret_cast<float2*>(outk + 8 * nd) =
+            make_float2(x.x * scale, x.y * scale);
+      } else {
+        *reinterpret_cast<float2*>(outv + 8 * nd) = x;
+      }
+      if constexpr (!ROLES)
+        *reinterpret_cast<float2*>(outk + 8 * nd) = make_float2(
+            acc1[nd][2 * half] * scale, acc1[nd][2 * half + 1] * scale);
+    }
   }
 }
 
@@ -323,34 +590,40 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
 }
 
-template <int D, int SPLIT>
+constexpr size_t kMaxSmem = 232448;  // bytes a block may use on sm_90
+
+template <int D, int C, int W, int MT, int MINB>
 int launch_dq(const float* q, const float* k, const float* v, const float* o,
               const float* dout, const float* lse, float* dq, float* delta,
               int batch, int heads, int n, int m, const long long* st,
               cudaStream_t stream) {
-  const size_t smem = 2 * kTile * D * sizeof(float);
-  const int err = prepare(flash_bwd_dq<D, SPLIT>, smem);
+  constexpr int R = 16 * MT * W;
+  constexpr size_t smem = ((2 * R + 4 * C) * pitch(D) + R) * sizeof(float);
+  static_assert(smem <= kMaxSmem, "dQ tiles exceed shared memory");
+  const int err = prepare(flash_bwd_dq<D, C, W, MT, MINB>, smem);
   if (err) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((n + kRows - 1) / kRows, batch * heads);
-  flash_bwd_dq<D, SPLIT><<<grid, kRows * SPLIT, smem, stream>>>(
+  dim3 grid((n + R - 1) / R, batch * heads);
+  flash_bwd_dq<D, C, W, MT, MINB><<<grid, 32 * W, smem, stream>>>(
       q, k, v, o, dout, lse, dq, delta, heads, n, m, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int SPLIT>
+template <int D, int C, bool ROLES, int MINB>
 int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* delta,
                float* dk, float* dv, int batch, int heads, int n, int m,
                const long long* st, cudaStream_t stream) {
-  const size_t smem = (2 * kTile * D + 2 * kTile) * sizeof(float);
-  const int err = prepare(flash_bwd_dkv<D, SPLIT>, smem);
+  constexpr size_t smem = ((128 + 4 * C) * pitch(D) + 4 * C) * sizeof(float);
+  static_assert(smem <= kMaxSmem, "dK/dV tiles exceed shared memory");
+  const int err = prepare(flash_bwd_dkv<D, C, ROLES, MINB>, smem);
   if (err) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((m + kRows - 1) / kRows, batch * heads);
-  flash_bwd_dkv<D, SPLIT><<<grid, kRows * SPLIT, smem, stream>>>(
+  dim3 grid((m + 63) / 64, batch * heads);
+  flash_bwd_dkv<D, C, ROLES, MINB>
+      <<<grid, ROLES ? 256 : 128, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, heads, n, m, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       scale * kLog2e, scale);
@@ -359,12 +632,21 @@ int launch_dkv(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// (D, SPLIT of the dQ pass, SPLIT of the dK/dV pass). A dQ thread holds
-// 16-20 values of each of its rows; a dK/dV thread, which holds four row
-// arrays, 8 or 20: at 16 the compiler spilled under the 128-register cap
-// and the pass ran 5-10x slower (PERF.md).
-#define FLASH_BWD_CASES(X)                                                     \
-  X(16, 1, 2) X(32, 2, 4) X(40, 2, 2) X(64, 4, 8) X(80, 4, 4) X(160, 8, 8)
+// Tiles per head dim, chosen on an H100 (PERF.md, PR 4) so that ptxas
+// spills nothing: (D, streamed rows C, warps W, row groups per warp MT,
+// blocks per SM MINB for __launch_bounds__) for the dQ pass, (D, C, ROLES,
+// MINB) for the dK/dV pass. Two row groups per warp halve the B fragments
+// loaded and split per product (faster at D <= 40), but spill at D = 64
+// and are slower at D = 80. The dK/dV pass holds dk, dv and one
+// tile's partial sums of each (2 D values); at D = 160 that does not fit,
+// so its warps take roles. Without MINB ptxas chose fewer registers and
+// spilled (D = 16).
+#define FLASH_BWD_DQ_TILES(X)                                                  \
+  X(16, 32, 4, 2, 2) X(32, 32, 4, 2, 2) X(40, 32, 4, 2, 2)                     \
+  X(64, 64, 4, 1, 2) X(80, 32, 4, 1, 2) X(160, 16, 8, 1, 1)
+#define FLASH_BWD_DKV_TILES(X)                                                 \
+  X(16, 32, false, 2) X(32, 32, false, 2) X(40, 32, false, 2)                  \
+  X(64, 32, false, 1) X(80, 32, false, 1) X(160, 16, true, 1)
 
 extern "C" {
 
@@ -384,12 +666,12 @@ int flash_attn_backward_dq(const float* q, const float* k, const float* v,
                            int batch, int heads, int n, int m, int d,
                            const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ_CASE(D, SPLIT, SPLIT_KV)                                            \
+#define DQ_CASE(D, C, W, MT, MINB)                                             \
   case D:                                                                      \
-    return launch_dq<D, SPLIT>(q, k, v, o, dout, lse, dq, delta, batch,        \
-                               heads, n, m, strides, s);
+    return launch_dq<D, C, W, MT, MINB>(q, k, v, o, dout, lse, dq, delta,      \
+                                        batch, heads, n, m, strides, s);
   switch (d) {
-    FLASH_BWD_CASES(DQ_CASE)
+    FLASH_BWD_DQ_TILES(DQ_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -406,12 +688,12 @@ int flash_attn_backward_dkv(const float* q, const float* k, const float* v,
                             int batch, int heads, int n, int m, int d,
                             const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV_CASE(D, SPLIT_Q, SPLIT)                                            \
+#define DKV_CASE(D, C, ROLES, MINB)                                            \
   case D:                                                                      \
-    return launch_dkv<D, SPLIT>(q, k, v, dout, lse, delta, dk, dv, batch,      \
-                                heads, n, m, strides, s);
+    return launch_dkv<D, C, ROLES, MINB>(q, k, v, dout, lse, delta, dk, dv,    \
+                                         batch, heads, n, m, strides, s);
   switch (d) {
-    FLASH_BWD_CASES(DKV_CASE)
+    FLASH_BWD_DKV_TILES(DKV_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,6 +13,11 @@ that):
 - the dK/dV pass (same source) replaces ``_flash_dkv_kernel``
   (``flash_attn.py:182``, launched at ``:285``): 8·B·H·N·M·D flops.
 
+The two backward passes run their products on the tensor cores as 3xTF32
+(each fp32 operand split into two TF32 halves, three TF32 products per fp32
+product), at about fp32 accuracy; :func:`flash_attention_backward_tf32`
+emulates that arithmetic in plain torch for the tests.
+
 :func:`flash_attention` is differentiable: where a gradient is wanted it
 runs :class:`FlashAttentionFunction` (the JAX package's ``custom_vjp``),
 whose forward keeps L and whose backward runs the two passes; under
@@ -83,6 +88,68 @@ def flash_attention_backward_plain(q, k, v, o, lse, do) -> Grads:
     (dq, dk, dv) from the forward's inputs, o, L and the output gradient."""
     dq, delta = flash_attention_dq_plain(q, k, v, o, lse, do)
     return (dq, *flash_attention_dkv_plain(q, k, v, do, lse, delta))
+
+
+# --- TF32 emulation (tests and docs; the main path never calls it) -------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds; returned as fp32 with the low
+    13 bits zero. Works on the int32 view of the bits."""
+    i = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 toward zero: the low 13 bits dropped, as a tensor core
+    reads an fp32 value given to it as a TF32 operand."""
+    i = x.to(torch.float32).contiguous().view(torch.int32)
+    return (i & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor, lo_round: str = "nearest"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32_round(x) and lo = x - hi as TF32, rounded to
+    nearest (``"nearest"``: hi + lo is x to 2^-22 relative) or toward zero
+    (``"zero"``: 2^-21; what the kernels do, passing x - hi unrounded)."""
+    hi = tf32_round(x)
+    rnd = {"nearest": tf32_round, "zero": tf32_truncate}[lo_round]
+    return hi, rnd(x - hi)
+
+
+def _tf32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int,
+                 lo_round: str) -> torch.Tensor:
+    """einsum on TF32 operands: one product of the rounded operands
+    (``passes=1``), or lo·hi + hi·lo + hi·hi (``passes=3``, 3xTF32). A
+    product of two TF32 values is exact in fp32, so only the sums round."""
+    (ah, al), (bh, bl) = tf32_split(a, lo_round), tf32_split(b, lo_round)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    elif passes != 1:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    return out
+
+
+def flash_attention_backward_tf32(q, k, v, o, lse, do, passes: int = 3,
+                                  lo_round: str = "nearest") -> Grads:
+    """The two backward passes with every product formed from TF32
+    operands: rounded once (``passes=1``) or split into hi and lo
+    (``passes=3``, the kernels' 3xTF32 ``mma.sync``; ``lo_round="zero"``
+    is the kernels' own rounding of lo), p and ds split like any operand,
+    sums in fp32. For tests and docs: it shows why one TF32 pass is not
+    accurate enough and 3xTF32 is. The main path never calls it."""
+    scale = q.shape[-1] ** -0.5
+
+    def mm(eq, a, b):
+        return _tf32_einsum(eq, a, b, passes, lo_round)
+
+    delta = (do * o).sum(-1).transpose(1, 2)
+    p = torch.exp(mm("bihd,bjhd->bhij", q, k) * scale - lse[..., None])
+    ds = p * (mm("bihd,bjhd->bhij", do, v) - delta[..., None])
+    dq = mm("bhij,bjhd->bihd", ds, k) * scale
+    dk = mm("bhij,bihd->bjhd", ds, q) * scale
+    return dq, dk, mm("bhij,bihd->bjhd", p, do)
 
 
 # --- kernel wrappers -----------------------------------------------------------
