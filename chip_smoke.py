@@ -18,9 +18,9 @@ backward kernels. Phases, each printing JSON lines:
             versions, and the TF32 settings, both switched off: every
             number here is float32.
 2. build    nvcc for each kernel source, all in parallel: registers and
-            spill bytes per kernel (ptxas), and the flash backward
-            kernels' tensor-core instructions (cuobjdump -sass); fails if
-            a backward kernel spills or has no HMMA.
+            spill bytes per kernel (ptxas), and the flash kernels'
+            tensor-core instructions (cuobjdump -sass); fails if a flash
+            kernel (six forward, twelve backward) spills or has no HMMA.
 3. kernels  each kernel against its plain PyTorch twin at every site the
             flagship forward gives it at batch 16 (CoordAttn under both
             norm kinds): max |diff| (tolerance 1e-4 on standard-normal
@@ -28,10 +28,15 @@ backward kernels. Phases, each printing JSON lines:
             kernel and twin times, and the least time the card could take.
 4. flash    the flash-attention kernel against its twin (output and
             logsumexp) at the SD UNet's 512 px site (4, 4096, 8, 40), a
-            ragged 416 px site, D = 80 and 160, an M != N case and the tiny
-            and mid head dims: max |diff| (tolerance 1e-4 on standard-normal
-            inputs: the same fp32 arithmetic summed in another order, with
-            exp2 in place of exp), kernel, twin and SDPA times, the bound.
+            ragged 416 px site, D = 80 and 160, an M != N case, the tiny
+            and mid head dims and the training site (2, 4096, 8, 40, with
+            L), then with q and k scaled by 3 (peaked softmaxes) at D = 40
+            and 160: max |diff| (tolerance 1e-4 on standard-normal inputs:
+            fp32-accurate products, each from three TF32 tensor-core
+            products, summed in another order, with exp2 in place of exp),
+            two runs bit-identical at the main site, kernel, twin and SDPA
+            times, and two bounds by operations: 3xTF32 on the tensor cores
+            (what the kernel runs) and fp32 on the CUDA cores.
 5. forward  one full-width forward at batch 16 through the kernels against
             the plain path on the same weights (relative L2 tolerance
             1e-4), with 5 SE and 4 CoordAttn launches.
@@ -119,6 +124,9 @@ FLASH_SITES = [FLASH_MAIN, (2, 2704, 2704, 8, 40), (2, 2304, 2304, 8, 80),
 FLASH_PER_FORWARD = 5  # level-0 self-attentions of the SD UNet at 512 px
 # The training site: the SD UNet's level 0 at 512 px and batch 2.
 FLASH_TRAIN = (2, 4096, 4096, 8, 40)
+# Sites run with q and k scaled by 3: sharply peaked softmaxes, where one
+# TF32 product per fp32 product would miss KERNEL_ATOL.
+FLASH_PEAKED = [(2, 4096, 4096, 8, 40), (2, 2048, 2048, 8, 160)]
 BWD_RTOL = 1e-4  # backward kernels: max |diff| over max |reference|
 GRAD_RTOL = 1e-4  # relative L2 of a whole UNet gradient, kernels vs plain
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 2, 2
@@ -232,9 +240,9 @@ _FLASH_MANGLED = r"(flash_(?:fwd|bwd_dq|bwd_dkv))I((?:L[ib]\d+E)+)E"
 
 
 def _sass_mma(lib_path) -> dict:
-    """Per flash backward kernel in the built library, its tensor-core
-    instructions by ``cuobjdump -sass``: the count of HMMA lines and the
-    first one. Empty where the toolkit has no cuobjdump."""
+    """Per flash kernel in the built library, its tensor-core instructions
+    by ``cuobjdump -sass``: the count of HMMA lines and the first one.
+    Empty where the toolkit has no cuobjdump."""
     import os
     import shutil
 
@@ -273,20 +281,22 @@ def phase_build() -> None:
                 spills[_flash_name(flash)] = int(spill.group(1)) if spill else 0
             elif fn and used:
                 regs[fn.group(0)] = int(used.group(1))
-    sass = _sass_mma(_build.library_path("flash_attn_bwd"))
+    sass = {**_sass_mma(_build.library_path("flash_attn")),
+            **_sass_mma(_build.library_path("flash_attn_bwd"))}
     emit("build", seconds=time.monotonic() - t0,
          per_source={k: v["seconds"] for k, v in report.items()},
-         registers=regs, spill_store_bytes=spills, bwd_sass_hmma=sass)
-    bwd = {name: (name.split("<")[0], int(name.split("<")[1].split(",")[0]))
-           for name in spills if name.startswith("flash_bwd")}
-    check(sorted(bwd.values()) == sorted(
-        (f"flash_bwd_{p}", d) for p in ("dq", "dkv") for d in HEAD_DIMS),
-        f"one dQ and one dK/dV kernel per head dim: {sorted(bwd)}")
-    check(all(spills[name] == 0 for name in bwd),
-          f"backward kernels spill: {spills}")
+         registers=regs, spill_store_bytes=spills, flash_sass_hmma=sass)
+    flash = {name: (name.split("<")[0], int(name.split("<")[1].split(",")[0]))
+             for name in spills if name.startswith("flash_")}
+    check(sorted(flash.values()) == sorted(
+        (f"flash_{p}", d) for p in ("fwd", "bwd_dq", "bwd_dkv")
+        for d in HEAD_DIMS),
+        f"one forward, dQ and dK/dV kernel per head dim: {sorted(flash)}")
+    check(all(spills[name] == 0 for name in flash),
+          f"flash kernels spill: {spills}")
     check(not sass or all(sass.get(name, {}).get("hmma", 0) > 0
-                          for name in bwd),
-          f"backward kernels without tensor-core (HMMA) instructions: {sass}")
+                          for name in flash),
+          f"flash kernels without tensor-core (HMMA) instructions: {sass}")
 
 
 def _site_x(b, h, c, seed):
@@ -542,36 +552,56 @@ def phase_flash() -> list:
     )
 
     rows = []
+    cases = ([(site, False, 1.0) for site in FLASH_SITES]
+             + [(FLASH_TRAIN, True, 1.0)]
+             + [(site, False, 3.0) for site in FLASH_PEAKED])
     with torch.no_grad():
-        for i, (b, n, m, h, d) in enumerate(FLASH_SITES):
+        for i, ((b, n, m, h, d), lse_out, scale) in enumerate(cases):
             g = torch.Generator(device="cuda").manual_seed(500 + i)
-            q = torch.randn((b, n, h, d), generator=g, device="cuda")
-            k = torch.randn((b, m, h, d), generator=g, device="cuda")
+            q = scale * torch.randn((b, n, h, d), generator=g, device="cuda")
+            k = scale * torch.randn((b, m, h, d), generator=g, device="cuda")
             v = torch.randn((b, m, h, d), generator=g, device="cuda")
             o, lse = flash_attention(q, k, v, want_lse=True)
-            want_o, want_lse = flash_attention_plain(q, k, v, want_lse=True)
-            err = (o - want_o).abs().max().item()
-            err_lse = (lse - want_lse).abs().max().item()
-            del o, lse, want_o, want_lse
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            iters = 10 if (b, n, m, h, d) == FLASH_MAIN else 3
-            b_ms, b_by = bound(4 * (2 * b * n * h * d + 2 * b * m * h * d),
-                               4 * b * h * n * m * d)
-            rows.append(dict(
-                shape=[b, n, m, h, d], max_abs_err=err,
-                max_abs_err_lse=err_lse,
-                ms=cuda_ms(lambda: flash_attention(q, k, v), iters),
-                plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v),
-                                 iters),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt), iters),
-                device_ms=device_times(lambda: flash_attention(q, k, v)),
-                bound_ms=b_ms, bound_by=b_by))
-            rows[-1]["bound_share"] = b_ms / rows[-1]["ms"]
-            emit("flash", **rows[-1])
+            ref_o, ref_lse = flash_attention_plain(q, k, v, want_lse=True)
+            err = (o - ref_o).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            row = dict(shape=[b, n, m, h, d], scale=scale, want_lse=lse_out,
+                       max_abs_err=err, max_abs_err_lse=err_lse)
+            if (b, n, m, h, d) == FLASH_MAIN:  # fixed order: bit-identical
+                o2, lse2 = flash_attention(q, k, v, want_lse=True)
+                row["repeat_bit_identical"] = (torch.equal(o, o2)
+                                               and torch.equal(lse, lse2))
+                del o2, lse2
+            del o, lse, ref_o, ref_lse
             check(max(err, err_lse) <= KERNEL_ATOL,
-                  f"flash_attn {[b, n, m, h, d]}: |diff| {err}, lse {err_lse}")
-            del q, k, v, qt, kt, vt
+                  f"flash_attn {[b, n, m, h, d]} x{scale}: |diff| {err}, "
+                  f"lse {err_lse}")
+            check(row.get("repeat_bit_identical", True),
+                  f"flash_attn {[b, n, m, h, d]}: two runs differ")
+            if scale == 1.0:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                iters = 10 if b * n * m * h * d >= 2 ** 32 else 3
+                nbytes = 4 * (2 * b * n * h * d + 2 * b * m * h * d
+                              + (b * h * n if lse_out else 0))
+                flops = 4 * b * h * n * m * d
+                b_ms, b_by = bound_3xtf32(nbytes, flops)
+                fp32_ms = bound(nbytes, flops)[0]
+                row.update(
+                    ms=cuda_ms(lambda: flash_attention(q, k, v, lse_out),
+                               iters),
+                    plain_ms=cuda_ms(lambda: flash_attention_plain(
+                        q, k, v, lse_out), iters),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt), iters),
+                    device_ms=device_times(
+                        lambda: flash_attention(q, k, v, lse_out)),
+                    bound_ms=b_ms, bound_by=b_by, bound_ms_fp32=fp32_ms)
+                row.update(bound_share=b_ms / row["ms"],
+                           bound_share_fp32=fp32_ms / row["ms"])
+                del qt, kt, vt
+            rows.append(row)
+            emit("flash", **row)
+            del q, k, v
     torch.cuda.empty_cache()
     return rows
 
@@ -1060,9 +1090,12 @@ def main() -> int:
             "plain_ms": per * main_site["plain_ms"],
             "bound_ms": per * main_site["bound_ms"],
             "bound_by": main_site["bound_by"],
+            "bound_ms_fp32": per * main_site["bound_ms_fp32"],
             "library_ms": per * main_site["library_ms"],
             "per": f"one batch-4 SD UNet forward at 512 px ({per} sites of "
-                   f"(B, N, M, H, D) = {list(FLASH_MAIN)})",
+                   f"(B, N, M, H, D) = {list(FLASH_MAIN)}); bound_ms is "
+                   "3xTF32 on the tensor cores (what the kernel runs), "
+                   "bound_ms_fp32 the fp32 CUDA-core bound",
         }
 
     def bwd_entry(name, key, launched, replaces):

@@ -5,8 +5,8 @@ into its own shared library with a plain C interface, and loaded with
 ``ctypes``. The build happens at first use (or up front through
 :func:`build`, which starts one ``nvcc`` per source, all in parallel) into
 ``kernels/build/``, a directory git ignores. A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.
+a hash of its source, of every header in ``csrc/`` and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines without ``nvcc``.
@@ -47,9 +47,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

@@ -13,10 +13,11 @@ that):
 - the dK/dV pass (same source) replaces ``_flash_dkv_kernel``
   (``flash_attn.py:182``, launched at ``:285``): 8·B·H·N·M·D flops.
 
-The two backward passes run their products on the tensor cores as 3xTF32
-(each fp32 operand split into two TF32 halves, three TF32 products per fp32
-product), at about fp32 accuracy; :func:`flash_attention_backward_tf32`
-emulates that arithmetic in plain torch for the tests.
+All three run their products on the tensor cores as 3xTF32 (each fp32
+operand split into two TF32 halves, three TF32 products per fp32 product),
+at about fp32 accuracy; :func:`flash_attention_forward_tf32` and
+:func:`flash_attention_backward_tf32` emulate that arithmetic in plain
+torch for the tests.
 
 :func:`flash_attention` is differentiable: where a gradient is wanted it
 runs :class:`FlashAttentionFunction` (the JAX package's ``custom_vjp``),
@@ -129,6 +130,25 @@ def _tf32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int,
     elif passes != 1:
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     return out
+
+
+def flash_attention_forward_tf32(q, k, v, passes: int = 3,
+                                 lo_round: str = "nearest"
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward with both products formed from TF32 operands, as the
+    kernel forms them: s = q kᵀ and p·v rounded once (``passes=1``) or split
+    into hi and lo (``passes=3``, 3xTF32; ``lo_round="zero"`` is the
+    kernel's own rounding of lo), p split like any operand, the softmax and
+    its sums in fp32. Returns (o [B,N,H,D], L [B,H,N]). For tests and docs;
+    the main path never calls it."""
+    s = _tf32_einsum("bihd,bjhd->bhij", q, k, passes, lo_round) \
+        * (q.shape[-1] ** -0.5)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.exp(s - mx)
+    total = p.sum(-1, keepdim=True)
+    o = _tf32_einsum("bhij,bjhd->bihd", p, v, passes, lo_round) \
+        / total.permute(0, 2, 1, 3)
+    return o, (mx + torch.log(total)).squeeze(-1)
 
 
 def flash_attention_backward_tf32(q, k, v, o, lse, do, passes: int = 3,

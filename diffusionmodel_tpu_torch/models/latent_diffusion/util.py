@@ -11,6 +11,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from diffusionmodel_tpu_torch.device_check import resolve_device
+
 
 def load_img(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """An image file -> float32 [1, H, W, 3] in [-1, 1]: RGB, both sides cut
@@ -47,11 +49,13 @@ def save_images(images, dest_path: str, prefix: str = "",
     return paths
 
 
-def set_seed(seed: int, device: Union[str, torch.device] = "cpu"
+def set_seed(seed: int, device: Optional[Union[str, torch.device]] = None
              ) -> torch.Generator:
     """Seed Python's and numpy's generators and return a
-    ``torch.Generator`` on ``device`` seeded with ``seed``, which the
-    pipelines draw from (the JAX package returns a PRNG key here)."""
+    ``torch.Generator`` on ``device`` (``None``: the GPU, which must be
+    present) seeded with ``seed``, which the pipelines draw from (the JAX
+    package returns a PRNG key here)."""
+    dev = resolve_device(device)
     random.seed(seed)
     np.random.seed(seed)
-    return torch.Generator(device=device).manual_seed(seed)
+    return torch.Generator(device=dev).manual_seed(seed)

@@ -9,10 +9,10 @@ without the repository's conftest (it imports jax):
 Tolerance: max |kernel - twin| <= 1e-4 on standard-normal inputs. Both
 compute in fp32 (TF32 is switched off for the twin's products); the
 kernels sum in another order, which moves results by ~1e-6. The flash
-backward's gradients are sums over a whole sequence and grow with it, so
-they are held to 1e-4 of the largest reference value instead; its kernels
-form each product from three TF32 tensor-core products (3xTF32), accurate
-to about fp32.
+kernels form each product from three TF32 tensor-core products (3xTF32),
+accurate to about fp32. The flash backward's gradients are sums over a
+whole sequence and grow with it, so they are held to 1e-4 of the largest
+reference value instead.
 """
 
 import pytest
@@ -209,6 +209,28 @@ def test_flash_kernel_matches_twin(dev, shape):
     assert (o - want_o).abs().max().item() <= ATOL
     assert (lse - want_lse).abs().max().item() <= ATOL
     assert torch.equal(flash_attention(q, k, v), o)
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 300, 2, 40),
+                                   (1, 256, 200, 2, 160)])
+def test_flash_kernel_peaked_softmax(dev, shape):
+    """q, k x3: a sharply peaked softmax, where one TF32 product per fp32
+    product would miss ATOL; the kernel's 3xTF32 products do not."""
+    q, k, v = _qkv(*shape, dev)
+    q, k = 3 * q, 3 * k
+    o, lse = flash_attention(q, k, v, want_lse=True)
+    want_o, want_lse = flash_attention_plain(q, k, v, want_lse=True)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o - want_o).abs().max().item() <= ATOL
+    assert (lse - want_lse).abs().max().item() <= ATOL
+
+
+def test_flash_kernel_runs_are_bit_identical(dev):
+    """Each output row is owned by one block and summed in a fixed order."""
+    q, k, v = _qkv(2, 2704, 2704, 8, 40, dev, seed=4)
+    first = flash_attention(q, k, v, want_lse=True)
+    second = flash_attention(q, k, v, want_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_kernel_reads_strided_heads(dev):

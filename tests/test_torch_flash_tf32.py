@@ -1,19 +1,22 @@
-"""The precision scheme of the flash-attention backward kernels, on the CPU.
+"""The precision scheme of the flash-attention kernels, on the CPU.
 
-The dQ and dK/dV kernels form every product on the tensor cores from TF32
-operands (10 explicit mantissa bits). One TF32 product per fp32 product
-is not accurate enough for the kernels' tolerance (1e-4 of max |reference|)
-once the softmax is peaked; three of them (3xTF32: x = hi + lo, each
-product lo·hi + hi·lo + hi·hi) are about as accurate as fp32, whether lo
-is rounded to nearest or, as in the kernels, toward zero.
-``flash_attention_backward_tf32`` forms the two passes' products that way
-in plain torch, so these tests pin the choice without a card.
+The forward, dQ and dK/dV kernels form every product on the tensor cores
+from TF32 operands (10 explicit mantissa bits). One TF32 product per fp32
+product is not accurate enough for the kernels' tolerances (1e-4 absolute
+for the forward's o and L, 1e-4 of max |reference| for the gradients) once
+the softmax is peaked; three of them (3xTF32: x = hi + lo, each product
+lo·hi + hi·lo + hi·hi) are about as accurate as fp32, whether lo is
+rounded to nearest or, as in the kernels, toward zero.
+``flash_attention_forward_tf32`` and ``flash_attention_backward_tf32``
+form the products that way in plain torch, so these tests pin the choice
+without a card.
 
-Tolerances, of max |reference|: 1e-5 for 3xTF32 against the fp32 twins
-with standard-normal inputs; with q and k scaled by 3 the scores are 9x
-larger, and the fp32 rounding of a score, which p = exp(s - L) turns into
-a relative error, grows with them, so the bound is 1e-5 x 3² there (the
-fp32 twin itself is ~1e-5 from a float64 twin at that scale).
+Tolerances against the fp32 twins with standard-normal inputs: 1e-5 (of
+max |reference| for the gradients, absolute for o and L); with q and k
+scaled by 3 the scores are 9x larger, and the fp32 rounding of a score,
+which p = exp(s - L) turns into a relative error, grows with them, so the
+bound is 1e-5 x 3² there (the fp32 twin itself is ~1e-5 from a float64
+twin at that scale).
 """
 
 import numpy as np
@@ -24,13 +27,15 @@ from diffusionmodel_tpu_torch.kernels.flash_attn import (
     HEAD_DIMS,
     flash_attention_backward_plain,
     flash_attention_backward_tf32,
+    flash_attention_forward_tf32,
     flash_attention_plain,
     tf32_round,
     tf32_split,
     tf32_truncate,
 )
 
-BWD_RTOL = 1e-4  # the kernels' tolerance on the card
+BWD_RTOL = 1e-4  # the backward kernels' tolerance on the card
+FWD_ATOL = 1e-4  # the forward kernel's tolerance on o and L on the card
 N = 256  # N = M: seconds on the CPU
 
 
@@ -105,6 +110,35 @@ def test_one_tf32_pass_misses_the_kernels_tolerance(d):
     assert _rel(three, want) < _rel(one, want) / 30
 
 
+def _abs(got, want) -> float:
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("lo_round", ["nearest", "zero"])
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_3xtf32_forward_matches_fp32_twin(d, scale, lo_round):
+    q, k, v = _inputs(d, scale)[:3]
+    got = flash_attention_forward_tf32(q, k, v, passes=3, lo_round=lo_round)
+    want = flash_attention_plain(q, k, v, want_lse=True)
+    assert all(g.shape == w.shape for g, w in zip(got, want))
+    assert _abs(got, want) <= 1e-5 * scale ** 2
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_one_tf32_pass_misses_the_forward_tolerance(d):
+    """At q, k x3 one TF32 product per fp32 product moves o or L by more
+    than FWD_ATOL: the reason the forward kernel takes three."""
+    q, k, v = _inputs(d, 3.0)[:3]
+    want = flash_attention_plain(q, k, v, want_lse=True)
+    one = _abs(flash_attention_forward_tf32(q, k, v, passes=1), want)
+    three = _abs(flash_attention_forward_tf32(q, k, v, passes=3), want)
+    assert one > FWD_ATOL
+    assert three < one / 30
+
+
 def test_tf32_emulation_refuses_other_pass_counts():
     with pytest.raises(ValueError, match="passes"):
         flash_attention_backward_tf32(*_inputs(16, 1.0), passes=2)
+    with pytest.raises(ValueError, match="passes"):
+        flash_attention_forward_tf32(*_inputs(16, 1.0)[:3], passes=2)

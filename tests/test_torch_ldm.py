@@ -80,6 +80,7 @@ from diffusionmodel_tpu_torch.models.latent_diffusion.unet import (
     UNetModel,
     sinusoidal_time_emb,
 )
+from diffusionmodel_tpu_torch.models.latent_diffusion.util import set_seed
 from diffusionmodel_tpu_torch.nn.blocks import GroupNorm, channels_last
 
 torch.set_num_threads(2)
@@ -238,7 +239,7 @@ def test_time_embedding_and_schedule_match_jax():
         np.asarray(junet.sinusoidal_time_emb(jnp.asarray(t), 64)),
         rtol=0, atol=ATOL_BLOCK)
     for n in (20, 1000):
-        mine, ref = ldm_schedule(n), jax_ldm_schedule(n)
+        mine, ref = ldm_schedule(n, device="cpu"), jax_ldm_schedule(n)
         for a, b in zip(mine, ref):
             assert a.dtype == torch.float32
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
@@ -292,7 +293,8 @@ def ldms(tiny):
         lambda img: ja.apply({"params": aparams}, img, method=ja.encode),
         lambda z: ja.apply({"params": aparams}, z, method=ja.decode),
         n_steps=T_SCHED)
-    tmodel = LatentDiffusion(unet, ae.encode, ae.decode, n_steps=T_SCHED)
+    tmodel = LatentDiffusion(unet, ae.encode, ae.decode, n_steps=T_SCHED,
+                             device="cpu")
     return jmodel, tmodel
 
 
@@ -323,8 +325,8 @@ def test_time_step_tables_bit_exact(ldms):
                   tsamp.DPMPPSampler(tmodel, n, disc))
         np.testing.assert_array_equal(tp.time_steps, jp.time_steps)
     # the 512 px edit path: strength 0.75 of DDIM-50 runs 37 steps
-    assert int(0.75 * tsamp.DDIMSampler(LatentDiffusion(None), 50).n_steps) \
-        == 37
+    ddim = tsamp.DDIMSampler(LatentDiffusion(None, device="cpu"), 50)
+    assert int(0.75 * ddim.n_steps) == 37
 
 
 @pytest.mark.parametrize("eta", [0.0, 1.0])
@@ -590,6 +592,21 @@ def test_ldm_runner_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         LdmRunner(arch="tiny")
+
+
+def test_ldm_helpers_default_to_cuda_and_raise_without_it():
+    """``ldm_schedule``, ``LatentDiffusion`` and ``set_seed`` run on the GPU
+    unless given a device, as every entry point of the port does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for make in (ldm_schedule, lambda: LatentDiffusion(None),
+                 lambda: set_seed(0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert ldm_schedule(10, device="cpu").beta.device.type == "cpu"
+    assert LatentDiffusion(None, device="cpu").sched.alpha.device.type \
+        == "cpu"
+    assert set_seed(0, "cpu").device.type == "cpu"
 
 
 def test_package_never_calls_sdpa():

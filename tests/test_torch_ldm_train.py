@@ -241,7 +241,8 @@ def test_ldm_loss_and_unet_gradients_match_jax(tiny, batch, jax_step):
     draws = _jax_loss_draws(key, batch["z"].shape, 1000, 0.5)
     assert draws["drop"].tolist() == [True, False]
     loss = ldm_loss(unet, torch.from_numpy(batch["z"]),
-                    torch.from_numpy(batch["cond"]), ldm_schedule(),
+                    torch.from_numpy(batch["cond"]),
+                    ldm_schedule(device="cpu"),
                     torch.from_numpy(batch["uncond"]), 0.5, **draws)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=RTOL)
@@ -293,7 +294,7 @@ def test_three_train_steps_match_jax(tiny, batch, jax_step):
     flat, unravel = ravel_pytree(uparams)
     opt_state = tx.init(flat)
     step = make_ldm_train_step(unet, adam(unet.parameters(), LR),
-                               ldm_schedule(), uncond_prob=0.5)
+                               ldm_schedule(device="cpu"), uncond_prob=0.5)
     mean = batch["z"]
     std = np.full_like(mean, 0.1)
     args = [torch.from_numpy(a) for a in (batch["cond"], batch["uncond"])]
@@ -345,7 +346,7 @@ def test_frozen_vae_gets_no_gradient_and_full_dropout_ignores_cond(tiny,
     ae_before = {k: v.clone() for k, v in ae.state_dict().items()}
     unet_before = {k: v.clone() for k, v in unet.state_dict().items()}
     step = make_ldm_train_step(unet, adam(unet.parameters(), 1e-3),
-                               ldm_schedule(), ae=ae)
+                               ldm_schedule(device="cpu"), ae=ae)
     img = torch.from_numpy(np.random.RandomState(6).uniform(
         -1, 1, (B, 64, 64, 3)).astype(np.float32))
     loss = step(img, torch.from_numpy(batch["cond"]),
@@ -364,7 +365,8 @@ def test_frozen_vae_gets_no_gradient_and_full_dropout_ignores_cond(tiny,
         cond = torch.randn((B, 77, D_COND),
                            generator=torch.Generator().manual_seed(seed))
         with torch.no_grad():
-            losses.append(ldm_loss(unet, z, cond, ldm_schedule(), uncond, 1.0,
+            losses.append(ldm_loss(unet, z, cond, ldm_schedule(device="cpu"),
+                                   uncond, 1.0,
                                    generator=torch.Generator().manual_seed(9)))
     assert losses[0].item() == losses[1].item()
 
@@ -378,7 +380,7 @@ def test_remat_gives_the_same_gradients(tiny, batch):
         model = copy.deepcopy(unet)
         step = make_ldm_train_step(
             model, torch.optim.SGD(model.parameters(), lr=0.0),
-            ldm_schedule(), remat=remat)
+            ldm_schedule(device="cpu"), remat=remat)
         step(torch.from_numpy(batch["z"]), torch.from_numpy(batch["cond"]),
              t=draws["t"], eps=draws["eps"])
         grads.append({k: p.grad for k, p in model.named_parameters()})

@@ -206,6 +206,30 @@ def test_cli_serve_needs_ckpt(capsys):
     assert "Checkpoint path required" in capsys.readouterr().out
 
 
+def test_library_path_hashes_every_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh``, so an
+    edited header rebuilds every library, also those that include it."""
+    import shutil
+
+    from diffusionmodel_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(REPO / "diffusionmodel_tpu_torch" / "kernels" / "csrc",
+                    csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert before == {name: _build.library_path(name)
+                      for name in _build.SOURCES}
+    header = csrc / "tf32_mma.cuh"
+    data = bytearray(header.read_bytes())
+    data[-2] ^= 1  # one byte of the header's last line
+    header.write_bytes(bytes(data))
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(after[name] != before[name] for name in _build.SOURCES)
+    for name in ("flash_attn", "flash_attn_bwd"):
+        assert '#include "tf32_mma.cuh"' in (csrc / f"{name}.cu").read_text()
+
+
 def test_port_sources_exist_for_every_kernel():
     csrc = REPO / "diffusionmodel_tpu_torch" / "kernels" / "csrc"
     from diffusionmodel_tpu_torch.kernels import _build
