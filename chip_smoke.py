@@ -25,7 +25,11 @@ backward kernels. Phases, each printing JSON lines:
             flagship forward gives it at batch 16 (CoordAttn under both
             norm kinds): max |diff| (tolerance 1e-4 on standard-normal
             inputs: the same fp32 arithmetic summed in another order),
-            kernel and twin times, and the least time the card could take.
+            kernel and twin times, and the least time the card could take;
+            for CoordAttn also the profiler's device ms per pass and their
+            sum, the kernels launched per call (must be its 3), and the
+            shares of the bound and of the floor of a design that reads x
+            twice.
 4. flash    the flash-attention kernel against its twin (output and
             logsumexp) at the SD UNet's 512 px site (4, 4096, 8, 40), a
             ragged 416 px site, D = 80 and 160, an M != N case, the tiny
@@ -39,7 +43,9 @@ backward kernels. Phases, each printing JSON lines:
             (what the kernel runs) and fp32 on the CUDA cores.
 5. forward  one full-width forward at batch 16 through the kernels against
             the plain path on the same weights (relative L2 tolerance
-            1e-4), with 5 SE and 4 CoordAttn launches.
+            1e-4), with 5 SE and 4 CoordAttn launches; then the device
+            kernels of one eval CoordAttn module call, its packed weights
+            cached (must be the kernel's 3).
 6. serve    the ContextUnet main path, with every launch count zeroed just
             before it:
             ``SamplerService`` with DDIM-50 (mixed classes, two guidance
@@ -94,6 +100,7 @@ not 0 and the last line is not printed. Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import re
 import subprocess
@@ -133,6 +140,7 @@ TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 2, 2
 # (H, C) of each site in one flagship forward, in forward order.
 SE_SITES = [(256, 192), (256, 192), (128, 384), (64, 768), (32, 1536)]
 CA_SITES = [(128, 192), (64, 384), (32, 768), (16, 1536)]
+CA_KERNELS_PER_CALL = 3  # ca_pool, ca_bottleneck, ca_apply
 
 
 def emit(phase: str, **kv) -> None:
@@ -158,12 +166,11 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_breakdown(fn) -> tuple:
-    """Profile one call of ``fn`` (torch.profiler, CUDA activity): device ms
-    per kernel name (the port's kernels by their short names), the busy ms
-    (the union of the kernels' intervals) and the wall ms of the call.
-    Only kernel events are counted, and an event the profiler reports twice
-    (same name and interval) once."""
+def _kernel_events(fn) -> tuple:
+    """Profile one call of ``fn`` (torch.profiler, CUDA activity): its
+    kernels as (short name, start us, end us), with an event the profiler
+    reports twice (same name and interval) once, and the wall ms of the
+    call. The port's kernels go by their short names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -174,22 +181,38 @@ def kernel_breakdown(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out, seen = {}, set()
+    seen = {}
     for e in prof.events():
         start, end = e.time_range.start, e.time_range.end
         if e.device_type != DeviceType.CUDA or end <= start \
                 or (e.name, start, end) in seen:
             continue
-        seen.add((e.name, start, end))
-        short = re.search(r"\b(?:se|ca)_[a-z_]+(?=\()|flash_(?:fwd|bwd_dq|"
+        short = re.search(r"\b(?:se|ca)_[a-z_]+(?=[(<])|flash_(?:fwd|bwd_dq|"
                           r"bwd_dkv)<\d+(?:, ?(?:\d+|true|false))*>", e.name)
-        name = short.group(0) if short else e.name[:80]
+        seen[(e.name, start, end)] = short.group(0) if short else e.name[:80]
+    return [(n, s, e) for (_, s, e), n in seen.items()], wall_ms
+
+
+def kernel_breakdown(fn) -> tuple:
+    """Profile one call of ``fn``: device ms per kernel name, the busy ms
+    (the union of the kernels' intervals) and the wall ms of the call."""
+    events, wall_ms = _kernel_events(fn)
+    out = {}
+    for name, start, end in events:
         out[name] = out.get(name, 0.0) + (end - start) / 1e3
     busy_us, reach = 0.0, float("-inf")
-    for _, start, end in sorted(seen, key=lambda s: s[1]):
+    for _, start, end in sorted(events, key=lambda s: s[1]):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     return out, busy_us / 1e3, wall_ms
+
+
+def kernel_launches(fn) -> dict:
+    """Kernel launches per name over one call of ``fn``."""
+    out = {}
+    for name, _, _ in _kernel_events(fn)[0]:
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 def device_times(fn) -> dict:
@@ -272,7 +295,7 @@ def phase_build() -> None:
     regs, spills = {}, {}
     for r in report.values():  # ptxas -v: registers and spills per kernel
         for chunk in r["log"].split("Function properties for ")[1:]:
-            fn = re.search(r"(?:se|ca)_[a-z_]+(?=E)", chunk)
+            fn = re.search(r"(?:se|ca)_[a-z_]+(?:ILi\d+E)?(?=E)", chunk)
             flash = re.search(_FLASH_MANGLED, chunk)
             used = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
@@ -280,7 +303,8 @@ def phase_build() -> None:
                 regs[_flash_name(flash)] = int(used.group(1))
                 spills[_flash_name(flash)] = int(spill.group(1)) if spill else 0
             elif fn and used:
-                regs[fn.group(0)] = int(used.group(1))
+                regs[re.sub(r"ILi(\d+)E", r"<\1>", fn.group(0))] = int(
+                    used.group(1))
     sass = {**_sass_mma(_build.library_path("flash_attn")),
             **_sass_mma(_build.library_path("flash_attn_bwd"))}
     emit("build", seconds=time.monotonic() - t0,
@@ -304,18 +328,96 @@ def _site_x(b, h, c, seed):
     return torch.randn((b, h, h, c), generator=g, device="cuda")
 
 
-def phase_kernels() -> list:
+def ca_site_weights(i: int, c: int, kind: str):
+    """Packed weights of a CoordAttn module at CoordAttn site ``i`` (random
+    from fixed seeds, the norms and gates drawn too) and its group count."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import CoordAttnWeights
+    from diffusionmodel_tpu_torch.nn.blocks import gn_groups
+    from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
+
+    r = c // 16
+    torch.manual_seed(200 + i)
+    mod = CoordAttn(c, 16, norm="group" if kind == "group"
+                    else "batch").cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(300 + i)
+    with torch.no_grad():
+        for p in (mod.gamma_h, mod.gamma_w, mod.alpha, mod.beta):
+            p.copy_(torch.randn(1, generator=g, device="cuda"))
+        for nl in (mod.bn1_h, mod.bn1_w):
+            nl.weight.copy_(1 + 0.1 * torch.randn(
+                r, generator=g, device="cuda"))
+            nl.bias.copy_(0.1 * torch.randn(r, generator=g, device="cuda"))
+            if kind == "affine":
+                nl.running_mean.copy_(0.1 * torch.randn(
+                    r, generator=g, device="cuda"))
+                nl.running_var.copy_(torch.rand(
+                    r, generator=g, device="cuda") + 0.5)
+        return CoordAttnWeights.from_module(mod, kind), gn_groups(r, 8)
+
+
+def ca_site_row(x, wts, kind: str, groups: int, iters: int = 20) -> dict:
+    """The CoordAttn kernel at one site: max |kernel - twin|, the CUDA-event
+    ms of back-to-back wrapper calls, the profiler's device ms per kernel,
+    their sum and the union of their intervals (the passes overlap: each
+    may start while the one before it ends, and waits for its output), the
+    host's ms per call (the wrapper's enqueue; where it nears ``ms`` the
+    host sets the pace), the CoordAttn kernels launched per call, the
+    bound (x
+    read once, out written once, the operations at the fp32 rate) and the
+    floor of a design that reads x twice, and the shares of both."""
     from diffusionmodel_tpu_torch.kernels.coord_attn import (
-        CoordAttnWeights,
         coord_attn,
         coord_attn_plain,
     )
+
+    def call():
+        return coord_attn(x, wts, kind, groups)
+
+    with torch.no_grad():
+        err = (call() - coord_attn_plain(x, wts, kind, groups)
+               ).abs().max().item()
+        b, h, _, c = x.shape
+        r = wts.w1h.shape[-1]
+        xb = x.numel() * 4
+        wbytes = sum(getattr(wts, f.name).numel() * 4
+                     for f in dataclasses.fields(wts))
+        mlp = b * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
+        b_ms, b_by = bound(2 * xb + wbytes, 4 * x.numel() + mlp)
+        ms = cuda_ms(call, iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        by_kernel, busy_ms, _ = kernel_breakdown(call)
+        per_kernel = {k: v for k, v in by_kernel.items() if k.startswith("ca_")}
+        launched = sum(n for k, n in kernel_launches(call).items()
+                       if k.startswith("ca_"))
+    floor_ms = 3 * xb / HBM_BYTES_PER_S * 1e3
+    return dict(shape=list(x.shape), norm_kind=kind, max_abs_err=err, ms=ms,
+                device_ms=per_kernel, device_sum_ms=sum(per_kernel.values()),
+                device_busy_ms=busy_ms, host_ms=host_ms,
+                kernels_per_call=launched,
+                bound_ms=b_ms, bound_by=b_by, design_bound_ms=floor_ms,
+                bound_share=b_ms / ms, design_bound_share=floor_ms / ms)
+
+
+def check_ca_row(row: dict) -> None:
+    check(row["max_abs_err"] <= KERNEL_ATOL,
+          f"coord_attn {row['norm_kind']} {row['shape']}: "
+          f"|diff| {row['max_abs_err']}")
+    check(row["kernels_per_call"] == CA_KERNELS_PER_CALL,
+          f"coord_attn {row['shape']}: {row['kernels_per_call']} kernels "
+          f"per call, the design launches {CA_KERNELS_PER_CALL}")
+
+
+def phase_kernels() -> list:
+    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn_plain
     from diffusionmodel_tpu_torch.kernels.se_block import (
         se_block,
         se_block_plain,
     )
-    from diffusionmodel_tpu_torch.nn.blocks import gn_groups
-    from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
 
     rows = {"se_block": [], "coord_attn": [], "coord_attn_affine": []}
     with torch.no_grad():
@@ -344,45 +446,13 @@ def phase_kernels() -> list:
         for kind, key in (("group", "coord_attn"),
                           ("affine", "coord_attn_affine")):
             for i, (h, c) in enumerate(CA_SITES):
-                r = c // 16
-                torch.manual_seed(200 + i)
-                mod = CoordAttn(c, 16, norm="group" if kind == "group"
-                                else "batch").cuda().eval()
-                g = torch.Generator(device="cuda").manual_seed(300 + i)
-                for p in (mod.gamma_h, mod.gamma_w, mod.alpha, mod.beta):
-                    p.copy_(torch.randn(1, generator=g, device="cuda"))
-                for nl in (mod.bn1_h, mod.bn1_w):
-                    nl.weight.copy_(1 + 0.1 * torch.randn(
-                        r, generator=g, device="cuda"))
-                    nl.bias.copy_(0.1 * torch.randn(r, generator=g,
-                                                    device="cuda"))
-                    if kind == "affine":
-                        nl.running_mean.copy_(0.1 * torch.randn(
-                            r, generator=g, device="cuda"))
-                        nl.running_var.copy_(torch.rand(
-                            r, generator=g, device="cuda") + 0.5)
-                wts = CoordAttnWeights.from_module(mod, kind)
-                groups = gn_groups(r, 8)
+                wts, groups = ca_site_weights(i, c, kind)
                 x = _site_x(BATCH, h, c, 10 + i)
-                err = (coord_attn(x, wts, kind, groups)
-                       - coord_attn_plain(x, wts, kind, groups)
-                       ).abs().max().item()
-                xb = x.numel() * 4
-                wbytes = sum(t.numel() * 4 for t in vars(wts).values())
-                mlp = BATCH * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
-                b_ms, b_by = bound(2 * xb + wbytes, 4 * x.numel() + mlp)
-                rows[key].append(dict(
-                    shape=list(x.shape), norm_kind=kind, max_abs_err=err,
-                    ms=cuda_ms(lambda: coord_attn(x, wts, kind, groups), 20),
-                    plain_ms=cuda_ms(
-                        lambda: coord_attn_plain(x, wts, kind, groups), 10),
-                    device_ms=device_times(
-                        lambda: coord_attn(x, wts, kind, groups)),
-                    bound_ms=b_ms, bound_by=b_by,
-                    design_bound_ms=3 * xb / HBM_BYTES_PER_S * 1e3))
+                rows[key].append(ca_site_row(x, wts, kind, groups))
+                rows[key][-1]["plain_ms"] = cuda_ms(
+                    lambda: coord_attn_plain(x, wts, kind, groups), 10)
                 emit("kernels", kernel="coord_attn", **rows[key][-1])
-                check(err <= KERNEL_ATOL,
-                      f"coord_attn {kind} {x.shape}: |diff| {err}")
+                check_ca_row(rows[key][-1])
                 del x
     return rows
 
@@ -398,6 +468,8 @@ def _flagship(use_pallas: bool):
 
 
 def phase_forward(counters):
+    from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
+
     cfg, model = _flagship(True)
     _, plain = _flagship(False)
     plain.load_state_dict(model.state_dict())
@@ -423,19 +495,31 @@ def phase_forward(counters):
             torch.cuda.synchronize()
             times[name] = (time.perf_counter() - t0) * 1e3
         by_kernel = device_times(lambda: model(x, c, t, ctx))
+        # one eval CoordAttn module call, its packed weights cached: every
+        # device kernel it launches (the kernel's three passes, no packing)
+        ca = next(m for m in model.modules() if isinstance(m, CoordAttn))
+        h = 256 // 2
+        xa = torch.randn((BATCH, ca.conv_h.out_channels, h, h),
+                         generator=g, device="cuda").contiguous(
+                             memory_format=torch.channels_last)
+        ca_module_kernels = kernel_launches(lambda: ca(xa))
+        del xa
     total = sum(by_kernel.values())
     ours = sum(v for k, v in by_kernel.items() if k[:3] in ("se_", "ca_"))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("forward", device_ms=total, se_ca_device_ms=ours,
          top_kernels=[[k, v] for k, v in top])
     emit("forward", params=n_params, shape=list(got.shape),
-         se_launches=launched[0], ca_launches=launched[1], rel_l2=rel,
+         se_launches=launched[0], ca_launches=launched[1],
+         ca_module_kernels=ca_module_kernels, rel_l2=rel,
          max_abs_err=(got - want).abs().max().item(),
          max_abs_out=want.abs().max().item(), ms=times)
     check(n_params > 300e6, f"flagship has {n_params} parameters")
     check(tuple(got.shape) == (BATCH, 256, 256, 3)
           and bool(torch.isfinite(got).all()), "forward output")
     check(launched == [5, 4], f"launches per forward {launched}")
+    check(sum(ca_module_kernels.values()) == CA_KERNELS_PER_CALL,
+          f"device kernels per eval CoordAttn call {ca_module_kernels}")
     check(rel <= FORWARD_RTOL, f"forward relative L2 {rel}")
     del plain
     torch.cuda.empty_cache()
@@ -1073,6 +1157,7 @@ def main() -> int:
             "bound_by": "bytes" if all(s["bound_by"] == "bytes"
                                        for s in sites) else "operations",
             "library_ms": None,
+            "device_ms": sum(sum(s["device_ms"].values()) for s in sites),
             "per": f"one batch-{BATCH} forward ({len(sites)} sites)",
         }
 

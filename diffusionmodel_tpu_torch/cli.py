@@ -99,7 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     # train_ldm
     p.add_argument("--img_size", type=int, default=256,
                    help="train_ldm: image size (a multiple of 8)")
-    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--epochs", type=int, default=None,
+                   help="train_ldm: epochs (unset or 0: 10, as in the JAX "
+                        "package's CLI)")
     p.add_argument("--lr", type=float, default=1e-4,
                    help="train_ldm: Adam learning rate")
     p.add_argument("--uncond_prob", type=float, default=0.1,
@@ -221,7 +223,7 @@ def _train_ldm(args) -> int:
                             batch_size=bs, lr=args.lr, seed=seed)
         print(json.dumps({"stage": "train_ae", "epochs": len(ae_hist),
                           "first": ae_hist[0], "last": ae_hist[-1]}))
-    _, history = fit_ldm(runner, images, prompts, epochs=args.epochs,
+    _, history = fit_ldm(runner, images, prompts, epochs=args.epochs or 10,
                          batch_size=bs, lr=args.lr,
                          uncond_prob=args.uncond_prob, remat=args.remat,
                          seed=seed, out_path=out_path)

@@ -13,42 +13,95 @@
 //   out[h,w,c] = x[h,w,c] * (s2 * sigmoid(zh @ Wh + bh)[h,c]
 //                          + s3 * sigmoid(zw @ Ww + bw)[w,c])
 //
-// The Pallas kernel holds a sample's whole [H,W,C] block in VMEM; at the
-// flagship's first site that is 12.6 MB, which no SM can hold (227 KB of
-// shared memory). So the work is split into six launches:
+// Bound: memory. The function must read x once and write out once. The
+// Pallas kernel holds a sample's [L,L,C] block in VMEM; a flagship sample is
+// 1.5-12.6 MB, and an SM holds 227 KB of shared memory, so no block sees a
+// whole sample: the gates need the pooled means of all of x before any
+// output can be written. So x is read twice, once to pool and once to
+// apply, and this design's floor is 3 x-sized transfers against the bound's
+// 2 (67% of the bound). Three launches:
 //
-//   ca_pool        one read of x: complete row means (direction 0 of
-//                  pooled[B,2,L,C]) and per-tile column sums pw[B,n_tiles,L,C]
-//                  (a block owns a tile of rows)
-//   ca_pool_finish adds the column partials in a fixed order -> direction 1
-//   ca_proj_in     y = pooled @ W1 + b in slices of 128 channels: one thread
-//                  per output and slice, lanes across R so that the weight
-//                  reads are coalesced
-//   ca_mix         one block per sample and row: adds the slices in order,
-//                  GroupNorm statistics (or the folded affine), GELU and the
-//                  cross mix in shared memory -> z[B,2,L,R]
-//   ca_proj_out    gates[B,2,L,C] = s * sigmoid(z @ Wout + b): one thread per
-//                  output, lanes across C
-//   ca_apply       the second read of x: out = x * (gates[0][h] + gates[1][w])
+//   ca_pool        first read of x. Block (32-channel chunk, tile of 16
+//                  rows, sample); a warp reads 4 columns x 128 contiguous
+//                  bytes of a row, each lane keeps its columns' sums in
+//                  registers across the tile's rows, and each row's sum is
+//                  reduced with warp shuffles, then across warps once per
+//                  tile through shared memory. Writes the complete row
+//                  means rmean[B,L,C] and the tile's column sums
+//                  cp[B,T,L,C], T = ceil(L/16).
+//   ca_bottleneck  y = pooled @ W1 + b for both directions as one batched
+//                  product: block (32 outputs of R, a k-slice of at most 6
+//                  chunks of 64 channels, 16 rows of a sample, direction x
+//                  sample). A chunk of the column means is the T tiles'
+//                  sums, staged side by side and added in tile order, over
+//                  L. Chunks are staged by cp.async into a ring of 2-7
+//                  buffers (as deep as the slice where shared memory
+//                  allows), so a block reads each weight element of its
+//                  slice once and the next chunks' copies overlap the
+//                  current products. The last slice of an output tile adds
+//                  the slices' partial products in order. The last block of
+//                  a (sample, direction) then takes its GroupNorm
+//                  statistics (or the folded affine) and GELU -> yn, and
+//                  its cross term yx = yn @ Wx + bx (the h2w projection for
+//                  h, w2h for w).
+//   ca_apply       second read of x, one write of out. Block (32-channel
+//                  chunk, tile of 16 rows, sample), in the reverse of
+//                  ca_pool's order (the part of x read last may still be in
+//                  L2): forms z = yn + s * yx (the other direction's cross
+//                  term: zh = yn_h + s0 yx_w, zw = yn_w + s1 yx_h) for its
+//                  rows and all L columns, the gates s2*sigmoid(zh@Wh+bh)
+//                  and s3*sigmoid(zw@Ww+bw) of its chunk into shared memory
+//                  (the output projection, fused: gates never reach device
+//                  memory), then streams x as float4, 8 loads in flight.
 //
-// Bound: memory. The function must read x once and write out once; this
-// design reads x twice, so it reaches at best 2/3 of the bandwidth bound.
-// The products are 2*L*C*R per sample and direction, far below the card's
-// rate; each runs over ~50k-800k threads at the flagship sites.
+// Each kernel lets the next one start early (programmatic dependent
+// launch): ca_bottleneck warms L2 with the cross-mix weights, ca_apply
+// stages its Wout chunk and issues its first x loads, and each waits for
+// the kernel before it to finish before it reads that kernel's output.
 //
-// Determinism: no atomics; every sum runs in a fixed order, so a sample's
-// output depends on nothing else in its batch.
+// Bytes per pass at the flagship sites (batch 16; MB = 1e6 bytes). x is
+// 201.3 / 100.7 / 50.3 / 25.2 MB at L,C = 128,192 / 64,384 / 32,768 /
+// 16,1536; rmean is 1.57 MB at every site (1/L of x), cp T/L of x: 12.6 /
+// 6.3 / 3.1 / 1.6 MB; y, yn and yx 0.2 MB each; the weights 0.02-2.4 MB.
+//
+//   ca_pool        reads x, writes rmean + cp (7.0 / 7.8 / 9.4 / 12.5 % of x)
+//   ca_bottleneck  reads rmean, cp and W1 (from L2; W1 once per sample and
+//                  direction), writes y, the k-slices' partials, yn, yx
+//   ca_apply       reads x, yn, yx and Wout (from L2), writes out
+//
+// Determinism: no sum uses atomics, and every sum runs in a fixed order
+// (lane-strided loops, xor-butterfly shuffles, tiles, k-groups, k-slices
+// and warps added in index order), with tiles that depend on L, C and R but
+// not on B: reruns are bit-identical and a sample's output does not depend
+// on its batch. Counters only signal which block finishes last (of an
+// output tile's k-slices, of a (sample, direction)'s tiles), the
+// threadfence-reduction pattern: a block writes its share, fences, and
+// bumps the counter; the one that completes it reads the others' shares.
+// They add no data. The wrapper keeps one counter buffer per device and
+// stream, zeroed once when it is made; each last block sets its counter
+// back to zero, so the kernel leaves the buffer as it found it and a call
+// needs no memset.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"  // cp.async staging (cp_async4, cp_async16, cp_commit)
+
 namespace {
 
-constexpr int kTX = 16;        // threads across channel vectors (64 channels)
-constexpr int kTY = 16;        // threads across columns
-constexpr int kMaxCols = 16;   // columns per thread: W <= kTY * kMaxCols
-constexpr int kThreads = 256;  // block size of the flat kernels
-constexpr int kInSlice = 128;  // channels per ca_proj_in slice
+constexpr int kChunkV = 8;       // float4 vectors per channel chunk (32 channels)
+constexpr int kColsPerWarp = 4;  // ca_pool: a warp reads 4 columns x 8 vectors
+constexpr int kPoolRows = 16;    // ca_pool: rows per tile, at most
+constexpr int kPoolWarps = 8;    // ca_pool: warps per block, at most
+constexpr int kBnRows = 16;      // ca_bottleneck: rows (of one sample) per block
+constexpr int kBnCols = 32;      // ca_bottleneck: outputs (of R) per block
+constexpr int kBnChunk = 64;     // ca_bottleneck: channels per staged chunk
+constexpr int kBnGroups = 4;     // ca_bottleneck: k-groups, 16 channels of a chunk each
+constexpr int kBnPitch = kBnChunk + 4;  // padded row of the staged means
+constexpr int kBnMaxStages = 7;  // ca_bottleneck: ring depth, at most
+constexpr int kApplyUnroll = 8;  // ca_apply: float4 loads in flight per thread
+constexpr int kApplyCh = 32;     // ca_apply: channels per block (a multiple of 32)
+constexpr int kThreads = 256;    // ca_bottleneck and ca_apply
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -56,6 +109,19 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 
 __device__ __forceinline__ float4 div4(float4 a, float d) {
   return make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
+}
+
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, m),
+                     __shfl_xor_sync(0xffffffffu, v.y, m),
+                     __shfl_xor_sync(0xffffffffu, v.z, m),
+                     __shfl_xor_sync(0xffffffffu, v.w, m));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
 }
 
 __device__ __forceinline__ float gelu_erf(float v) {
@@ -66,205 +132,622 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// grid (n_tiles, ceil(c4 / kTX), B), block (kTX, kTY)
-__global__ void ca_pool(const float4* __restrict__ x, float4* __restrict__ pooled,
-                        float4* __restrict__ pw, int l, int c4, int rows_per_tile,
-                        int n_tiles) {
-  const int tile = blockIdx.x;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int cv = blockIdx.y * kTX + tx;
-  const int b = blockIdx.z;
-  const int h0 = tile * rows_per_tile;
-  const int h1 = min(h0 + rows_per_tile, l);
+// Programmatic dependent launch (sm_90): a kernel launched with
+// programmatic stream serialization may start while the kernel before it
+// runs, once every block of that kernel has allowed it (or exited); it
+// must wait for the earlier kernel to finish, and its writes to be
+// visible, before it reads them.
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Wait until at most N committed cp.async groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The same for a depth known at run time (0 <= n < kBnMaxStages).
+__device__ __forceinline__ void cp_wait_n(int n) {
+  switch (n) {
+    case 0: cp_wait<0>(); break;
+    case 1: cp_wait<1>(); break;
+    case 2: cp_wait<2>(); break;
+    case 3: cp_wait<3>(); break;
+    case 4: cp_wait<4>(); break;
+    default: cp_wait<5>(); break;
+  }
+}
+
+// The threadfence-reduction signal: after every thread of the block has
+// written its share, one thread bumps *count; the block that brings it to
+// n is the last and resets it to zero. Adds no data; returns (to every
+// thread) whether this block is the last.
+__device__ __forceinline__ bool last_block(unsigned int* count, unsigned int n,
+                                           int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(count, 1u) == n - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  if (threadIdx.x == 0) *count = 0;  // leave the buffer zeroed for the next call
+  return true;
+}
+
+// grid (ceil(c4 / kChunkV), ceil(l / rows), b), block 32 * warps with
+// warps * kColsPerWarp * KC >= l. Lane = (column, vector) = (lane / 8,
+// lane % 8); warp w owns columns w*4 + lane/8 + k*4*warps, k < KC. Writes
+// the tile's row means to rmean [b, l, c4] and its column sums to
+// cp [b, T, l, c4].
+template <int KC>
+__global__ void __launch_bounds__(kPoolWarps * 32)
+ca_pool(const float4* __restrict__ x, float4* __restrict__ rmean,
+        float4* __restrict__ cp, int l, int c4, int rows) {
+  constexpr int G = KC >= 8 ? 1 : 8 / KC;  // rows loaded together
+  __shared__ float4 red[kPoolRows][kPoolWarps][kChunkV];
+  allow_dependents();  // ca_bottleneck may take free SMs for its prologue
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int cv = blockIdx.x * kChunkV + (lane & 7);
+  const int tile = blockIdx.y, b = blockIdx.z;
+  const int h0 = tile * rows, h1 = min(h0 + rows, l);
   const bool active = cv < c4;
+  const int col0 = warp * kColsPerWarp + (lane >> 3);
+  const int step = nw * kColsPerWarp;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 col[kMaxCols];
+  const float4* xs = x + (size_t)b * l * l * c4 + cv;
+  float4 col[KC];
 #pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) col[k] = zero;
-  __shared__ float4 red[kTY][kTX];
-  for (int hh = h0; hh < h1; ++hh) {
-    float4 row = zero;
-    if (active) {
-      const float4* xr = x + ((size_t)b * l + hh) * l * c4 + cv;
+  for (int k = 0; k < KC; ++k) col[k] = zero;
+  for (int h = h0; h < h1; h += G) {
+    float4 v[G][KC];
 #pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) {
-        const int ww = ty + k * kTY;
-        if (ww < l) {
-          const float4 v = xr[(size_t)ww * c4];
-          col[k] = add4(col[k], v);
-          row = add4(row, v);
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        const int w = col0 + k * step;
+        v[g][k] = (active && h + g < h1 && w < l)
+                      ? __ldg(xs + ((size_t)(h + g) * l + w) * c4)
+                      : zero;
+      }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (h + g >= h1) break;  // uniform over the block
+      float4 row = zero;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        col[k] = add4(col[k], v[g][k]);
+        row = add4(row, v[g][k]);
+      }
+      row = add4(row, shfl_xor4(row, 8));  // the warp's 4 columns
+      row = add4(row, shfl_xor4(row, 16));
+      if (lane < kChunkV) red[h + g - h0][warp][lane] = row;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < (h1 - h0) * kChunkV; t += blockDim.x) {
+    const int i = t / kChunkV, vi = t % kChunkV;
+    const int cvv = blockIdx.x * kChunkV + vi;
+    if (cvv >= c4) continue;
+    float4 s = red[i][0][vi];
+    for (int w = 1; w < nw; ++w) s = add4(s, red[i][w][vi]);
+    rmean[((size_t)b * l + h0 + i) * c4 + cvv] = div4(s, (float)l);
+  }
+  if (active) {
+    float4* o = cp + ((size_t)b * gridDim.y + tile) * l * c4 + cv;
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int w = col0 + k * step;
+      if (w < l) o[(size_t)w * c4] = col[k];
+    }
+  }
+}
+
+// n floats global -> shared by cp.async, 16 bytes at a time where both
+// src and dst are 16-byte aligned, else 4.
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int n) {
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i + 4 <= n; i += 4 * blockDim.x)
+      cp_async16(dst + i, src + i, true);
+    for (int i = (n & ~3) + threadIdx.x; i < n; i += blockDim.x)
+      cp_async4(dst + i, src + i, true);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i, true);
+  }
+}
+
+// The last block of (sample b, direction d): y[b, d] -> norm, GELU -> yn,
+// and its cross term yx = yn @ Wx + bx (Wx: wmix rows 0..R for d = 0, the
+// h2w projection; rows R+1..2R+1 for d = 1, w2h). ca_apply forms
+// zh = yn_h + s0 * yx_w and zw = yn_w + s1 * yx_h. Shared memory: v [L, R], the
+// norm [2, R], stats [groups][mean, rstd], then Wx [R+1, R], staged
+// together by cp.async.
+__device__ __forceinline__ void mix_direction(
+    float* sm, const float* __restrict__ y, const float* __restrict__ nrm_d,
+    const float* __restrict__ wmix, float* __restrict__ yn,
+    float* __restrict__ yx, int bd, int d, int l, int r, int norm_kind,
+    int groups) {
+  const int lr = l * r, tid = threadIdx.x;
+  float* v = sm;
+  float* nrm = v + ((lr + 3) & ~3);  // scale [R], shift [R]
+  float* stats = nrm + ((2 * r + 3) & ~3);
+  float* wx = stats + ((2 * groups + 3) & ~3);
+  stage_floats(v, y + (size_t)bd * lr, lr);
+  stage_floats(nrm, nrm_d, 2 * r);
+  stage_floats(wx, wmix + (d ? (size_t)(r + 1) * r : 0), (r + 1) * r);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  const int rg = r / groups;
+  if (norm_kind == 0) {  // a warp per group: mean, then centred squares
+    const int warp = tid >> 5, lane = tid & 31;
+    const float cnt = (float)(l * rg);
+    for (int g = warp; g < groups; g += kThreads / 32) {
+      const float* vg = v + g * rg;
+      float s = 0.f;
+      for (int e = lane; e < l * rg; e += 32) s += vg[(e / rg) * r + e % rg];
+      const float mean = warp_sum(s) / cnt;
+      float ss = 0.f;
+      for (int e = lane; e < l * rg; e += 32) {
+        const float dv = vg[(e / rg) * r + e % rg] - mean;
+        ss += dv * dv;
+      }
+      ss = warp_sum(ss);
+      if (lane == 0) {
+        stats[2 * g] = mean;
+        stats[2 * g + 1] = rsqrtf(ss / cnt + 1e-5f);
+      }
+    }
+    __syncthreads();
+  }
+  // thread = (column j, rows li0, li0 + step, ...): one division each
+  const int per = kThreads / r > 0 ? kThreads / r : 1;
+  if (tid < per * r) {
+    const int j = tid % r;
+    const float sc = nrm[j], sh = nrm[r + j];
+    float mean = 0.f, rstd = 1.f;
+    if (norm_kind == 0) {
+      mean = stats[2 * (j / rg)];
+      rstd = stats[2 * (j / rg) + 1];
+    }
+    for (int li = tid / r; li < l; li += per) {
+      float u = v[li * r + j];
+      if (norm_kind == 0) u = (u - mean) * rstd;
+      u = gelu_erf(u * sc + sh);
+      v[li * r + j] = u;
+      yn[(size_t)bd * lr + li * r + j] = u;
+    }
+  }
+  __syncthreads();
+  // yx = v @ Wx + bx; thread = (2 rows, columns jt + q * tc for q < 4):
+  // lanes take consecutive columns, so the weight reads hit distinct banks
+  const int tc = (r + 3) / 4, tr = (l + 1) / 2;
+  for (int t = tid; t < tr * tc; t += kThreads) {
+    const int l0 = 2 * (t / tc), jt = t % tc;
+    const float* a0 = v + l0 * r;
+    const float* a1 = l0 + 1 < l ? a0 + r : a0;
+    float acc[2][4] = {};
+    for (int k = 0; k < r; ++k) {
+      const float x0 = a0[k], x1 = a1[k];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float w = jt + q * tc < r ? wx[k * r + jt + q * tc] : 0.f;
+        acc[0][q] = fmaf(x0, w, acc[0][q]);
+        acc[1][q] = fmaf(x1, w, acc[1][q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = jt + q * tc;
+      if (j >= r) continue;
+      const float bias = wx[r * r + j];
+      yx[(size_t)bd * lr + l0 * r + j] = acc[0][q] + bias;
+      if (l0 + 1 < l) yx[(size_t)bd * lr + (l0 + 1) * r + j] = acc[1][q] + bias;
+    }
+  }
+}
+
+// grid (ceil(r / kBnCols) * n_splits, ceil(l / kBnRows), 2 * b), block
+// kThreads. Block (column tile, k-slice, row tile, direction x sample).
+// Its slice of C streams in chunks of kBnChunk channels through a ring of
+// n_stages buffers filled by cp.async (as deep as the slice where shared
+// memory allows: then every chunk's copies are in flight at once), the
+// next chunks' copies in flight during the current chunk's products. A chunk of the column means is the
+// T row tiles' sums (T = n_tiles), staged side by side and added in tile
+// order, over L. Thread (k-group, row pair, column quad) accumulates 2 x 4
+// outputs over its 16 channels of each chunk; the k-groups are added in
+// order. With one slice the block writes y (plus the bias); otherwise it
+// writes its partial tile to yp, and the last slice of the tile adds the
+// slices in order. The block that completes a (sample, direction) then
+// normalizes it (mix_direction).
+__global__ void __launch_bounds__(kThreads, 3)
+ca_bottleneck(const float* __restrict__ rmean, const float* __restrict__ cp,
+              const float* __restrict__ w1h, const float* __restrict__ w1w,
+              const float* __restrict__ nh, const float* __restrict__ nw,
+              const float* __restrict__ wmix, float* __restrict__ yp,
+              float* __restrict__ y, float* __restrict__ yn,
+              float* __restrict__ yx, unsigned int* __restrict__ counter,
+              int l, int c, int r, int n_tiles, int n_splits,
+              int split_chunks, int n_stages, int norm_kind, int groups) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int last;
+  const int dir = blockIdx.z & 1, b = blockIdx.z >> 1;
+  const int n_jt = gridDim.x / n_splits;
+  const int jt = blockIdx.x % n_jt, split = blockIdx.x / n_jt;
+  const int l0 = blockIdx.y * kBnRows, j0 = jt * kBnCols;
+  const int tid = threadIdx.x;
+  const int kg = tid / 64, q = tid % 8, p = (tid % 64) / 8;
+  const float* w1 = dir ? w1w : w1h;
+  const int nt = dir ? n_tiles : 1;  // row tiles summed into a chunk of means
+  const float* src = dir ? cp + (size_t)b * n_tiles * l * c
+                         : rmean + (size_t)b * l * c;
+  const int a_floats = nt * kBnRows * kBnPitch;
+  const int stage_n = a_floats + kBnChunk * kBnCols;  // floats per buffer
+  const bool w_vec = r % 4 == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0;
+  allow_dependents();  // ca_apply may take free SMs for its prologue
+  if (blockIdx.z == 0) {  // warm L2 with the mix's weights for the last blocks
+    const int lines = (2 * (r + 1) * r + 31) / 32;  // 128-byte lines
+    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * kThreads + tid;
+         i < lines; i += gridDim.x * gridDim.y * kThreads)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(wmix + (size_t)i * 32));
+  }
+  wait_for_prior_grid();  // ca_pool's means and sums
+  const int ch0 = split * split_chunks * kBnChunk;
+  const int n_chunks = min(split_chunks, (c - ch0 + kBnChunk - 1) / kBnChunk);
+  // chunk ch (of this slice) into ring buffer s: nt tiles a [kBnRows][kBnPitch],
+  // then wt [kBnChunk][kBnCols]
+  auto stage = [&](int s, int ch) {
+    float* a = sm + s * stage_n;
+    float* wt = a + a_floats;
+    const int c0 = ch0 + ch * kBnChunk;
+    for (int i = tid; i < nt * kBnRows * (kBnChunk / 4); i += kThreads) {
+      const int t = i / (kBnRows * (kBnChunk / 4));
+      const int row = (i / (kBnChunk / 4)) % kBnRows, seg = 4 * (i % (kBnChunk / 4));
+      const bool ok = l0 + row < l && c0 + seg < c;
+      cp_async16(a + (t * kBnRows + row) * kBnPitch + seg,
+                 ok ? src + ((size_t)t * l + l0 + row) * c + c0 + seg : src, ok);
+    }
+    if (w_vec) {
+#pragma unroll
+      for (int u = 0; u < kBnChunk * kBnCols / 4 / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        const int k = i / (kBnCols / 4), j = 4 * (i % (kBnCols / 4));
+        const bool ok = c0 + k < c && j0 + j < r;
+        cp_async16(wt + k * kBnCols + j, ok ? w1 + (size_t)(c0 + k) * r + j0 + j : w1, ok);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kBnChunk * kBnCols / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        const int k = i / kBnCols, j = i % kBnCols;
+        const bool ok = c0 + k < c && j0 + j < r;
+        cp_async4(wt + i, ok ? w1 + (size_t)(c0 + k) * r + j0 + j : w1, ok);
+      }
+    }
+  };
+  float acc[2][4] = {};
+  for (int i = 0; i < n_stages - 1; ++i) {
+    if (i < n_chunks) stage(i, i);
+    cp_commit();
+  }
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_wait_n(n_stages - 2);  // chunk i has landed
+    __syncthreads();            // ... for every thread; buffer (i - 1) is free
+    if (i + n_stages - 1 < n_chunks)
+      stage((i + n_stages - 1) % n_stages, i + n_stages - 1);
+    cp_commit();
+    float* a = sm + (i % n_stages) * stage_n;
+    const float* wt = a + a_floats;
+    if (nt > 1) {  // column means: the row tiles' sums in tile order, over L
+      for (int e = tid; e < kBnRows * kBnChunk; e += kThreads) {
+        const int at = (e / kBnChunk) * kBnPitch + e % kBnChunk;
+        float s = a[at];
+        for (int t = 1; t < nt; ++t) s += a[t * kBnRows * kBnPitch + at];
+        a[at] = s / (float)l;
+      }
+      __syncthreads();
+    } else if (dir) {
+      for (int e = tid; e < kBnRows * kBnChunk; e += kThreads) {
+        const int at = (e / kBnChunk) * kBnPitch + e % kBnChunk;
+        a[at] = a[at] / (float)l;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBnChunk / kBnGroups; ++kk) {
+      const int k = kg * (kBnChunk / kBnGroups) + kk;
+      const float a0 = a[(2 * p) * kBnPitch + k];
+      const float a1 = a[(2 * p + 1) * kBnPitch + k];
+      const float4 wv = *reinterpret_cast<const float4*>(wt + k * kBnCols + 4 * q);
+      acc[0][0] = fmaf(a0, wv.x, acc[0][0]);
+      acc[0][1] = fmaf(a0, wv.y, acc[0][1]);
+      acc[0][2] = fmaf(a0, wv.z, acc[0][2]);
+      acc[0][3] = fmaf(a0, wv.w, acc[0][3]);
+      acc[1][0] = fmaf(a1, wv.x, acc[1][0]);
+      acc[1][1] = fmaf(a1, wv.y, acc[1][1]);
+      acc[1][2] = fmaf(a1, wv.z, acc[1][2]);
+      acc[1][3] = fmaf(a1, wv.w, acc[1][3]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+  float* red = sm;  // [kBnGroups][kBnRows][kBnCols], over the staging buffers
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      red[(kg * kBnRows + 2 * p + i) * kBnCols + 4 * q + jj] = acc[i][jj];
+  __syncthreads();
+  const int tile = (blockIdx.z * gridDim.y + blockIdx.y) * n_jt + jt;  // (b, dir, rt, jt)
+  float* yb = y + ((size_t)b * 2 + dir) * l * r;
+  float* pb = yp + ((size_t)tile * n_splits + split) * kBnRows * kBnCols;
+  for (int o = tid; o < kBnRows * kBnCols; o += kThreads) {
+    float s = red[o];
+    for (int g = 1; g < kBnGroups; ++g) s += red[g * kBnRows * kBnCols + o];
+    const int li = l0 + o / kBnCols, jj = j0 + o % kBnCols;
+    if (n_splits > 1)
+      pb[o] = s;
+    else if (li < l && jj < r)
+      yb[(size_t)li * r + jj] = s + __ldg(w1 + (size_t)c * r + jj);
+  }
+  if (n_splits > 1) {  // the tile's last slice adds the slices in order
+    if (!last_block(counter + gridDim.z + tile, n_splits, &last)) return;
+    const float* tb = yp + (size_t)tile * n_splits * kBnRows * kBnCols;
+    for (int o = tid; o < kBnRows * kBnCols; o += kThreads) {
+      const int li = l0 + o / kBnCols, jj = j0 + o % kBnCols;
+      if (li >= l || jj >= r) continue;
+      float s = __ldcg(tb + o);
+      for (int k = 1; k < n_splits; ++k) s += __ldcg(tb + k * kBnRows * kBnCols + o);
+      yb[(size_t)li * r + jj] = s + __ldg(w1 + (size_t)c * r + jj);
+    }
+  }
+  // the block that completes (sample, direction) normalizes it
+  if (!last_block(counter + blockIdx.z, n_jt * gridDim.y, &last)) return;
+  mix_direction(sm, y, dir ? nw : nh, wmix, yn, yx, blockIdx.z, dir, l, r,
+                norm_kind, groups);
+}
+
+// grid (ceil(c / kApplyCh), ceil(l / rows), b), block kThreads; dynamic
+// shared memory ((rows + l) * (rp + max(rp, kApplyCh)) + 2 * rp *
+// kApplyCh) floats, rp = r rounded up to 4. The chunk's Wout is staged by
+// cp.async and the thread's first kApplyUnroll float4 of x are loaded
+// before the kernel waits for ca_bottleneck's yn and yx (programmatic
+// dependent launch), so both are in flight during the bottleneck's tail
+// and the gates' products.
+__global__ void __launch_bounds__(kThreads, 3)
+ca_apply(const float4* __restrict__ x, const float* __restrict__ yn,
+         const float* __restrict__ yx, const float* __restrict__ wout,
+         const float* __restrict__ bout,
+         const float* __restrict__ scal, float4* __restrict__ out, int l,
+         int c, int r, int rows) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int U = kApplyUnroll, V = kApplyCh / 4, H = kApplyCh / 32;
+  const int c4 = c / 4, rp = (r + 3) & ~3;
+  // blocks walk x in the reverse of ca_pool's order: the part it read last
+  // may still be in L2
+  const int chunk = gridDim.x - 1 - blockIdx.x, b = gridDim.z - 1 - blockIdx.z;
+  const int h0 = (gridDim.y - 1 - blockIdx.y) * rows, nh = min(rows, l - h0);
+  const int nrow = nh + l;  // gate rows: the tile's rows, then all L columns
+  float* zs = sm;                    // [nrow][rp]
+  float* ws = zs + nrow * rp;        // [2][rp][kApplyCh]: Wh, Ww for the chunk
+  float* gs = ws + 2 * rp * kApplyCh;  // [nrow][kApplyCh]
+  float* xs = gs;                    // [nrow][rp]: yx rows, before the gates
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = chunk * kApplyCh;
+
+  for (int i = tid; i < 2 * rp * V; i += kThreads) {  // rows of [Wh; Ww], V x 16 bytes
+    const int row = i / V, seg = 4 * (i % V);
+    const int d = row / rp, k = row % rp;
+    const bool ok = k < r && c0 + seg < c;
+    cp_async16(ws + row * kApplyCh + seg,
+               ok ? wout + ((size_t)d * r + k) * c + c0 + seg : wout, ok);
+  }
+  cp_commit();
+
+  // this thread's float4 of the tile: vector vi of the pairs (row, col)
+  // slot, slot + kThreads / V, ... (row-major over the tile)
+  const int vi = tid % V, pstep = kThreads / V;
+  const bool vok = chunk * V + vi < c4;
+  const size_t base = ((size_t)b * l + h0) * l * c4 + chunk * V + vi;
+  const int n_pairs = vok ? nh * l : 0;
+  int pair = tid / V;
+  float4 xv[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (pair + u * pstep < n_pairs)
+      xv[u] = __ldg(x + base + (size_t)(pair + u * pstep) * c4);
+
+  wait_for_prior_grid();  // ca_bottleneck's yn and yx
+  // z rows: zh = yn_h + s0 * yx_w for the tile's rows, then
+  // zw = yn_w + s1 * yx_h for all L columns; yn into zs, yx into xs
+  const float* nb = yn + (size_t)b * 2 * l * r;
+  const float* pb = yx + (size_t)b * 2 * l * r;
+  for (int i = tid; i < nrow * rp; i += kThreads) {
+    const int gr = i / rp, k = i % rp;
+    const bool ok = k < r;
+    const size_t hn = (size_t)(h0 + gr) * r + k, wn = (size_t)(l + gr - nh) * r + k;
+    const size_t hx = (size_t)(l + h0 + gr) * r + k, wx = (size_t)(gr - nh) * r + k;
+    cp_async4(zs + i, ok ? nb + (gr < nh ? hn : wn) : nb, ok);
+    cp_async4(xs + i, ok ? pb + (gr < nh ? hx : wx) : pb, ok);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  {
+    const float s0 = scal[0], s1 = scal[1];
+    for (int i = tid; i < nrow * rp; i += kThreads)
+      zs[i] = fmaf(i < nh * rp ? s0 : s1, xs[i], zs[i]);
+  }
+  __syncthreads();
+
+  // gates: lane = channels lane + 32 * q (q < H) of the chunk; a warp takes
+  // groups of 4 gate rows
+  const int ngh = (nh + 3) / 4, ngw = (l + 3) / 4;
+  for (int grp = warp; grp < ngh + ngw; grp += kThreads / 32) {
+    const bool is_w = grp >= ngh;
+    const int first = is_w ? nh + 4 * (grp - ngh) : 4 * grp;
+    const int end = is_w ? nrow : nh;
+    const float* wk = ws + (is_w ? rp * kApplyCh : 0) + lane;
+    float acc[4][H] = {};
+    for (int k = 0; k < rp; k += 4) {
+      float w[4][H];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < H; ++q) w[kk][q] = wk[(k + kk) * kApplyCh + 32 * q];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int gr = min(first + g, end - 1);
+        const float4 zv = *reinterpret_cast<const float4*>(zs + gr * rp + k);
+#pragma unroll
+        for (int q = 0; q < H; ++q) {
+          acc[g][q] = fmaf(zv.x, w[0][q], acc[g][q]);
+          acc[g][q] = fmaf(zv.y, w[1][q], acc[g][q]);
+          acc[g][q] = fmaf(zv.z, w[2][q], acc[g][q]);
+          acc[g][q] = fmaf(zv.w, w[3][q], acc[g][q]);
         }
       }
     }
-    red[ty][tx] = row;
-    __syncthreads();
-    if (ty == 0 && active) {
-      float4 s = red[0][tx];
-      for (int i = 1; i < kTY; ++i) s = add4(s, red[i][tx]);
-      pooled[((size_t)b * 2 * l + hh) * c4 + cv] = div4(s, (float)l);
-    }
-    __syncthreads();
-  }
-  if (active) {
-    float4* out = pw + ((size_t)b * n_tiles + tile) * l * c4 + cv;
+    const float s = scal[is_w ? 3 : 2];
 #pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      const int ww = ty + k * kTY;
-      if (ww < l) out[(size_t)ww * c4] = col[k];
+    for (int q = 0; q < H; ++q) {
+      const int ch = c0 + lane + 32 * q;
+      const float bias = ch < c ? __ldg(bout + (is_w ? c : 0) + ch) : 0.f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        if (first + g < end)
+          gs[(first + g) * kApplyCh + lane + 32 * q] = s * sigmoid(acc[g][q] + bias);
     }
-  }
-}
-
-// one thread per (b, w, channel vector): pooled[b,1,w] = sum_tiles pw / L
-__global__ void ca_pool_finish(const float4* __restrict__ pw,
-                               float4* __restrict__ pooled, int nb, int l, int c4,
-                               int n_tiles) {
-  const size_t per_sample = (size_t)l * c4;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= per_sample * nb) return;
-  const size_t b = i / per_sample, rem = i % per_sample;
-  const float4* p = pw + b * n_tiles * per_sample + rem;
-  float4 s = p[0];
-  for (int t = 1; t < n_tiles; ++t) s = add4(s, p[(size_t)t * per_sample]);
-  pooled[(2 * b + 1) * per_sample + rem] = div4(s, (float)l);
-}
-
-// one thread per (b, slice, dir, l, j): the part of y = pooled @ W1 + bias
-// over one slice of kInSlice channels (slice 0 adds the bias); ca_mix adds
-// the slices in order
-__global__ void ca_proj_in(const float* __restrict__ pooled,
-                           const float* __restrict__ w1h,
-                           const float* __restrict__ w1w, float* __restrict__ y,
-                           int nb, int l, int c, int r, int n_slices) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t per_slice = (size_t)2 * l * r;
-  if (i >= (size_t)nb * n_slices * per_slice) return;
-  const int j = (int)(i % r);
-  const int li = (int)((i / r) % l);
-  const int dir = (int)((i / ((size_t)l * r)) % 2);
-  const int slice = (int)((i / per_slice) % n_slices);
-  const size_t b = i / (per_slice * n_slices);
-  const float* src = pooled + ((b * 2 + dir) * l + li) * c;
-  const float* wk = dir ? w1w : w1h;
-  const int c0 = slice * kInSlice, c1 = min(c, c0 + kInSlice);
-  float s = 0.f;
-  for (int ch = c0; ch < c1; ++ch) s += src[ch] * wk[(size_t)ch * r + j];
-  y[i] = slice == 0 ? s + wk[(size_t)c * r + j] : s;
-}
-
-// grid (L, B), block (kThreads), dynamic shared memory
-// (2*L*R + 2*R + 4*groups) floats. Block (li, b) adds the slices of y for
-// the whole sample, takes GroupNorm statistics over it (or the folded
-// affine), normalises row li of both directions, applies GELU, and mixes
-// the two rows: zh = yh + s0 * w2h(yw), zw = yw + s1 * h2w(yh).
-__global__ void ca_mix(const float* __restrict__ y, const float* __restrict__ nh,
-                       const float* __restrict__ nw, const float* __restrict__ wmix,
-                       const float* __restrict__ scal, float* __restrict__ z, int l,
-                       int r, int norm_kind, int groups, int n_slices) {
-  extern __shared__ float sm[];
-  const int lr = l * r;
-  float* raw = sm;             // [2, L, R]
-  float* row = sm + 2 * lr;    // [2, R]: row li, normalised
-  float* stats = row + 2 * r;  // [2 directions][groups][mean, rstd]
-  const int li = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float* yb = y + (size_t)b * n_slices * 2 * lr;
-  for (int i = tid; i < 2 * lr; i += nt) {
-    float s = yb[i];
-    for (int p = 1; p < n_slices; ++p) s += yb[(size_t)p * 2 * lr + i];
-    raw[i] = s;
   }
   __syncthreads();
 
-  const int rg = r / groups;
-  if (norm_kind == 0) {  // GroupNorm statistics, one thread per direction and group
-    for (int q = tid; q < 2 * groups; q += nt) {
-      const int dir = q / groups, g = q % groups;
-      const float* v = raw + dir * lr;
-      const float cnt = (float)(l * rg);
-      float s = 0.f;
-      for (int k = 0; k < l; ++k)
-        for (int m = 0; m < rg; ++m) s += v[k * r + g * rg + m];
-      const float mean = s / cnt;
-      float var = 0.f;
-      for (int k = 0; k < l; ++k)
-        for (int m = 0; m < rg; ++m) {
-          const float d = v[k * r + g * rg + m] - mean;
-          var += d * d;
-        }
-      stats[q * 2] = mean;
-      stats[q * 2 + 1] = rsqrtf(var / cnt + 1e-5f);
+  for (;; pair += U * pstep) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pr = pair + u * pstep;
+      if (pr >= n_pairs) break;
+      const int row = pr / l, col = pr - row * l;
+      const float4 gh = *reinterpret_cast<const float4*>(gs + row * kApplyCh + 4 * vi);
+      const float4 gw =
+          *reinterpret_cast<const float4*>(gs + (nh + col) * kApplyCh + 4 * vi);
+      out[base + (size_t)pr * c4] =
+          make_float4(xv[u].x * (gh.x + gw.x), xv[u].y * (gh.y + gw.y),
+                      xv[u].z * (gh.z + gw.z), xv[u].w * (gh.w + gw.w));
     }
-    __syncthreads();
-  }
-  // normalise row li (GroupNorm, or the folded affine), scale/shift, GELU
-  for (int i = tid; i < 2 * r; i += nt) {
-    const int dir = i / r, j = i % r;
-    const float* nrm = dir ? nw : nh;
-    float v = raw[dir * lr + li * r + j];
-    if (norm_kind == 0) {
-      const float* st = stats + (dir * groups + j / rg) * 2;
-      v = (v - st[0]) * st[1];
-    }
-    row[i] = gelu_erf(v * nrm[j] + nrm[r + j]);
-  }
-  __syncthreads();
-
-  const float* yh = row;
-  const float* yw = row + r;
-  const float s0 = scal[0], s1 = scal[1];
-  float* zb = z + (size_t)b * 2 * lr + li * r;
-  for (int j = tid; j < r; j += nt) {
-    float h2w = 0.f, w2h = 0.f;
-    for (int k = 0; k < r; ++k) {
-      h2w += yh[k] * wmix[(size_t)k * r + j];
-      w2h += yw[k] * wmix[(size_t)(r + 1 + k) * r + j];
-    }
-    h2w += wmix[(size_t)r * r + j];
-    w2h += wmix[(size_t)(2 * r + 1) * r + j];
-    zb[j] = yh[j] + s0 * w2h;
-    zb[lr + j] = yw[j] + s1 * h2w;
+    const int next = pair + U * pstep;
+    if (next >= n_pairs) break;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (next + u * pstep < n_pairs)
+        xv[u] = __ldg(x + base + (size_t)(next + u * pstep) * c4);
   }
 }
 
-// one thread per (b, dir, l, ch): gates = s_dir * sigmoid(z @ Wout_dir + b)
-__global__ void ca_proj_out(const float* __restrict__ z,
-                            const float* __restrict__ wout,
-                            const float* __restrict__ bout,
-                            const float* __restrict__ scal,
-                            float* __restrict__ gates, int nb, int l, int c,
-                            int r) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)nb * 2 * l * c) return;
-  const int ch = (int)(i % c);
-  const size_t row = i / c;  // (b * 2 + dir) * l + li
-  const int dir = (int)((row / l) % 2);
-  const float* zr = z + row * r;
-  const float* wk = wout + (size_t)dir * r * c + ch;
-  float s = 0.f;
-  for (int k = 0; k < r; ++k) s += zr[k] * wk[(size_t)k * c];
-  gates[i] = scal[2 + dir] * sigmoid(s + bout[(size_t)dir * c + ch]);
+template <int KC>
+cudaError_t launch_pool(dim3 grid, int threads, cudaStream_t s, const float* x,
+                        float* rmean, float* cp, int l, int c4, int rows) {
+  ca_pool<KC><<<grid, threads, 0, s>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(rmean),
+      reinterpret_cast<float4*>(cp), l, c4, rows);
+  return cudaGetLastError();
 }
 
-// grid (B*L, ceil(L*c4 / kThreads)), block (kThreads)
-__global__ void ca_apply(const float4* __restrict__ x,
-                         const float4* __restrict__ gates,
-                         float4* __restrict__ out, int l, int c4) {
-  const int row = blockIdx.x;  // b * l + hh
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= l * c4) return;
-  const int b = row / l, hh = row % l;
-  const int ww = j / c4, cv = j % c4;
-  const size_t idx = (size_t)row * l * c4 + j;
-  const float4 v = x[idx];
-  const float4 a = gates[((size_t)b * 2 * l + hh) * c4 + cv];
-  const float4 g = gates[((size_t)b * 2 * l + l + ww) * c4 + cv];
-  out[idx] = make_float4(v.x * (a.x + g.x), v.y * (a.y + g.y),
-                         v.z * (a.z + g.z), v.w * (a.w + g.w));
+// Launch with programmatic stream serialization: the kernel may start
+// while the one before it on the stream runs (it waits for it itself).
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads,
+                             int smem, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
-unsigned int blocks_for(size_t n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
+// Blocks above 48 KB of dynamic shared memory must ask for it first; a
+// kernel asks once, for all it may take, so that a call makes no such
+// host call (at the small sites the host's pace sets the launches').
+constexpr int kMaxDevices = 64;
+constexpr int kDynamicSmem = kMaxSmem - 1024;  // what a kernel asks for
+
+cudaError_t allow_smem(const void* fn, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= 48 * 1024 || dev >= kMaxDevices ||
+      done[dev])
+    return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDynamicSmem);
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
+// The three launches of one call, on stream s of the current device.
+cudaError_t launch(const float* x, const float* w1h, const float* w1w,
+                   const float* nh, const float* nw, const float* wmix,
+                   const float* wout, const float* bout, const float* scal,
+                   float* out, float* scratch, unsigned int* counter, int b,
+                   int l, int c, int r, int norm_kind, int groups,
+                   int pool_rows, int pool_threads, int n_splits,
+                   int split_chunks, int n_stages, int apply_rows,
+                   int bottleneck_smem, int apply_smem, cudaStream_t s) {
+  const int c4 = c / 4;
+  const int n_tiles = (l + pool_rows - 1) / pool_rows;
+  const int chunks = (c4 + kChunkV - 1) / kChunkV;
+  const int cols_per_step = (pool_threads / 32) * kColsPerWarp;
+  const int kc = (l + cols_per_step - 1) / cols_per_step;
+  if (pool_rows > kPoolRows || pool_threads > kPoolWarps * 32 || kc > 8 ||
+      n_stages < 2 || n_stages > kBnMaxStages ||
+      (size_t)n_splits * split_chunks * kBnChunk < (size_t)c)
+    return cudaErrorInvalidValue;
+  float* rmean = scratch;
+  float* cp = rmean + (size_t)b * l * c;
+  float* y = cp + (size_t)b * n_tiles * l * c;
+  float* yn = y + (size_t)b * 2 * l * r;
+  float* yx = yn + (size_t)b * 2 * l * r;
+  float* yp = yx + (size_t)b * 2 * l * r;
+
+  const dim3 pool_grid(chunks, n_tiles, b);
+  cudaError_t err =
+      kc <= 1 ? launch_pool<1>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows)
+      : kc <= 2 ? launch_pool<2>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows)
+      : kc <= 4 ? launch_pool<4>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows)
+                : launch_pool<8>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows);
+  if (err != cudaSuccess) return err;
+
+  static bool bn_smem[kMaxDevices] = {}, apply_smem_set[kMaxDevices] = {};
+  err = allow_smem(reinterpret_cast<const void*>(ca_bottleneck), bottleneck_smem,
+                   bn_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 bn_grid((r + kBnCols - 1) / kBnCols * n_splits,
+                     (l + kBnRows - 1) / kBnRows, 2 * b);
+  err = launch_dependent(ca_bottleneck, bn_grid, kThreads, bottleneck_smem, s,
+                         rmean, cp, w1h, w1w, nh, nw, wmix, yp, y, yn, yx,
+                         counter, l, c, r, n_tiles, n_splits, split_chunks,
+                         n_stages, norm_kind, groups);
+  if (err != cudaSuccess) return err;
+
+  err = allow_smem(reinterpret_cast<const void*>(ca_apply), apply_smem,
+                   apply_smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 apply_grid((c + kApplyCh - 1) / kApplyCh,
+                        (l + apply_rows - 1) / apply_rows, b);
+  return launch_dependent(
+      ca_apply, apply_grid, kThreads, apply_smem, s,
+      reinterpret_cast<const float4*>(x), yn, yx, wout, bout, scal,
+      reinterpret_cast<float4*>(out), l, c, r, apply_rows);
 }
 
 }  // namespace
@@ -275,64 +758,41 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Channels per ca_proj_in slice: y holds ceil(c / ca_in_slice()) slices.
-int ca_in_slice() { return kInSlice; }
-
-// x, out: [b, l, l, c]; pooled, gates: [b, 2, l, c]; pw: [b, n_tiles, l, c];
-// y: [b, ceil(c / ca_in_slice()), 2, l, r]; z: [b, 2, l, r]; w1h, w1w: [c+1, r]; nh, nw: [2, r]; wmix: [2(r+1), r];
-// wout: [2r, c]; bout: [2, c]; scal: >= 4 floats. All fp32, contiguous,
-// 16-byte aligned where read as float4 (x, out, pooled, pw, gates); c % 4 == 0;
-// l <= kTY * kMaxCols; norm_kind 0 = group (r % groups == 0), 1 = affine;
-// (2*l*r + 2*r + 4*groups) floats of shared memory for ca_mix.
-int coord_attn_forward(const float* x, const float* w1h, const float* w1w,
-                       const float* nh, const float* nw, const float* wmix,
-                       const float* wout, const float* bout, const float* scal,
-                       float* out, float* pooled, float* pw, float* y, float* z,
-                       float* gates, int b, int l, int c, int r, int norm_kind,
-                       int groups, int rows_per_tile, int n_tiles, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c4 = c / 4;
-  if (l > kTY * kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 pool_grid(n_tiles, (c4 + kTX - 1) / kTX, b);
-  ca_pool<<<pool_grid, dim3(kTX, kTY), 0, s>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(pooled),
-      reinterpret_cast<float4*>(pw), l, c4, rows_per_tile, n_tiles);
-  cudaError_t err = cudaGetLastError();
+// x, out: [b, l, l, c]; w holds the packed weights w1h, w1w: [c+1, r];
+// nh, nw: [2, r]; wmix: [2(r+1), r]; wout: [2r, c]; bout: [2, c]; scal: >= 4
+// floats. All fp32, contiguous; x and out 16-byte aligned, c % 4 == 0.
+// p holds the shape and the launch plan (kernels/coord_attn.py
+// launch_plan): the device, b, l, c, r, norm_kind (0 = group with
+// r % groups == 0, 1 = affine), groups, pool_rows rows per ca_pool tile (T =
+// ceil(l / pool_rows) tiles), pool_threads = 32 * warps with warps * 32 * 8
+// >= l (l <= 256), the bottleneck's k-slices (n_splits of split_chunks
+// chunks of 64 channels) and ring depth (n_stages), apply_rows rows per
+// ca_apply tile, and the dynamic shared memory of ca_bottleneck and
+// ca_apply in bytes. scratch holds, in floats, rmean [b, l, c], cp
+// [b, T, l, c], y, yn and yx [b, 2, l, r] each and, with n_splits > 1, yp
+// [b * 2 * tiles, n_splits, 16 * 32] (tiles = ceil(l / 16) * ceil(r /
+// 32)). counter holds 2 * b * (1 + tiles) zeros and is left zeroed. The
+// launches go to `stream` on the given device.
+int coord_attn_forward(const float* x, const float* const* w, float* out,
+                       float* scratch, unsigned int* counter, const int* p,
+                       void* stream) {
+  const int device = p[0], b = p[1], l = p[2], c = p[3], r = p[4];
+  const int norm_kind = p[5], groups = p[6], pool_rows = p[7];
+  const int pool_threads = p[8], n_splits = p[9], split_chunks = p[10];
+  const int n_stages = p[11], apply_rows = p[12], bottleneck_smem = p[13];
+  const int apply_smem = p[14];
+  const float *w1h = w[0], *w1w = w[1], *nh = w[2], *nw = w[3], *wmix = w[4];
+  const float *wout = w[5], *bout = w[6], *scal = w[7];
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  ca_pool_finish<<<blocks_for((size_t)b * l * c4), kThreads, 0, s>>>(
-      reinterpret_cast<const float4*>(pw), reinterpret_cast<float4*>(pooled), b,
-      l, c4, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int n_slices = (c + kInSlice - 1) / kInSlice;
-  ca_proj_in<<<blocks_for((size_t)b * n_slices * 2 * l * r), kThreads, 0, s>>>(
-      pooled, w1h, w1w, y, b, l, c, r, n_slices);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem = (size_t)(2 * l * r + 2 * r + 4 * groups) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ca_mix, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  ca_mix<<<dim3(l, b), kThreads, smem, s>>>(y, nh, nw, wmix, scal, z, l, r,
-                                             norm_kind, groups, n_slices);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  ca_proj_out<<<blocks_for((size_t)b * 2 * l * c), kThreads, 0, s>>>(
-      z, wout, bout, scal, gates, b, l, c, r);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  dim3 apply_grid(b * l, (l * c4 + kThreads - 1) / kThreads);
-  ca_apply<<<apply_grid, kThreads, 0, s>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(gates),
-      reinterpret_cast<float4*>(out), l, c4);
-  return static_cast<int>(cudaGetLastError());
+  err = launch(x, w1h, w1w, nh, nw, wmix, wout, bout, scal, out, scratch,
+               counter, b, l, c, r, norm_kind, groups, pool_rows,
+               pool_threads, n_splits, split_chunks, n_stages, apply_rows,
+               bottleneck_smem, apply_smem, static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

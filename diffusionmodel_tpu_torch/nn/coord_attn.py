@@ -9,7 +9,8 @@ attention maps mixed by sigmoid(alpha)/sigmoid(beta), normalised.
 
 With ``use_pallas`` and GroupNorm the block runs on the packed weights
 (:class:`kernels.coord_attn.CoordAttnWeights`): the CUDA kernel in eval
-mode, its plain twin in train mode — the JAX package's dispatch.
+mode, its plain twin in train mode — the JAX package's dispatch. In eval
+mode without gradients the packing is cached on the module.
 """
 
 from __future__ import annotations
@@ -71,8 +72,25 @@ class CoordAttn(nn.Module):
         s = alpha + beta + 1e-8
         return x * ((alpha / s) * a_h + (beta / s) * a_w)
 
+    def _packed(self) -> CoordAttnWeights:
+        """The packed weights. In eval mode without gradients they are kept
+        in a plain attribute (not a buffer: ``state_dict`` is unchanged) and
+        packed again only when a parameter or buffer has moved or changed
+        (its ``data_ptr`` or ``_version``: ``load_state_dict``, ``.to()``,
+        an in-place update). In training, or with gradients on, every call
+        packs anew, so that gradients reach the parameters."""
+        if self.training or torch.is_grad_enabled():
+            return CoordAttnWeights.from_module(self, "group")
+        key = tuple((t.data_ptr(), t._version)
+                    for t in (*self.parameters(), *self.buffers()))
+        cached = self.__dict__.get("_packed_cache")
+        if cached is None or cached[0] != key:
+            cached = (key, CoordAttnWeights.from_module(self, "group"))
+            self._packed_cache = cached
+        return cached[1]
+
     def _fused_path(self, x):
-        wts = CoordAttnWeights.from_module(self, "group")
+        wts = self._packed()
         g = gn_groups(self.conv1_h.out_channels, 8)
         fn = coord_attn_plain if self.training else coord_attn
         return fn(to_nhwc(x), wts, "group", g).permute(0, 3, 1, 2)

@@ -44,7 +44,10 @@ ATOL = 1e-4
 SE_SHAPES = [(2, 256, 256, 192), (2, 128, 128, 384), (2, 64, 64, 768),
              (2, 32, 32, 1536), (3, 5, 7, 20), (1, 1, 1, 4)]
 CA_SHAPES = [(2, 128, 128, 192), (2, 64, 64, 384), (2, 32, 32, 768),
-             (2, 16, 16, 1536), (3, 9, 9, 32), (1, 256, 256, 64)]
+             (2, 16, 16, 1536), (3, 9, 9, 32), (1, 256, 256, 64),
+             # ragged: L off the 16-row tiles, C off the 32-channel chunks,
+             # L = 1, C over two of the bottleneck's k-slices
+             (3, 20, 20, 96), (2, 9, 9, 80), (2, 1, 1, 64), (2, 20, 20, 400)]
 
 
 @pytest.fixture
@@ -119,6 +122,50 @@ def test_coord_attn_kernel_matches_twin(dev, shape, kind):
         assert torch.equal(coord_attn(x, wts, kind, groups), got)
         assert torch.equal(coord_attn(x[-1:].contiguous(), wts, kind, groups),
                            got[-1:])
+
+
+def test_coord_attn_calls_of_other_shapes_in_turn(dev):
+    """Calls on one stream reuse one workspace (counters and scratch) across
+    shapes with other launch plans: each still matches its twin."""
+    cases = []
+    for shape, kind in (((2, 32, 32, 768), "affine"),
+                        ((2, 16, 16, 1536), "group"), ((3, 20, 20, 96), "group")):
+        mod = _ca_module(shape[-1], "group" if kind == "group" else "batch",
+                         dev)
+        x = torch.randn(shape, generator=torch.Generator(device=dev)
+                        .manual_seed(3), device=dev)
+        cases.append((x, CoordAttnWeights.from_module(mod, kind), kind,
+                      gn_groups(shape[-1] // 16, 8)))
+    with torch.no_grad():
+        for _ in range(3):
+            for x, wts, kind, groups in cases:
+                got = coord_attn(x, wts, kind, groups)
+                want = coord_attn_plain(x, wts, kind, groups)
+                assert (got - want).abs().max().item() <= ATOL
+
+
+def test_coord_attn_launches_three_kernels_per_call(dev):
+    """pool, bottleneck (with the last-block mix) and apply (with the output
+    projection): three kernels, nothing else, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mod = _ca_module(192, "group", dev)
+    wts = CoordAttnWeights.from_module(mod)
+    x = torch.randn((2, 32, 32, 192), device=dev)
+    with torch.no_grad():
+        coord_attn(x, wts, "group", 6)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            coord_attn(x, wts, "group", 6)
+            torch.cuda.synchronize()
+    names = sorted({(e.name, e.time_range.start) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.time_range.end > e.time_range.start})
+    assert len(names) == 3, names
+    for want, (name, _) in zip(("ca_apply", "ca_bottleneck", "ca_pool"),
+                               sorted(names)):
+        assert want in name, names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -1,6 +1,7 @@
 """The port's SE and CoordAttn kernels on the CPU: their plain twins
 against the JAX package's XLA twins (``se_block_xla``, ``coord_attn_xla``)
-and modules, and the wrappers' dispatch. The CUDA kernels themselves are
+and modules, the wrappers' dispatch, the CoordAttn kernel's launch plan and
+its stages in plain torch, and the module's cache of packed weights. The CUDA kernels themselves are
 held to these twins on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance atol 1e-5: the same fp32 arithmetic, summed in another order."""
@@ -19,9 +20,13 @@ from diffusionmodel_tpu.nn.blocks import SEBlock as JSEBlock
 from diffusionmodel_tpu.nn.blocks import gn_groups
 from diffusionmodel_tpu.nn.coord_attn import CoordAttn as JCoordAttn
 from diffusionmodel_tpu_torch.kernels.coord_attn import (
+    CHUNK_CHANNELS,
+    MAX_SHARED_BYTES,
     CoordAttnWeights,
     coord_attn,
     coord_attn_plain,
+    coord_attn_staged,
+    launch_plan,
 )
 from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_plain
 from diffusionmodel_tpu_torch.nn.blocks import SEBlock, channels_last
@@ -163,3 +168,89 @@ def test_wrappers_refuse_other_devices():
     mod, _, _ = _coord_attn(64, "group", 7)
     with pytest.raises(ValueError, match="device"):
         coord_attn(x, CoordAttnWeights.from_module(mod), "group", 4)
+
+
+# The flagship's CoordAttn sites at batch 16 (chip_smoke.CA_SITES), and
+# ragged shapes: L off the row tiles, C off the 32-channel chunks, L = 1.
+CA_FLAGSHIP = [(16, 128, 128, 192), (16, 64, 64, 384), (16, 32, 32, 768),
+               (16, 16, 16, 1536)]
+CA_RAGGED = [(3, 20, 20, 96), (2, 9, 9, 80), (1, 1, 1, 64)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("shape", CA_FLAGSHIP + CA_RAGGED)
+def test_coord_attn_launch_plan(shape):
+    b, l, _, c = shape
+    r = max(1, c // 16)
+    plan = launch_plan(b, l, c, r, "group", gn_groups(r, 8))
+    for p in (plan.pool, plan.bottleneck, plan.apply):
+        assert min(p.grid) >= 1 and 32 <= p.block <= 1024
+        assert p.smem <= MAX_SHARED_BYTES
+    # every row and channel is covered by a tile of each pass
+    assert plan.n_tiles * plan.pool_rows >= l
+    assert plan.pool.grid[0] * CHUNK_CHANNELS >= c
+    assert plan.apply.grid[0] * CHUNK_CHANNELS >= c
+    assert plan.apply.grid[1] * plan.apply_rows >= l
+    assert plan.pool.block // 32 * 4 * 8 >= l  # a lane sums <= 8 columns
+    if shape in CA_FLAGSHIP:
+        x_bytes = 4 * b * l * l * c
+        assert np.prod(plan.pool.grid) >= 4 * H100_SMS
+        assert plan.partial_bytes <= 0.1 * x_bytes
+        # the two pooled means (2/L of x: 12.5% at L = 16) are the pass's
+        # output; what the scratch holds beyond them stays under 10% of x
+        means = 2 * 4 * b * l * c
+        assert plan.scratch_bytes - means <= 0.1 * x_bytes
+    # tiles depend on L, C and R, not on the batch
+    one = launch_plan(1, l, c, r, "group", gn_groups(r, 8))
+    assert (one.pool_rows, one.apply_rows, one.pool.block) == (
+        plan.pool_rows, plan.apply_rows, plan.pool.block)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(3, 20, 20, 400)])
+@pytest.mark.parametrize("kind", ["group", "affine"])
+def test_coord_attn_staged_matches_xla_twin(shape, kind):
+    """The kernel's stages and tiles, in plain torch, against the JAX
+    package's XLA twin; (3, 20, 20, 400) is ragged in L (16-row tiles), in
+    C (32- and 64-channel chunks) and takes two k-slices."""
+    c = shape[-1]
+    mod, params, stats = _coord_attn(c, "group" if kind == "group"
+                                     else "batch", 8)
+    groups = gn_groups(c // 16, 8)
+    jw = JWeights(params, stats, norm_kind=kind)
+    x = np.random.RandomState(9).randn(*shape).astype(np.float32)
+    want = np.asarray(coord_attn_xla(jnp.asarray(x), jw, kind, groups))
+    with torch.no_grad():
+        got = coord_attn_staged(torch.from_numpy(x),
+                                CoordAttnWeights.from_module(mod, kind),
+                                kind, groups).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_coord_attn_module_caches_packed_weights():
+    mod, _, _ = _coord_attn(64, "group", 11)
+    mod.use_pallas = True
+    x = _nchw(np.random.RandomState(12).randn(2, 8, 8, 64).astype(np.float32))
+    g = gn_groups(4, 8)
+
+    def fresh():
+        return coord_attn_plain(x.permute(0, 2, 3, 1),
+                                CoordAttnWeights.from_module(mod), "group", g)
+
+    with torch.no_grad():
+        first = mod._packed()
+        assert mod._packed() is first
+        mod.conv_h.weight.add_(0.5)
+        second = mod._packed()
+        assert second is not first
+        np.testing.assert_array_equal(_nhwc(mod(x)), fresh().numpy())
+        mod.load_state_dict({k: v + 0.1 for k, v in mod.state_dict().items()})
+        third = mod._packed()
+        assert third is not second and mod._packed() is third
+        np.testing.assert_array_equal(_nhwc(mod(x)), fresh().numpy())
+    assert "_packed_cache" not in mod.state_dict()
+    # with gradients on, or in train mode, every call packs anew
+    assert mod._packed() is not mod._packed()
+    mod.train()
+    mod(x).square().sum().backward()
+    assert mod.conv1_h.weight.grad is not None
+    assert mod.gamma_h.grad is not None and mod.gamma_h.grad.abs().item() > 0

@@ -470,6 +470,34 @@ def _write_pngs(root, classes, n, size=64):
                             ).save(d / f"{i}.png")
 
 
+@pytest.mark.parametrize("argv,want", [([], 10), (["--epochs", "0"], 10),
+                                       (["--epochs", "3"], 3)])
+def test_cli_train_ldm_epochs_default(tmp_path, monkeypatch, argv, want):
+    """--epochs unset or 0 trains 10 epochs, as the JAX CLI's
+    ``args.epochs or 10``; fit_ldm is stubbed, so nothing trains."""
+    pytest.importorskip("PIL")
+    from diffusionmodel_tpu_torch.cli import main
+    from diffusionmodel_tpu_torch.models.latent_diffusion import (
+        runner as runner_mod,
+        training as training_mod,
+    )
+
+    got = []
+
+    def fake_fit_ldm(runner, images, prompts, epochs, **kw):
+        got.append(epochs)
+        return None, [1.0]
+
+    monkeypatch.setattr(training_mod, "fit_ldm", fake_fit_ldm)
+    monkeypatch.setattr(runner_mod, "LdmRunner", lambda **kw: None)
+    data = tmp_path / "data"
+    _write_pngs(data, ("ant",), 1, size=16)
+    assert main(["--mode", "train_ldm", "--data_root", str(data),
+                 "--ldm_arch", "tiny", "--device", "cpu", "--img_size", "16",
+                 "--out_dir", str(tmp_path / "out"), *argv]) == 0
+    assert got == [want]
+
+
 def test_cli_train_ldm_round_trip(tmp_path, capsys):
     """--mode train_ldm (VAE first, then the UNet) on a folder of PNGs,
     then --mode txt2img on its checkpoint; the dataset copy reads the
