@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full width, with weights drawn
-from fixed torch seeds: the ContextUnet serving path of ``preset("full")``
+Drives the port's main paths at full width, with weights drawn from
+fixed torch seeds: the ContextUnet serving path of ``preset("full")``
 (ContextUnet v2, n_feat 192, 256 px, 5 classes, GroupNorm, 353M
 parameters) with ``model.use_pallas=True``, so that SE and CoordAttn run
 through the hand-written CUDA kernels; the latent-diffusion path
@@ -12,7 +12,10 @@ through the hand-written CUDA kernels; the latent-diffusion path
 512 px), whose level-0 self-attention runs through the hand-written
 flash-attention kernel; and LDM training on that runner (``fit_ldm``,
 ``fit_ae``), whose backward runs the two hand-written flash-attention
-backward kernels. Phases, each printing JSON lines:
+backward kernels; and the flagship's own training and generation
+(``trainer.fit``, ``sample.gen_samples``, ``cli --mode generate``), whose
+eval passes run SE and CoordAttn through the kernels. Phases, each
+printing JSON lines:
 
 1. env      the card (nvidia-smi's name and power limit), torch/CUDA
             versions, and the TF32 settings, both switched off: every
@@ -91,6 +94,33 @@ backward kernels. Phases, each printing JSON lines:
             with ``remat=True`` on images through the frozen VAE (10
             forward launches per step), and ``fit_ae`` for 2 steps at
             512 px. Seconds per step, images/s and peak memory.
+12. train   ``trainer.fit`` on ``preset("full")`` at full width and depth
+            (``use_pallas``, EMA 0.9995, batch 4 x 4 micro-batches, full
+            remat, bf16 Adam moment, fp32) for 2 epochs on 25 in-memory
+            synthetic crack images (5 classes; 20 train, 5 val), with
+            validation and DPM++-10 sampling every epoch: finite losses,
+            5 SE and 4 CoordAttn launches per eval-mode forward and none in
+            train-mode ones (counted per forward by module hooks, the
+            counts zeroed just before), the best checkpoint reloaded into a
+            fresh model with a bit-identical output; then one more step,
+            profiled (idle share), between two eval forwards: the second
+            sees the new weights and matches the plain path on them
+            (relative L2 1e-4). Seconds per optimizer step, trained
+            images/s, peak memory (of the run, cuDNN's algorithm search
+            included, and of the profiled step alone).
+13. generate ``gen_samples`` on the final checkpoint: 5 classes x 1
+            sample, guide scales 2.0 and 4.0 in one sweep batch, DPM++-20
+            (after an untimed one-step call that autotunes its shapes)
+            (finite [5, 256, 256, 3] per scale, grids written, 5 / 4
+            launches per forward); the checkpoint's EMA weights in a
+            kernel model and a plain one, eval forwards at batches 4, 20,
+            10, 4 (validation, the sweep's and fit's CFG batches; the
+            kernel model's back to back on one stream), each within
+            relative L2 1e-4 of the plain path; then ``python -m
+            diffusionmodel_tpu_torch.cli --mode generate`` (DPM++-10) in a
+            subprocess (its wall time includes the process start, the
+            checkpoint load and cuDNN's search); seconds and images/s of
+            both. The checkpoints are deleted afterwards.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -1116,6 +1146,351 @@ def phase_train_ldm(counters) -> list:
     return [a + b for a, b in zip(fit_launches, remat_launches)]
 
 
+# --- flagship training and generation ------------------------------------
+FLAGSHIP_CLASSES = 5
+FLAGSHIP_PER_CLASS = 5  # 25 in-memory images: 20 train, 5 val
+FLAGSHIP_EPOCHS = 2
+SE_PER_FORWARD, CA_PER_FORWARD = len(SE_SITES), len(CA_SITES)
+
+
+def _synthetic_crack_dataset(img_size: int, mask_values):
+    """An in-memory crack dataset: ``FLAGSHIP_PER_CLASS`` images per class
+    (smooth random fields with a dark crack-like streak), each with a
+    random box in 512 px original coordinates, through the port's
+    ``CrackDataset.from_arrays`` (its ``load`` / ``load_wire``, masks from
+    ``build_attn_mask``). Needs no files and no imaging package."""
+    from diffusionmodel_tpu_torch.data import CrackDataset
+
+    rng = np.random.default_rng(31)
+    images, boxes, labels = [], [], []
+    for k in range(FLAGSHIP_CLASSES):
+        for _ in range(FLAGSHIP_PER_CLASS):
+            low = rng.uniform(0, 255, (8, 8, 3))
+            img = low.repeat(img_size // 8, 0).repeat(img_size // 8, 1)
+            x0, y0 = rng.integers(32, 300, 2)
+            w, h = rng.integers(64, 200, 2)
+            s = img_size / 512
+            img[int(y0 * s):int((y0 + h) * s),
+                int((x0 + w // 2) * s):int((x0 + w // 2) * s) + 4] = 20
+            images.append(np.clip(img, 0, 255).astype(np.uint8))
+            boxes.append((int(x0), int(y0), int(x0 + w), int(y0 + h)))
+            labels.append(k)
+    return CrackDataset.from_arrays(
+        np.stack(images), boxes, labels,
+        [f"crack_{k}" for k in range(FLAGSHIP_CLASSES)], orig_wh=(512, 512),
+        mask_values=mask_values, hflip_prob=0.5, co_flip_mask=True)
+
+
+class _ForwardLaunches:
+    """Counts, per ContextUnet forward, the SE and CoordAttn kernel
+    launches it made, split by the module's mode (train / eval), through
+    global module hooks; ``close()`` removes them."""
+
+    def __init__(self, counters):
+        from torch.nn.modules.module import (
+            register_module_forward_hook,
+            register_module_forward_pre_hook,
+        )
+
+        from diffusionmodel_tpu_torch.nn.context_unet import ContextUnet
+
+        self.counters, self._open = counters, {}
+        self.per_forward = {"train": [], "eval": []}
+
+        def pre(module, args):
+            if isinstance(module, ContextUnet):
+                self._open[id(module)] = _counts(counters)
+
+        def post(module, args, out):
+            if isinstance(module, ContextUnet):
+                start = self._open.pop(id(module))
+                self.per_forward["train" if module.training else "eval"] \
+                    .append(tuple(b - a for a, b in
+                                  zip(start, _counts(counters))))
+
+        self._hooks = [register_module_forward_pre_hook(pre),
+                       register_module_forward_hook(post)]
+
+    def summary(self) -> dict:
+        return {mode: {"forwards": len(v),
+                       "launches_per_forward": sorted(set(v))}
+                for mode, v in self.per_forward.items()}
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def _flagship_train_cfg(out_dir):
+    from diffusionmodel_tpu_torch.config import preset
+
+    return preset("full", **{
+        "model.use_pallas": True, "train.ema_decay": 0.9995,
+        "sample.sampler": "dpmpp", "sample.dpm_steps": 10,
+        "train.n_epoch": FLAGSHIP_EPOCHS, "train.eval_every": 1,
+        "train.min_save_ep": 0, "train.val_split": 0.2,
+        "train.save_dir": f"{out_dir}/run",
+        "sample.sample_dir": f"{out_dir}/samples"})
+
+
+def _flagship_eval_forward(model, seed=23):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((4, 256, 256, 3), generator=g, device="cuda")
+    c = torch.arange(4, device="cuda") % FLAGSHIP_CLASSES
+    t = torch.rand(4, generator=g, device="cuda")
+    with torch.no_grad():
+        return model.eval()(x, c, t, torch.ones(4, device="cuda"))
+
+
+def _rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_train(counters, out_dir) -> tuple:
+    """``trainer.fit`` on ``preset("full")`` at full width; returns the
+    config, the final checkpoint's path and the launches of the run."""
+    import json
+    import os
+
+    from diffusionmodel_tpu_torch.checkpoint import (
+        extract_params,
+        load_checkpoint,
+    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import (
+        state_dict_from_flax,
+    )
+    from diffusionmodel_tpu_torch.data import BatchLoader
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.train import build_optimizer, make_train_step
+    from diffusionmodel_tpu_torch.trainer import fit
+
+    cfg = _flagship_train_cfg(out_dir)
+    tc, dc = cfg.train, cfg.diffusion
+    dataset = _synthetic_crack_dataset(
+        256, (dc.low_weight, dc.mid_weight, dc.high_weight))
+    watch = _ForwardLaunches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    state = fit(cfg, dataset=dataset, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _counts(counters)
+    watch.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = f"{out_dir}/run"
+    last = f"metrics_ep{FLAGSHIP_EPOCHS - 1}.json"
+    log = json.load(open(os.path.join(run, "metrics", last)))
+    per_step = 1.0 / log["steps_per_sec"][-1]
+    batch = tc.batch_size * tc.accum_steps
+    seen = watch.summary()
+    emit("train", params=sum(p.numel() for p in state.model.parameters()),
+         images=len(dataset), epochs=FLAGSHIP_EPOCHS, steps=state.step,
+         batch=[tc.accum_steps, tc.batch_size], remat=tc.remat_policy,
+         moment_dtype=tc.moment_dtype, train_loss=log["train_loss"],
+         val_loss=log["val_loss"], lr=log["lr"],
+         steps_per_sec=log["steps_per_sec"], seconds_per_step=per_step,
+         images_per_s=batch / per_step, fit_s=fit_s, peak_mem_gib=peak,
+         se_launches=launches[0], ca_launches=launches[1], forwards=seen,
+         files=sorted(os.listdir(run)))
+    check(all(np.isfinite(log["train_loss"] + log["val_loss"])),
+          f"finite losses {log}")
+    check(state.step == FLAGSHIP_EPOCHS * 2, f"{state.step} optimizer steps")
+    check(seen["eval"]["launches_per_forward"] == [(SE_PER_FORWARD,
+                                                    CA_PER_FORWARD)]
+          and seen["train"]["launches_per_forward"] == [(0, 0)]
+          and seen["train"]["forwards"] > 0,
+          f"launches per forward by mode {seen}")
+    check(launches == [SE_PER_FORWARD * seen["eval"]["forwards"],
+                       CA_PER_FORWARD * seen["eval"]["forwards"]],
+          f"train launches {launches} for {seen}")
+
+    # the best checkpoint (what fit leaves loaded), reloaded into a fresh
+    # model: a bit-identical eval output through the kernels
+    kept = _flagship_eval_forward(state.model)
+    ck = load_checkpoint(os.path.join(run, "best_model"))
+    torch.manual_seed(1)
+    fresh = build_model(cfg.model, dc.high_thresh, device="cuda")
+    fresh.load_state_dict(state_dict_from_flax(extract_params(
+        ck, prefer_ema=False), ck["batch_stats"]))
+    same = torch.equal(_flagship_eval_forward(fresh), kept)
+    final = load_checkpoint(os.path.join(run, f"ckpt_ep{FLAGSHIP_EPOCHS - 1}"))
+    emit("train", run="checkpoint", best_epoch=int(ck["epoch"]),
+         eval_output_bit_identical=same, final_epoch=int(final["epoch"]),
+         final_opt_count=int(final["opt_state"]["count"]))
+    check(same, "the reloaded best checkpoint gives another output")
+    check(final["opt_state"]["count"] == state.step
+          and final["ema_params"] is not None, "final checkpoint contents")
+    del fresh, ck, final
+
+    # one more optimizer step, profiled, between two eval forwards through
+    # the kernels: the second must see the new weights (CoordAttn's cached
+    # packing follows the in-place update) and match the plain path
+    # (at fit's settings: TF32 off, cuDNN's algorithms autotuned)
+    step = make_train_step(state.model, Schedule.create(
+        dc.beta1, dc.beta2, dc.n_T, "cuda"), cfg,
+        build_optimizer(cfg, state.step // FLAGSHIP_EPOCHS))
+    loader = BatchLoader(dataset, np.arange(len(dataset)), tc.batch_size,
+                         tc.accum_steps, seed=2, num_workers=0)
+    one = next(iter(loader))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with fp32_compute(torch.device("cuda")):
+        before = _flagship_eval_forward(state.model)
+        watch = _ForwardLaunches(counters)
+        torch.cuda.reset_peak_memory_stats()
+        by_kernel, busy_ms, wall_ms = kernel_breakdown(
+            lambda: step(state, one, gen))
+        steady_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        watch.close()
+        after = _flagship_eval_forward(state.model)
+        torch.manual_seed(1)
+        plain = build_model(dataclasses.replace(cfg.model, use_pallas=False),
+                            dc.high_thresh, device="cuda")
+        plain.load_state_dict(state.model.state_dict())
+        rel = _rel_l2(after, _flagship_eval_forward(plain))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit("train", run="profiled_step", wall_ms=wall_ms, busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / wall_ms, peak_mem_gib=steady_peak,
+         device_ms=sum(by_kernel.values()), top_kernels=[[k, v]
+                                                         for k, v in top],
+         train_forwards=watch.summary()["train"],
+         kernel_vs_plain_rel_l2=rel,
+         moved_rel_l2=_rel_l2(after, before))
+    check(watch.summary()["train"]["launches_per_forward"] == [(0, 0)],
+          "train-mode forwards launched a kernel")
+    check(rel <= FORWARD_RTOL, f"trained weights: kernel vs plain {rel}")
+    check(not torch.equal(after, before), "the step did not move the output")
+    del plain, step, state
+    torch.cuda.empty_cache()
+    return cfg, os.path.join(run, f"ckpt_ep{FLAGSHIP_EPOCHS - 1}"), launches
+
+
+GENERATE_BATCHES = (4, 20, 10, 4)  # validation, sweep CFG, in-loop CFG
+
+
+def _generation_batches_match(cfg, ckpt) -> dict:
+    """The checkpoint's EMA weights (what ``gen_samples`` samples with) in
+    a kernel model and a plain one: eval forwards at the batches the
+    generation paths give the kernels (the sweep's CFG batch of 20, fit's
+    in-loop CFG batch of 10, the batch-4 validation), the kernel model's
+    run back to back on one stream so each call reuses the workspace of a
+    call at another batch; each output against the plain path's on the
+    same inputs (relative L2)."""
+    from diffusionmodel_tpu_torch.checkpoint import (
+        extract_params,
+        load_checkpoint,
+    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import (
+        state_dict_from_flax,
+    )
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.nn import build_model
+
+    ck = load_checkpoint(ckpt)
+    sd = state_dict_from_flax(extract_params(ck), ck["batch_stats"])
+    del ck
+    models = {}
+    for use_pallas in (True, False):
+        torch.manual_seed(1)
+        models[use_pallas] = build_model(
+            dataclasses.replace(cfg.model, use_pallas=use_pallas),
+            cfg.diffusion.high_thresh, device="cuda").eval()
+        models[use_pallas].load_state_dict(sd)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    size = cfg.model.img_size
+    inputs = []
+    for b in GENERATE_BATCHES:
+        x = torch.randn((b, size, size, 3), generator=g, device="cuda")
+        t = torch.rand(b, generator=g, device="cuda")
+        c = torch.arange(b, device="cuda") % FLAGSHIP_CLASSES
+        # a CFG batch: the second half has its context dropped
+        ctx = (torch.arange(b, device="cuda") < max(b // 2, 1)).float()
+        inputs.append((x, c, t, ctx))
+    with fp32_compute(torch.device("cuda")), torch.no_grad():
+        got = [models[True](*a) for a in inputs]
+        want = [models[False](*a) for a in inputs]
+    rel = [_rel_l2(a, b) for a, b in zip(got, want)]
+    del models, got, want
+    torch.cuda.empty_cache()
+    return {"batches": list(GENERATE_BATCHES), "kernel_vs_plain_rel_l2": rel}
+
+
+def phase_generate(counters, cfg, ckpt, out_dir) -> list:
+    """``gen_samples`` on the trained checkpoint (5 classes x 1 sample,
+    guide scales 2.0 and 4.0 in one sweep batch, DPM++-20), then the CLI's
+    ``--mode generate`` in a subprocess (DPM++-10)."""
+    import os
+    import shutil
+    import sys as _sys
+
+    from diffusionmodel_tpu_torch.sample import gen_samples
+
+    # one DPM++ step first, untimed: cuDNN's algorithm search for the
+    # sweep's batch-20 shapes (about a minute) stays out of the timing
+    gen_samples(cfg.replace(sample=dataclasses.replace(cfg.sample,
+                                                       dpm_steps=1)),
+                ckpt, n_samples_per_class=1, guide_scales=[2.0, 4.0],
+                eval_quality=False, verbose=False, device="cuda")
+    cfg = cfg.replace(sample=dataclasses.replace(cfg.sample, dpm_steps=20))
+    watch = _ForwardLaunches(counters)
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = gen_samples(cfg, ckpt, n_samples_per_class=1,
+                      guide_scales=[2.0, 4.0], eval_quality=False,
+                      verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = _counts(counters)
+    watch.close()
+    seen = watch.summary()
+    n_img = 2 * FLAGSHIP_CLASSES
+    sweep_s = res[2.0]["seconds"] * 2
+    emit("generate", sampler="dpmpp", steps=20, images=n_img,
+         sweep_seconds=sweep_s, images_per_s=n_img / sweep_s,
+         call_seconds=gen_s, se_launches=launches[0],
+         ca_launches=launches[1], forwards=seen,
+         files=sorted(os.listdir(res["out_dir"])))
+    for w in (2.0, 4.0):
+        imgs = res[w]["images"]
+        check(imgs.shape == (FLAGSHIP_CLASSES, 256, 256, 3)
+              and bool(np.isfinite(imgs).all())
+              and os.path.exists(res[w]["grid_path"]),
+              f"generate images at scale {w}")
+    check(seen["eval"]["forwards"] == 20
+          and seen["eval"]["launches_per_forward"] == [(SE_PER_FORWARD,
+                                                        CA_PER_FORWARD)]
+          and launches == [SE_PER_FORWARD * 20, CA_PER_FORWARD * 20],
+          f"generate launches {launches}, {seen}")
+    match = _generation_batches_match(cfg, ckpt)
+    emit("generate", run="kernel_vs_plain", **match)
+    check(all(r <= FORWARD_RTOL for r in match["kernel_vs_plain_rel_l2"]),
+          f"generation batches: kernel vs plain {match}")
+
+    cli_dir = f"{out_dir}/cli_samples"
+    cmd = [_sys.executable, "-m", "diffusionmodel_tpu_torch.cli", "--mode",
+           "generate", "--ckpt", ckpt, "--sampler", "dpmpp", "--steps", "10",
+           "--samples", "1", "--no_eval", "--device", "cuda",
+           "-o", "model.use_pallas=true",
+           "-o", f"sample.sample_dir={cli_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    made = sorted(os.listdir(os.path.join(cli_dir, os.listdir(cli_dir)[0]))) \
+        if proc.returncode == 0 and os.path.isdir(cli_dir) else []
+    emit("generate", run="cli", returncode=proc.returncode, seconds=cli_s,
+         images_per_s=n_img / cli_s, files=made,
+         stderr_tail=proc.stderr[-2000:])
+    check(proc.returncode == 0 and len(made) == n_img + 2,
+          f"cli --mode generate: rc {proc.returncode}, files {made}")
+    shutil.rmtree(out_dir, ignore_errors=True)  # multi-GB checkpoints
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1143,6 +1518,13 @@ def main() -> int:
     bwd_rows = phase_flash_bwd()
     phase_ldm_grad(flash_counters)
     train_launches = phase_train_ldm(flash_counters)
+    import os
+
+    flagship_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "output", "chip_smoke_flagship")
+    flag_cfg, flag_ckpt, fit_launches = phase_train(counters, flagship_dir)
+    gen_launches = phase_generate(counters, flag_cfg, flag_ckpt,
+                                  flagship_dir)
 
     def entry(name, key, launched, replaces):
         sites = rows[key]
@@ -1209,11 +1591,16 @@ def main() -> int:
 
     fwd = flash_entry(flash_rows, flash_launches)
     fwd["train_launches"] = train_launches[0]
+    se = entry("se_block", "se_block", launches[0],
+               "diffusionmodel_tpu/kernels/se_block.py:202")
+    ca = entry("coord_attn", "coord_attn", launches[1],
+               "diffusionmodel_tpu/kernels/coord_attn.py:296")
+    for row, i in ((se, 0), (ca, 1)):
+        row["train_launches"] = fit_launches[i]
+        row["generate_launches"] = gen_launches[i]
     print(json.dumps({"kernels": [
-        entry("se_block", "se_block", launches[0],
-              "diffusionmodel_tpu/kernels/se_block.py:202"),
-        entry("coord_attn", "coord_attn", launches[1],
-              "diffusionmodel_tpu/kernels/coord_attn.py:296"),
+        se,
+        ca,
         fwd,
         bwd_entry("flash_attn_dq", "dq", train_launches[1],
                   "diffusionmodel_tpu/kernels/flash_attn.py:268"),

@@ -11,9 +11,12 @@ the GPU unless the caller passes ``device="cpu"``.
 
 Ported so far: the ContextUnet v2/v1 serving path (config, schedules,
 layers, kernels, weight bridge, checkpoint reading, CFG samplers,
-``SamplerService``, ``--mode serve``) and the latent-diffusion inference
-path (``models.latent_diffusion``, ``--mode txt2img|img2img|inpaint``).
-See ROADMAP.md for the rest.
+``SamplerService``, ``--mode serve``), the latent-diffusion inference and
+training paths (``models.latent_diffusion``, ``--mode
+txt2img|img2img|inpaint|train_ldm``), and the ContextUnet's training and
+generation (``diffusion.train_loss``, ``train``, ``trainer.fit``,
+``sample.gen_samples``, ``data``, checkpoint writing, ``--mode
+train|generate``). See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,10 @@
 """CLI of the port (counterpart of ``diffusionmodel_tpu/cli.py``).
 
+    python -m diffusionmodel_tpu_torch.cli --mode train [--preset full] \
+        [--data_root DIR] [--save_dir DIR] [--epochs N] [--resume CKPT]
+    python -m diffusionmodel_tpu_torch.cli --mode generate --ckpt PATH \
+        [--guide_scales 2.0 4.0] [--samples 3] [--sampler dpmpp] \
+        [--steps 20] [--no_eval]
     python -m diffusionmodel_tpu_torch.cli --mode serve --ckpt PATH \
         [--port 8000] [--max_batch 8] [--sampler ddim] [--steps 50]
     python -m diffusionmodel_tpu_torch.cli --mode txt2img --prompt TEXT \
@@ -10,9 +15,12 @@
         [--img_size 256] [--epochs 10] [--batch_size 4] [--remat] \
         [--train_ae_epochs 0] [--ldm_native OUT.pkl]
 
-``--mode serve``, the latent-diffusion modes txt2img / img2img / inpaint
-and their training, ``train_ldm``, are ported; the other modes of the JAX
-CLI (and ``--family main`` editing) print that they are not ported yet and
+``--mode train`` / ``generate`` (the ContextUnet presets ``full``, ``old``
+and ``generation``), ``--mode serve``, the latent-diffusion modes txt2img /
+img2img / inpaint and their training, ``train_ldm``, are ported; the other
+modes of the JAX CLI, the ``mnist`` / ``custom`` / ``labml`` presets of
+train and generate (ROADMAP A10), ``--inception_weights`` (A8) and
+``--family main`` editing (A11) print that they are not ported yet and
 return 1. Flags keep the JAX CLI's spellings and defaults; ``--device``
 (default cuda) is the port's own.
 """
@@ -32,14 +40,28 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA port of the enhanced diffusion model")
     p.add_argument("--mode", type=str, default="train", choices=_MODES,
-                   help="serve (HTTP generation service), the "
-                        "latent-diffusion pipelines txt2img / img2img / "
+                   help="train, generate, serve (HTTP generation service), "
+                        "the latent-diffusion pipelines txt2img / img2img / "
                         "inpaint and train_ldm are ported; the other modes "
                         "are not yet")
     p.add_argument("--ckpt", "--checkpoint", dest="ckpt", type=str,
-                   default=None, help="serve: a JAX package checkpoint "
-                   "(.pkl or a directory with payload.pkl); LDM modes: an "
-                   "SD-v1 .ckpt")
+                   default=None, help="generate / serve: a checkpoint of "
+                   "either package (.pkl or a directory with payload.pkl); "
+                   "LDM modes: an SD-v1 .ckpt")
+    p.add_argument("--guide_scales", "--guidance_scales", dest="guide_scales",
+                   type=float, nargs="+", default=None,
+                   help="Guidance scales for generation")
+    p.add_argument("--samples", "--samples_per_class", dest="samples",
+                   type=int, default=None, help="Samples per class")
+    p.add_argument("--no_eval", action="store_true",
+                   help="Skip image quality evaluation")
+    p.add_argument("--inception_weights", type=str, default=None,
+                   help="not ported yet (ROADMAP A8, quality metrics)")
+    p.add_argument("--save_dir", type=str, default=None,
+                   help="train: where checkpoints, metrics and sample "
+                        "grids go (default train.save_dir)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="train: checkpoint (either package) to resume from")
     p.add_argument("--sampler", type=str, default=None,
                    choices=["ancestral", "ddim", "dpmpp"])
     p.add_argument("--steps", type=int, default=None,
@@ -100,8 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img_size", type=int, default=256,
                    help="train_ldm: image size (a multiple of 8)")
     p.add_argument("--epochs", type=int, default=None,
-                   help="train_ldm: epochs (unset or 0: 10, as in the JAX "
-                        "package's CLI)")
+                   help="train: epochs (unset: the preset's "
+                        "train.n_epoch); train_ldm: epochs (unset or 0: 10, "
+                        "as in the JAX package's CLI)")
     p.add_argument("--lr", type=float, default=1e-4,
                    help="train_ldm: Adam learning rate")
     p.add_argument("--uncond_prob", type=float, default=0.1,
@@ -138,6 +161,69 @@ def _class_names(data_root: str):
         return None
     return sorted(d for d in os.listdir(img_root)
                   if os.path.isdir(os.path.join(img_root, d))) or None
+
+
+def _config(args):
+    """The preset with ``-o`` overrides and the flags that set config
+    fields, as the JAX CLI builds it."""
+    from diffusionmodel_tpu_torch.config import preset
+
+    overrides = {}
+    for item in args.override:
+        k, _, v = item.partition("=")
+        overrides[k] = _parse_value(v)
+    cfg = preset(args.preset, **overrides)
+    if args.data_root:
+        cfg = cfg.replace(data_root=args.data_root)
+    tc = cfg.train
+    if args.save_dir:
+        tc = dataclasses.replace(tc, save_dir=args.save_dir)
+    if args.epochs is not None:  # unset keeps the preset's n_epoch
+        tc = dataclasses.replace(tc, n_epoch=args.epochs)
+    if args.seed is not None:
+        tc = dataclasses.replace(tc, seed=args.seed)
+    cfg = cfg.replace(train=tc)
+    if args.sampler or args.steps:
+        sc = cfg.sample
+        if args.sampler:
+            sc = dataclasses.replace(sc, sampler=args.sampler)
+        if args.steps:
+            # --steps targets whichever fast sampler is active
+            if (args.sampler or sc.sampler) == "dpmpp":
+                sc = dataclasses.replace(sc, dpm_steps=args.steps)
+            else:
+                sc = dataclasses.replace(sc, ddim_steps=args.steps)
+        cfg = cfg.replace(sample=sc)
+    return cfg
+
+
+def _train_or_generate(args) -> int:
+    """--mode train | generate: the ContextUnet family."""
+    if args.preset in ("mnist", "custom", "labml"):
+        print(f"--mode {args.mode} --preset {args.preset} is not ported to "
+              "the PyTorch package yet (ROADMAP A10, side families)")
+        return 1
+    if args.inception_weights:
+        print("--inception_weights is not ported to the PyTorch package "
+              "yet (ROADMAP A8, quality metrics)")
+        return 1
+    cfg = _config(args)
+    if args.mode == "train":
+        from diffusionmodel_tpu_torch.trainer import fit
+
+        fit(cfg, resume=args.resume, device=args.device)
+        return 0
+    if args.ckpt is None:
+        print("Error: Checkpoint path required for generation mode")
+        return 1
+    from diffusionmodel_tpu_torch.sample import gen_samples
+
+    gen_samples(cfg, args.ckpt, n_samples_per_class=args.samples,
+                guide_scales=args.guide_scales,
+                eval_quality=not args.no_eval,
+                seed=args.seed if args.seed is not None else 0,
+                device=args.device)
+    return 0
 
 
 def _ldm(args) -> int:
@@ -242,6 +328,8 @@ def main(argv=None) -> int:
         return _ldm(args)
     if args.mode == "train_ldm":
         return _train_ldm(args)
+    if args.mode in ("train", "generate"):
+        return _train_or_generate(args)
     if args.mode != "serve":
         what = f"--mode {args.mode}" + (" --family main" if args.mode in (
             "img2img", "inpaint") else "")
@@ -259,7 +347,6 @@ def main(argv=None) -> int:
     from diffusionmodel_tpu_torch.compat.flax_bridge import (
         state_dict_from_flax,
     )
-    from diffusionmodel_tpu_torch.config import preset
     from diffusionmodel_tpu_torch.device_check import resolve_device
     from diffusionmodel_tpu_torch.diffusion import Schedule
     from diffusionmodel_tpu_torch.nn import build_model
@@ -268,24 +355,7 @@ def main(argv=None) -> int:
         make_http_server,
     )
 
-    overrides = {}
-    for item in args.override:
-        k, _, v = item.partition("=")
-        overrides[k] = _parse_value(v)
-    cfg = preset(args.preset, **overrides)
-    if args.data_root:
-        cfg = cfg.replace(data_root=args.data_root)
-    if args.sampler or args.steps:
-        sc = cfg.sample
-        if args.sampler:
-            sc = dataclasses.replace(sc, sampler=args.sampler)
-        if args.steps:
-            if (args.sampler or sc.sampler) == "dpmpp":
-                sc = dataclasses.replace(sc, dpm_steps=args.steps)
-            else:
-                sc = dataclasses.replace(sc, ddim_steps=args.steps)
-        cfg = cfg.replace(sample=sc)
-
+    cfg = _config(args)
     device = resolve_device(args.device)
     mc, dc = cfg.model, cfg.diffusion
     class_names = [f"class_{i}" for i in range(mc.n_classes)]

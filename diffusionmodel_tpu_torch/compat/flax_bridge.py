@@ -1,5 +1,4 @@
-"""JAX package parameter trees -> the port's ``state_dict`` (and, for the
-latent-diffusion modules, back).
+"""JAX package parameter trees <-> the port's ``state_dict``.
 
 The inverse of ``diffusionmodel_tpu/compat/torch_convert.py::
 convert_context_unet_v2``: the port's modules carry the reference's
@@ -16,12 +15,16 @@ names. Transforms:
 - GroupNorm / BatchNorm scale -> weight; BatchNorm statistics ->
   running_mean / running_var (``num_batches_tracked`` = 0).
 
-Numpy only; the result is a dict of torch tensors for ``load_state_dict``.
+``flax_from_state_dict`` walks the same layer paths the other way, so a
+checkpoint the port writes holds the JAX package's trees.
+
+Numpy only; ``state_dict_from_flax`` gives torch tensors for
+``load_state_dict``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +43,10 @@ def _lin(k):
 
 
 class _Unmapper:
+    """Walks the ContextUnet's layers (:func:`_walk_context_unet`) reading
+    a flax tree into ``state_dict`` names. :class:`_Mapper` walks the same
+    paths the other way."""
+
     def __init__(self, params: Dict[str, Any],
                  batch_stats: Optional[Dict[str, Any]]):
         self.params = params
@@ -52,6 +59,15 @@ class _Unmapper:
             node = node[p]
         return node
 
+    # which optional layers the network has
+    def has(self, fpath, tkey) -> bool:
+        return fpath[-1] in self._get(self.params, fpath[:-1])
+
+    def is_bn(self, fpath, tkey) -> bool:
+        """The JAX ``Norm`` wrapper holds BatchNorm_0 or GroupNorm_0."""
+        return "BatchNorm_0" in self._get(self.params, fpath)
+
+    # leaves
     def conv(self, fpath, tkey, transposed=False):
         node = self._get(self.params, fpath)
         k = np.asarray(node["kernel"])
@@ -77,10 +93,12 @@ class _Unmapper:
         self.sd[f"{tkey}.running_var"] = np.asarray(st["var"])
         self.sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
 
+    def scalar(self, fpath, tkey):
+        self.sd[tkey] = np.asarray(self._get(self.params, fpath))
+
+    # composites
     def norm(self, fpath, tkey):
-        """The JAX ``Norm`` wrapper holds BatchNorm_0 or GroupNorm_0."""
-        node = self._get(self.params, fpath)
-        if "BatchNorm_0" in node:
+        if self.is_bn(fpath, tkey):
             self.bn(fpath + ("BatchNorm_0",), tkey)
         else:
             self.gn(fpath + ("GroupNorm_0",), tkey)
@@ -90,7 +108,7 @@ class _Unmapper:
         self.norm(fpath + ("Norm_0",), f"{tkey}.conv1.1")
         self.conv(fpath + ("Conv_1",), f"{tkey}.conv2.0")
         self.norm(fpath + ("Norm_1",), f"{tkey}.conv2.1")
-        if "SEBlock_0" in self._get(self.params, fpath):
+        if self.has(fpath + ("SEBlock_0",), f"{tkey}.se"):
             self.dense(fpath + ("SEBlock_0", "Dense_0"), f"{tkey}.se.fc.0")
             self.dense(fpath + ("SEBlock_0", "Dense_1"), f"{tkey}.se.fc.2")
 
@@ -118,9 +136,77 @@ class _Unmapper:
             self.conv(fpath + (name,), f"{tkey}.{name}")
         self.norm(fpath + ("bn1_h",), f"{tkey}.bn1_h")
         self.norm(fpath + ("bn1_w",), f"{tkey}.bn1_w")
-        node = self._get(self.params, fpath)
         for s in ("gamma_h", "gamma_w", "alpha", "beta"):
-            self.sd[f"{tkey}.{s}"] = np.asarray(node[s])
+            self.scalar(fpath + (s,), f"{tkey}.{s}")
+
+
+class _Mapper(_Unmapper):
+    """The same walk from a ``state_dict`` (numpy arrays) to flax trees:
+    ``params`` and ``batch_stats``."""
+
+    def __init__(self, sd: Dict[str, np.ndarray]):
+        super().__init__({}, {})
+        self.sd = sd
+
+    def _put(self, tree, fpath, leaf, value):
+        node = tree
+        for p in fpath:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+
+    def has(self, fpath, tkey) -> bool:
+        return any(k.startswith(tkey + ".") for k in self.sd)
+
+    def is_bn(self, fpath, tkey) -> bool:
+        return f"{tkey}.running_mean" in self.sd
+
+    def conv(self, fpath, tkey, transposed=False):
+        w = self.sd[f"{tkey}.weight"]
+        # inverse of _conv_t: [I,O,kh,kw] -> [kh,kw,I,O], spatially flipped
+        k = (np.transpose(w, (2, 3, 0, 1))[::-1, ::-1] if transposed
+             else np.transpose(w, (2, 3, 1, 0)))
+        self._put(self.params, fpath, "kernel", k)
+        if f"{tkey}.bias" in self.sd:
+            self._put(self.params, fpath, "bias", self.sd[f"{tkey}.bias"])
+
+    def dense(self, fpath, tkey):
+        self._put(self.params, fpath, "kernel",
+                  _lin(self.sd[f"{tkey}.weight"]))
+        if f"{tkey}.bias" in self.sd:
+            self._put(self.params, fpath, "bias", self.sd[f"{tkey}.bias"])
+
+    def gn(self, fpath, tkey):
+        self._put(self.params, fpath, "scale", self.sd[f"{tkey}.weight"])
+        self._put(self.params, fpath, "bias", self.sd[f"{tkey}.bias"])
+
+    def bn(self, fpath, tkey):
+        self.gn(fpath, tkey)
+        self._put(self.stats, fpath, "mean", self.sd[f"{tkey}.running_mean"])
+        self._put(self.stats, fpath, "var", self.sd[f"{tkey}.running_var"])
+
+    def scalar(self, fpath, tkey):
+        self._put(self.params, fpath[:-1], fpath[-1], self.sd[tkey])
+
+
+def _walk_context_unet(m: _Unmapper) -> None:
+    m.resconv(("init_conv",), "init_conv")
+    for i in range(1, 5):
+        m.unet_down((f"down{i}",), f"down{i}")
+        if m.has((f"ca{i}",), f"ca{i}"):
+            m.coord_attn((f"ca{i}",), f"ca{i}")
+    for name in ("time_emb1", "time_emb2", "ctx_emb1", "ctx_emb2"):
+        m.embed_fc((name,), name)
+    m.conv(("up0_convt",), "up0.0", transposed=True)
+    m.gn(("up0_gn",), "up0.1")
+    for i in range(1, 5):
+        m.unet_up((f"up{i}",), f"up{i}")
+    if m.has(("local_enhance",), "local_enhance"):
+        m.conv(("local_enhance", "Conv_0"), "local_enhance.conv.0")
+        m.gn(("local_enhance", "GroupNorm_0"), "local_enhance.conv.1")
+        m.conv(("local_enhance", "Conv_1"), "local_enhance.conv.3")
+    m.conv(("out_conv1",), "out.0")
+    m.gn(("out_gn",), "out.1")
+    m.conv(("out_conv2",), "out.3")
 
 
 def state_dict_from_flax(params: Dict[str, Any],
@@ -129,26 +215,25 @@ def state_dict_from_flax(params: Dict[str, Any],
     """A JAX ContextUnet (v2 or v1) parameter tree -> the port's
     ``state_dict``. ``batch_stats`` is required for ``norm="batch"``."""
     m = _Unmapper(params, batch_stats)
-    m.resconv(("init_conv",), "init_conv")
-    for i in range(1, 5):
-        m.unet_down((f"down{i}",), f"down{i}")
-        if f"ca{i}" in params:
-            m.coord_attn((f"ca{i}",), f"ca{i}")
-    for name in ("time_emb1", "time_emb2", "ctx_emb1", "ctx_emb2"):
-        m.embed_fc((name,), name)
-    m.conv(("up0_convt",), "up0.0", transposed=True)
-    m.gn(("up0_gn",), "up0.1")
-    for i in range(1, 5):
-        m.unet_up((f"up{i}",), f"up{i}")
-    if "local_enhance" in params:
-        m.conv(("local_enhance", "Conv_0"), "local_enhance.conv.0")
-        m.gn(("local_enhance", "GroupNorm_0"), "local_enhance.conv.1")
-        m.conv(("local_enhance", "Conv_1"), "local_enhance.conv.3")
-    m.conv(("out_conv1",), "out.0")
-    m.gn(("out_gn",), "out.1")
-    m.conv(("out_conv2",), "out.3")
+    _walk_context_unet(m)
     return {k: torch.from_numpy(np.copy(v, order="C"))
             for k, v in m.sd.items()}
+
+
+def flax_from_state_dict(sd: Dict[str, torch.Tensor]
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's ContextUnet (v2 or v1) ``state_dict`` -> the JAX
+    package's ``(params, batch_stats)`` trees of numpy arrays (float32;
+    ``batch_stats`` is empty under GroupNorm): the inverse of
+    :func:`state_dict_from_flax`. The arrays are copies.
+    ``num_batches_tracked`` has no flax counterpart and is dropped."""
+    # copies: a CPU tensor's .numpy() shares its memory, and the trees
+    # must not follow the live parameters (snapshots, checkpoints)
+    m = _Mapper({k: v.detach().to("cpu").numpy().copy()
+                 for k, v in sd.items()
+                 if not k.endswith("num_batches_tracked")})
+    _walk_context_unet(m)
+    return m.params, m.stats
 
 
 # --- latent diffusion: flax trees <-> SD-v1 names --------------------------

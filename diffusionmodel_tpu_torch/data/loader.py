@@ -1,0 +1,140 @@
+"""Host-side batch loader with background prefetch: the port's numpy-only
+copy of ``diffusionmodel_tpu/data/loader.py``.
+
+A replacement for torch DataLoader(num_workers=5, pin_memory)
+(new_scripy.py:641-655): a thread pool decodes/augments images while the
+device trains, and batches are yielded as numpy arrays shaped for gradient
+accumulation ([accum, micro_batch, ...]). The tail batch is padded by
+wrapping around, and with ``wire_u8`` (default) images and masks travel as
+uint8 (``dataset.load_wire``), expanded on the device by
+``train.decode_wire``: 16x fewer host-to-device bytes than float32.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, Sequence
+
+import numpy as np
+
+
+class BatchLoader:
+    def __init__(self, dataset, indices: Sequence[int], batch_size: int,
+                 accum_steps: int = 1, shuffle: bool = True, augment: bool = True,
+                 seed: int = 0, num_workers: int = 4, prefetch: int = 2,
+                 drop_last: bool = False, wire_u8: bool = True):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+        self.batch_size = batch_size
+        self.accum_steps = accum_steps
+        self.shuffle = shuffle
+        self.augment = augment
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self._rng = np.random.RandomState(seed)
+        # uint8 wire format (image u8, mask class-index u8), expanded
+        # on the device by train.decode_wire.
+        self.wire_u8 = wire_u8 and hasattr(dataset, "load_wire")
+
+    def __len__(self) -> int:
+        per_step = self.batch_size * self.accum_steps
+        n = len(self.indices)
+        return n // per_step if self.drop_last else -(-n // per_step)
+
+    def _epoch_order(self) -> np.ndarray:
+        order = self.indices.copy()
+        if self.shuffle:
+            self._rng.shuffle(order)
+        return order
+
+    def _assemble(self, idxs: np.ndarray) -> Dict[str, np.ndarray]:
+        per_step = self.batch_size * self.accum_steps
+        # pad the tail batch by wrapping (every step has the same shape)
+        if len(idxs) < per_step:
+            pad = per_step - len(idxs)
+            idxs = np.concatenate([idxs, idxs[: pad]]) if len(idxs) >= pad else \
+                np.concatenate([idxs, np.resize(idxs, pad)])
+        load = (self.dataset.load_wire if self.wire_u8
+                else self.dataset.load)
+        xs, cs, ms = [], [], []
+        for i in idxs:
+            x, c, m = load(int(i), augment=self.augment)
+            xs.append(x)
+            cs.append(c)
+            ms.append(m)
+        s = self.dataset.img_size
+        x = np.stack(xs).reshape(self.accum_steps, self.batch_size, s, s, -1)
+        c = np.asarray(cs, np.int32).reshape(self.accum_steps, self.batch_size)
+        m = np.stack(ms).reshape(self.accum_steps, self.batch_size, s, s)
+        return {"x": x, "c": c, "mask": m}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self._epoch_order()
+        per_step = self.batch_size * self.accum_steps
+        n_batches = len(self)
+        chunks = [
+            order[i * per_step:(i + 1) * per_step] for i in range(n_batches)
+        ]
+        if self.num_workers <= 0:
+            for ch in chunks:
+                yield self._assemble(ch)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def producer():
+            # Bounded in-flight window (num_workers + prefetch chunks): each
+            # chunk is submitted only as an earlier one is handed off, so at
+            # most window+prefetch assembled batches exist at once — the
+            # epoch's decoded images can never pile up in host RAM.
+            window = self.num_workers + self.prefetch
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    from collections import deque
+
+                    futs = deque(pool.submit(self._assemble, ch)
+                                 for ch in chunks[:window])
+                    next_i = len(futs)
+                    while futs:
+                        if stop.is_set():
+                            for f in futs:
+                                f.cancel()
+                            return
+                        item = futs.popleft().result()
+                        if next_i < len(chunks):
+                            futs.append(
+                                pool.submit(self._assemble, chunks[next_i]))
+                            next_i += 1
+                        while not stop.is_set():
+                            try:
+                                q.put(item, timeout=0.1)
+                                break
+                            except queue.Full:
+                                continue
+                q.put(None)
+            except BaseException as e:
+                # a failed decode (corrupt image, bad XML) must not strand
+                # the consumer on q.get() forever — hand it the exception.
+                while not stop.is_set():
+                    try:
+                        q.put(e, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()

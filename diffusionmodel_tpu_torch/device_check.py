@@ -9,6 +9,7 @@ GPU, and a missing GPU is an error unless the caller asked for the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -24,6 +25,33 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_compute(device: torch.device):
+    """The flagship's fp32 settings inside the block on a CUDA device,
+    restored after it: TF32 off in cuDNN and cuBLAS (PyTorch's default
+    leaves it on for cuDNN convolutions), and cuDNN autotuning on. With
+    the default heuristics, cuDNN takes an FFT algorithm for some of the
+    flagship's fp32 shapes (the 192-channel 3x3 convolutions at 128 px,
+    batch 4 or 20) that is ~60x slower than the one it takes at batch 16;
+    the search costs about two minutes of the first train step (NVIDIA
+    H100; tools/flagship_train_probe.py).
+
+    ``trainer.fit`` and ``sample.gen_samples`` (and so ``--mode train`` and
+    ``--mode generate``) run under it. The serving and latent-diffusion
+    entry points do not set these flags: they run under the process's
+    settings (``chip_smoke.py`` turns TF32 off for its whole process)."""
+    if device.type != "cuda":
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark)
+    cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = False, False, True
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = before
 
 
 def main() -> None:

@@ -1,5 +1,13 @@
-"""Classifier-free-guided samplers (counterpart of the sampling half of
-``diffusionmodel_tpu/diffusion.py``): ancestral, DDIM and DPM-Solver++(2M).
+"""The main family's diffusion process (counterpart of
+``diffusionmodel_tpu/diffusion.py``): ``q_sample``, the training loss, and
+the classifier-free-guided samplers (ancestral, DDIM, DPM-Solver++(2M)).
+
+The loss (``train_loss``) is fp32 whatever the network computes in. Its
+draws (t, eps, the context mask) come from a ``torch.Generator`` in that
+order, or are handed in, which is how the tests give the port the JAX
+package's own ``jax.random`` draws. Images are [B,H,W,C] and masks
+[B,H,W], the JAX layout (the ContextUnet's public layout too), and every
+mean is over all elements, so no value depends on memory layout.
 
 Each step evaluates the conditional and unconditional branches in one
 network call on the doubled batch; the JAX package's ``lax.scan`` becomes
@@ -123,6 +131,79 @@ def _cfg_eps(eps_fn: EpsFn, x, c2, mask2, t_int: int, n_T: int, gw):
     eps = eps_fn(torch.cat([x, x]), c2, t_norm, mask2).float()
     e1, e2 = eps[:n], eps[n:]
     return (1.0 + gw) * e1 - gw * e2
+
+
+def q_sample(sched: Schedule, x0: torch.Tensor, ts: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """x_t = sqrt(abar_t) x_0 + sqrt(1-abar_t) eps (new_scripy.py:408-411)."""
+    sab = sched.sqrtab[ts][:, None, None, None]
+    smab = sched.sqrtmab[ts][:, None, None, None]
+    return sab * x0 + smab * noise
+
+
+def loss_weights(attn_mask: torch.Tensor, dc: DiffusionConfig) -> torch.Tensor:
+    """Per-pixel MSE weights from the attention mask (new_scripy.py:420-424)."""
+    mid = torch.where(attn_mask > dc.mid_thresh,
+                      torch.tensor(dc.mid_weight, dtype=torch.float32),
+                      torch.tensor(dc.low_weight, dtype=torch.float32))
+    return torch.where(attn_mask > dc.high_thresh,
+                       torch.tensor(dc.high_weight, dtype=torch.float32),
+                       mid).float()
+
+
+def train_loss(apply_fn: Callable, x: torch.Tensor, c: torch.Tensor,
+               attn_mask: Optional[torch.Tensor], sched: Schedule,
+               dc: DiffusionConfig, *, ts=None, noise=None, ctx_mask=None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Training objective (new_scripy.py:401-439).
+
+    ``apply_fn(x_t, c, t_norm, ctx_mask, attn_mask) -> eps_pred``.
+
+    - t ~ U[1, n_T]; eps ~ N(0,1); x_t = q_sample.
+    - ctx_mask ~ Bernoulli(1 - drop_prob) (1 = keep context).
+    - weighted MSE (weights 3.0/1.0/0.5 by mask thresholds 1.2/0.8) +
+      feat_consist_weight * mean(|eps_pred - eps| * [mask > high_thresh]).
+    - use_weighted_loss=False => plain MSE (MNIST_script.py:252; there the
+      Bernoulli drop mask has p = drop_prob with 1 = DROP, matching the
+      network-side mnist_style_ctx_flip).
+
+    ``ts`` [B] int, ``noise`` like x and ``ctx_mask`` [B] are drawn from
+    ``generator`` on x's device unless given (arrays or tensors)."""
+    if dc.schedule_family == "textbook":
+        raise NotImplementedError(
+            "the textbook schedule family's loss needs ddpm_unet, which is "
+            "not ported yet: ROADMAP A10")
+    b, dev = x.shape[0], x.device
+    x = x.to(torch.float32)
+    if ts is None:
+        ts = torch.randint(1, dc.n_T + 1, (b,), generator=generator,
+                           device=dev)
+    ts = torch.as_tensor(ts, device=dev).to(torch.int64)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=dev)
+    noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+    x_t = q_sample(sched, x, ts, noise)
+    if ctx_mask is None:
+        # v2: keep-mask, 1 = keep (new_scripy.py:413); MNIST: drop-mask,
+        # 1 = drop (MNIST_script.py:249).
+        p_one = 1.0 - dc.drop_prob if dc.use_weighted_loss else dc.drop_prob
+        ctx_mask = torch.rand(b, generator=generator, device=dev) < p_one
+    ctx_mask = torch.as_tensor(ctx_mask, device=dev).to(torch.float32)
+
+    t_norm = ts.to(torch.float32) / dc.n_T
+    pass_mask = attn_mask if dc.local_enhancer_spatial_mask else None
+    eps_pred = apply_fn(x_t, c, t_norm, ctx_mask, pass_mask).float()
+
+    if not dc.use_weighted_loss or attn_mask is None:
+        return torch.mean((noise - eps_pred) ** 2)
+
+    attn_mask = attn_mask.to(torch.float32)
+    w = loss_weights(attn_mask, dc).to(dev)[..., None]  # broadcast over C
+    weighted = torch.mean((noise - eps_pred) ** 2 * w)
+    high = (attn_mask > dc.high_thresh).to(torch.float32)[..., None]
+    feat_consist = (torch.mean(torch.abs(eps_pred * high - noise * high))
+                    * dc.feat_consist_weight)
+    return weighted + feat_consist
 
 
 @torch.inference_mode()

@@ -71,13 +71,35 @@ class GroupNorm(nn.GroupNorm):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm (eps 1e-5, torch momentum 0.1 = flax 0.9) whose output
-    stays channels_last."""
+    stays channels_last.
+
+    In train mode the running statistics follow flax's ``nn.BatchNorm``,
+    not PyTorch's: ``running_var`` moves toward the *biased* batch variance
+    (the one the batch is normalised with), where ``nn.BatchNorm2d`` would
+    take the unbiased one, n/(n-1) larger. A forward run again inside a
+    backward pass (``torch.utils.checkpoint``'s recompute) leaves them
+    alone, so a rematerialised step updates them once, as ``jax.checkpoint``
+    does. Eval mode is PyTorch's."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
-        return channels_last(super().forward(x))
+        if not self.training:
+            return channels_last(super().forward(x))
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        if torch._C._current_graph_task_id() == -1:  # not in a backward
+            with torch.no_grad():
+                xf = x.detach().float()
+                mean = xf.mean(dim=(0, 2, 3))
+                var = xf.var(dim=(0, 2, 3), unbiased=False)
+                self.running_mean.mul_(1.0 - self.momentum).add_(
+                    mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    var, alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
+        return channels_last(out)
 
 
 def norm_layer(kind: str, channels: int, groups: int = 8) -> nn.Module:

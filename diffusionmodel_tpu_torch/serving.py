@@ -31,10 +31,8 @@ from __future__ import annotations
 
 import operator
 import queue
-import struct
 import threading
 import time
-import zlib
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -49,6 +47,7 @@ from diffusionmodel_tpu_torch.diffusion import (
     sample_cfg_ddim,
     sample_cfg_dpmpp,
 )
+from diffusionmodel_tpu_torch.utils.grid import png_bytes
 
 
 @dataclass
@@ -269,22 +268,6 @@ class SamplerService:
 
 
 # ---------------------------------------------------------------- HTTP API
-def png_bytes(img: np.ndarray) -> bytes:
-    """Encode an [H, W, 3] (or [H, W, 1]) uint8 image as PNG with the
-    standard library (no imaging package needed)."""
-    h, w, ch = img.shape
-    color = {1: 0, 3: 2}[ch]
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-
-
 def make_http_server(service: SamplerService, host: str = "0.0.0.0",
                      port: int = 8000, class_names: Optional[list] = None,
                      denorm: bool = True):

@@ -446,3 +446,96 @@ def test_ldm_unet_gradients_flash_on_and_off(dev):
     attn1 = unet.input_blocks[1][1].transformer_blocks[0].attn1
     for lin in (attn1.to_q, attn1.to_k, attn1.to_v):
         assert lin.weight.grad.abs().max().item() > 0
+
+
+def _flagship_small(use_pallas, dev, **over):
+    """A narrow ContextUnet v2 (n_feat 32, 64 px) whose SE and CoordAttn
+    sites the kernels take, with its config and one uint8 wire batch."""
+    from diffusionmodel_tpu_torch.config import preset
+    from diffusionmodel_tpu_torch.nn import build_model
+
+    cfg = preset("full", **{"model.n_feat": 32, "model.img_size": 64,
+                            "model.use_pallas": use_pallas,
+                            "train.accum_steps": 2, "train.batch_size": 2,
+                            "train.ema_decay": 0.99, **over})
+    torch.manual_seed(0)
+    model = build_model(cfg.model, cfg.diffusion.high_thresh, device=dev)
+    g = torch.Generator().manual_seed(4)
+    batch = {"x": torch.randint(0, 256, (2, 2, 64, 64, 3), generator=g,
+                                dtype=torch.uint8),
+             "c": torch.randint(0, 5, (2, 2), generator=g),
+             "mask": torch.randint(0, 3, (2, 2, 64, 64), generator=g,
+                                   dtype=torch.uint8)}
+    return cfg, model, batch
+
+
+def _train_step(cfg, model, dev):
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    dc = cfg.diffusion
+    state, opt = create_train_state(model, cfg, 1)
+    return state, make_train_step(model, Schedule.create(
+        dc.beta1, dc.beta2, dc.n_T, dev), cfg, opt)
+
+
+def _eval_out(model, dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 64, 64, 3), generator=g, device=dev)
+    with torch.no_grad():
+        return model.eval()(x, torch.tensor([0, 3], device=dev),
+                            torch.full((2,), 0.3, device=dev),
+                            torch.ones(2, device=dev))
+
+
+def test_train_step_uses_the_twins_with_use_pallas(dev):
+    """One train step with ``use_pallas=True`` launches no kernel (train
+    mode runs the differentiable twins, as the JAX package does) and gives
+    the ``use_pallas=False`` step's loss bit for bit (the same forward);
+    the updated weights agree up to cuDNN's weight-gradient sums, which
+    are not bit-reproducible: Adam's first step moves each parameter by
+    about +-lr, so at most 0.1% of elements (near-zero gradients whose
+    sign the rounding decides) may differ by more than 1e-3 lr, none by
+    more than 2 lr."""
+    results = []
+    for use_pallas in (True, False):
+        cfg, model, batch = _flagship_small(use_pallas, dev)
+        state, step = _train_step(cfg, model, dev)
+        n = (se_block.launches, coord_attn.launches)
+        loss = step(state, batch, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        assert (se_block.launches, coord_attn.launches) == n
+        results.append((loss.item(), torch.cat(
+            [p.detach().flatten() for p in model.parameters()])))
+    (l1, p1), (l2, p2) = results
+    assert l1 == l2
+    lr = cfg.train.lr
+    off = (p1 - p2).abs()
+    assert (off > 1e-3 * lr).float().mean().item() <= 1e-3
+    assert off.max().item() <= 2 * lr
+
+
+def test_coord_attn_cache_follows_a_train_step_on_the_card(dev):
+    """An eval forward through the kernels (CoordAttn caches its packed
+    weights), one train step, another eval forward: the last equals a
+    fresh kernel model loaded with the new weights, and the plain path on
+    them (relative L2 1e-4)."""
+    cfg, model, batch = _flagship_small(True, dev)
+    before = _eval_out(model, dev)
+    state, step = _train_step(cfg, model, dev)
+    step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    n = (se_block.launches, coord_attn.launches)
+    after = _eval_out(model, dev)
+    torch.cuda.synchronize()
+    assert (se_block.launches - n[0], coord_attn.launches - n[1]) == (5, 4)
+    assert not torch.equal(after, before)
+    _, fresh, _ = _flagship_small(True, dev)
+    fresh.load_state_dict(model.state_dict())
+    assert torch.equal(_eval_out(fresh, dev), after)
+    _, plain, _ = _flagship_small(False, dev)
+    plain.load_state_dict(model.state_dict())
+    want = _eval_out(plain, dev)
+    assert ((after - want).norm() / want.norm()).item() <= 1e-4

@@ -102,6 +102,53 @@ def test_entry_points_raise_without_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_train_and_generate_entry_points_raise_without_cuda(tmp_path):
+    """``fit``, ``gen_samples`` and ``cli --mode train|generate`` default
+    to CUDA and raise without it; nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from diffusionmodel_tpu_torch.cli import main
+    from diffusionmodel_tpu_torch.sample import gen_samples
+    from diffusionmodel_tpu_torch.trainer import fit
+
+    tiny = preset("full", **{"model.n_feat": 8, "model.img_size": 32})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit(tiny, dataset=object())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_samples(tiny, str(tmp_path / "ckpt.pkl"))
+    for argv in (["--mode", "train"],
+                 ["--mode", "generate", "--ckpt", str(tmp_path / "c.pkl")]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv + ["--data_root", str(tmp_path)])
+
+
+def test_fp32_compute_sets_and_restores_flags():
+    """``fp32_compute`` on a CUDA device turns TF32 off in cuDNN and
+    cuBLAS and cuDNN autotuning on, and restores the caller's flags after
+    the block, also when it raises; on the CPU it changes nothing. (The
+    flags are process settings; a CPU build sets them all the same.)"""
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def flags():
+        return cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark
+
+    saved = flags()
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = \
+            True, True, False
+        with fp32_compute(torch.device("cpu")):
+            assert flags() == (True, True, False)
+        with pytest.raises(KeyError):
+            with fp32_compute(torch.device("cuda")):
+                assert flags() == (False, False, True)
+                raise KeyError
+        assert flags() == (True, True, False)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = saved
+
+
 @pytest.mark.parametrize("override, exc", [
     ({"model.fused_upsample": True}, NotImplementedError),
     ({"model.dtype": "bfloat16"}, NotImplementedError),
@@ -191,11 +238,17 @@ def test_checkpoint_loader_stubs_unknown_classes(tmp_path):
         load_checkpoint(str(tmp_path / "missing"))
 
 
+# train and generate are ported for the ContextUnet presets; their side
+# family presets (ROADMAP A10) are not
+_UNPORTED_ARGS = {"train": ["--preset", "mnist"],
+                  "generate": ["--preset", "labml", "--ckpt", "x.pkl"]}
+
+
 @pytest.mark.parametrize("mode", ["train", "generate", "eval"])
 def test_cli_unported_modes_return_1(mode, capsys):
     from diffusionmodel_tpu_torch.cli import main
 
-    assert main(["--mode", mode]) == 1
+    assert main(["--mode", mode] + _UNPORTED_ARGS.get(mode, [])) == 1
     assert "not ported" in capsys.readouterr().out
 
 
