@@ -14,8 +14,9 @@ flash-attention kernel; and LDM training on that runner (``fit_ldm``,
 ``fit_ae``), whose backward runs the two hand-written flash-attention
 backward kernels; and the flagship's own training and generation
 (``trainer.fit``, ``sample.gen_samples``, ``cli --mode generate``), whose
-eval passes run SE and CoordAttn through the kernels. Phases, each
-printing JSON lines:
+eval passes run SE and CoordAttn through the kernels; and the quality
+metrics on the flagship's generated images (``metrics.ImageMetrics``,
+``cli --mode eval``). Phases, each printing JSON lines:
 
 1. env      the card (nvidia-smi's name and power limit), torch/CUDA
             versions, and the TF32 settings, both switched off: every
@@ -50,7 +51,10 @@ printing JSON lines:
             kernels of one eval CoordAttn module call, its packed weights
             cached (must be the kernel's 3).
 6. serve    the ContextUnet main path, with every launch count zeroed just
-            before it:
+            before it and PyTorch's TF32 defaults restored for the two
+            services (their worker must turn TF32 off itself: a forward
+            pre-hook records the flags every denoiser forward sees, and
+            the phase fails unless both are off):
             ``SamplerService`` with DDIM-50 (mixed classes, two guidance
             scales, a pinned request alone and then batched with others,
             which must give the same images bit for bit, and one HTTP round
@@ -61,7 +65,9 @@ printing JSON lines:
             plain attention path on the same weights (relative L2
             tolerance 1e-4), device time per kernel name.
 8. ldm      the latent-diffusion main path through ``LdmRunner``, with the
-            launch counts zeroed just before it: txt2img DDIM-50 at 512 px
+            launch counts zeroed just before it and PyTorch's TF32 defaults
+            restored (the runner's calls must turn TF32 off themselves; the
+            same hook and check as in serve): txt2img DDIM-50 at 512 px
             (batch 2, scale 7.5), txt2img DPM++-20, DDPM over its last 10
             steps, img2img and inpaint at strength 0.75. Images must be
             finite, [2, 512, 512, 3], and at least 98% of their values in
@@ -107,20 +113,36 @@ printing JSON lines:
             sees the new weights and matches the plain path on them
             (relative L2 1e-4). Seconds per optimizer step, trained
             images/s, peak memory (of the run, cuDNN's algorithm search
-            included, and of the profiled step alone).
+            included, and of the profiled step alone). ``fit`` scores every
+            sampling epoch by default: its ``img_metrics`` must hold SSIM
+            and PSNR (and fid_proxy where 10 eval images are collected;
+            this run collects 5), with the seconds the scoring took.
 13. generate ``gen_samples`` on the final checkpoint: 5 classes x 1
             sample, guide scales 2.0 and 4.0 in one sweep batch, DPM++-20
             (after an untimed one-step call that autotunes its shapes)
             (finite [5, 256, 256, 3] per scale, grids written, 5 / 4
-            launches per forward); the checkpoint's EMA weights in a
-            kernel model and a plain one, eval forwards at batches 4, 20,
-            10, 4 (validation, the sweep's and fit's CFG batches; the
-            kernel model's back to back on one stream), each within
-            relative L2 1e-4 of the plain path; then ``python -m
+            launches per forward, each scale scored against 4 dataset
+            images into quality_metrics.json); the checkpoint's EMA
+            weights in a kernel model and a plain one, eval forwards at
+            batches 4, 20, 10, 4 (validation, the sweep's and fit's CFG
+            batches; the kernel model's back to back on one stream), each
+            within relative L2 1e-4 of the plain path; then ``python -m
             diffusionmodel_tpu_torch.cli --mode generate`` (DPM++-10) in a
             subprocess (its wall time includes the process start, the
             checkpoint load and cuDNN's search); seconds and images/s of
-            both. The checkpoints are deleted afterwards.
+            both.
+14. eval    the sweep's 10 images against the dataset's 25 through
+            ``ImageMetrics()`` on the card (the proxy InceptionV3 at 299
+            px, fp32, TF32 off): fid_proxy, kid_proxy_x1000, SSIM, PSNR,
+            the first call's seconds, images/s at batch 8, the FID's host
+            seconds (two float64 eigh of 2048 x 2048), and the trunk's
+            batch-8 ms under cuDNN's heuristics and autotuned with the
+            search's seconds; the same trunk on the CPU (features of 4
+            images within relative L2 1e-4, ``evaluate_batch`` SSIM and
+            PSNR equal, fid_proxy within 1e-4 relative); then ``python -m
+            diffusionmodel_tpu_torch.cli --mode eval`` in a subprocess on
+            the images written as PNG files (rc 0, n_real 25, n_gen 10,
+            finite scores). The checkpoints are deleted afterwards.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -279,7 +301,45 @@ def phase_env() -> dict:
          count=torch.cuda.device_count(), tf32_default=before,
          tf32_set={"cudnn.allow_tf32": False,
                    "cuda.matmul.allow_tf32": False})
-    return {"nvidia_smi": smi}
+    return {"nvidia_smi": smi, "tf32_default": before}
+
+
+class _EntryPointFlags:
+    """For a stretch that drives an entry point which must set its own
+    precision: ``start`` restores PyTorch's TF32 defaults (as ``phase_env``
+    found them) and puts a forward pre-hook on ``module`` that records the
+    flags (cuDNN TF32, cuBLAS TF32) each of its forwards sees; ``stop``
+    removes the hook and turns TF32 off again for this script's process."""
+
+    def __init__(self, module, defaults: dict):
+        self.module, self.defaults, self.seen = module, defaults, []
+
+    def start(self):
+        torch.backends.cudnn.allow_tf32 = self.defaults["cudnn.allow_tf32"]
+        torch.backends.cuda.matmul.allow_tf32 = \
+            self.defaults["cuda.matmul.allow_tf32"]
+
+        def pre(mod, args):
+            self.seen.append((torch.backends.cudnn.allow_tf32,
+                              torch.backends.cuda.matmul.allow_tf32))
+
+        self._hook = self.module.register_forward_pre_hook(pre)
+        return self
+
+    def stop(self) -> None:
+        self._hook.remove()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def summary(self) -> dict:
+        return {"defaults": self.defaults, "forwards": len(self.seen),
+                "first_forward": self.seen[0] if self.seen else None,
+                "forwards_with_tf32": sum(a or b for a, b in self.seen)}
+
+    def check(self, what: str) -> None:
+        check(bool(self.seen) and self.seen[0] == (False, False)
+              and not any(a or b for a, b in self.seen),
+              f"{what}: the denoiser ran with TF32 on {self.summary()}")
 
 
 def _flash_name(mangled: re.Match) -> str:
@@ -589,7 +649,7 @@ def _http_round_trip(svc):
     return health["stats"]
 
 
-def phase_serve(cfg, model, counters) -> list:
+def phase_serve(cfg, model, counters, env) -> list:
     from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg
     from diffusionmodel_tpu_torch.serving import SamplerService
 
@@ -598,6 +658,9 @@ def phase_serve(cfg, model, counters) -> list:
     for f in counters:
         f.launches = 0
     t_serve = time.perf_counter()
+    # the services under PyTorch's TF32 defaults: their worker must run the
+    # denoiser fp32 on its own
+    flags = _EntryPointFlags(model, env["tf32_default"]).start()
 
     with SamplerService(model, cfg, sched, max_batch=8, sampler="ddim",
                         service_seed=0) as svc:
@@ -634,6 +697,9 @@ def phase_serve(cfg, model, counters) -> list:
     emit("serve", sampler="dpmpp", steps=cfg.sample.dpm_steps, max_batch=8,
          seconds=dpm_s, images_per_s=8 / dpm_s)
     check(_finite(imgs, 8), "DPM++ images finite, [8,256,256,3]")
+    flags.stop()
+    emit("serve", run="precision", **flags.summary())
+    flags.check("serve")
 
     x_init = np.random.default_rng(3).standard_normal(
         (8, 256, 256, 3), np.float32)
@@ -793,7 +859,7 @@ def _check_images(imgs, what) -> dict:
                 share_in_1p5=inside)
 
 
-def phase_ldm(flash) -> int:
+def phase_ldm(flash, env) -> int:
     from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
         LdmRunner,
     )
@@ -801,6 +867,8 @@ def phase_ldm(flash) -> int:
     t0 = time.perf_counter()
     runner = LdmRunner(arch="sd", device="cuda", verbose=False)
     emit("ldm", build_s=time.perf_counter() - t0)
+    # the runner's calls under PyTorch's TF32 defaults: each must run fp32
+    flags = _EntryPointFlags(runner.unet, env["tf32_default"]).start()
     img = np.random.default_rng(11).uniform(
         -1, 1, (2, 512, 512, 3)).astype(np.float32)
     torch.cuda.reset_peak_memory_stats()
@@ -830,6 +898,9 @@ def phase_ldm(flash) -> int:
              **_check_images(out, f"{mode}/{sampler}"))
     torch.cuda.synchronize()
     launches = flash.launches
+    flags.stop()
+    emit("ldm", run="precision", **flags.summary())
+    flags.check("ldm")
     emit("ldm", seconds=time.perf_counter() - t_all, unet_forwards=forwards,
          flash_launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -1248,7 +1319,8 @@ def _rel_l2(got, want) -> float:
 
 def phase_train(counters, out_dir) -> tuple:
     """``trainer.fit`` on ``preset("full")`` at full width; returns the
-    config, the final checkpoint's path and the launches of the run."""
+    config, the final checkpoint's path, the launches of the run and the
+    dataset."""
     import json
     import os
 
@@ -1259,9 +1331,10 @@ def phase_train(counters, out_dir) -> tuple:
     from diffusionmodel_tpu_torch.compat.flax_bridge import (
         state_dict_from_flax,
     )
-    from diffusionmodel_tpu_torch.data import BatchLoader
+    from diffusionmodel_tpu_torch.data import BatchLoader, stratified_split
     from diffusionmodel_tpu_torch.device_check import fp32_compute
     from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.metrics import ImageMetrics
     from diffusionmodel_tpu_torch.nn import build_model
     from diffusionmodel_tpu_torch.train import build_optimizer, make_train_step
     from diffusionmodel_tpu_torch.trainer import fit
@@ -1271,12 +1344,26 @@ def phase_train(counters, out_dir) -> tuple:
     dataset = _synthetic_crack_dataset(
         256, (dc.low_weight, dc.mid_weight, dc.high_weight))
     watch = _ForwardLaunches(counters)
+    metric_s = []  # seconds of each quality scoring inside fit
+    scoring = ImageMetrics.evaluate_batch
+
+    def timed(self, real, gen):
+        t = time.perf_counter()
+        try:
+            return scoring(self, real, gen)
+        finally:
+            metric_s.append(time.perf_counter() - t)
+
     torch.cuda.reset_peak_memory_stats()
     for f in counters:
         f.launches = 0
+    ImageMetrics.evaluate_batch = timed
     t0 = time.perf_counter()
-    state = fit(cfg, dataset=dataset, verbose=False, device="cuda")
-    torch.cuda.synchronize()
+    try:
+        state = fit(cfg, dataset=dataset, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        ImageMetrics.evaluate_batch = scoring
     fit_s = time.perf_counter() - t0
     launches = _counts(counters)
     watch.close()
@@ -1307,6 +1394,19 @@ def phase_train(counters, out_dir) -> tuple:
     check(launches == [SE_PER_FORWARD * seen["eval"]["forwards"],
                        CA_PER_FORWARD * seen["eval"]["forwards"]],
           f"train launches {launches} for {seen}")
+    # quality scored every sampling epoch: SSIM and PSNR of the collected
+    # validation images (fid_proxy from 10 of them; this run collects 5)
+    scored = log["img_metrics"]
+    n_eval = min(tc.eval_sample_count, len(stratified_split(
+        dataset.labels, tc.val_split, tc.split_seed)[1]))
+    want_keys = {"ssim", "psnr", "guide_scale", "epoch", "images_per_min"} \
+        | ({"fid_proxy"} if n_eval >= 10 else set())
+    emit("train", run="img_metrics", eval_images=n_eval,
+         scoring_s=sum(metric_s), scorings=len(metric_s), img_metrics=scored)
+    check(len(scored) == FLAGSHIP_EPOCHS * len(cfg.sample.guide_scales)
+          and all(set(m) == want_keys and all(np.isfinite(m[k]) for k in
+                                              want_keys) for m in scored),
+          f"fit's img_metrics {scored}")
 
     # the best checkpoint (what fit leaves loaded), reloaded into a fresh
     # model: a bit-identical eval output through the kernels
@@ -1365,7 +1465,8 @@ def phase_train(counters, out_dir) -> tuple:
     check(not torch.equal(after, before), "the step did not move the output")
     del plain, step, state
     torch.cuda.empty_cache()
-    return cfg, os.path.join(run, f"ckpt_ep{FLAGSHIP_EPOCHS - 1}"), launches
+    return (cfg, os.path.join(run, f"ckpt_ep{FLAGSHIP_EPOCHS - 1}"),
+            launches, dataset)
 
 
 GENERATE_BATCHES = (4, 20, 10, 4)  # validation, sweep CFG, in-loop CFG
@@ -1418,12 +1519,13 @@ def _generation_batches_match(cfg, ckpt) -> dict:
     return {"batches": list(GENERATE_BATCHES), "kernel_vs_plain_rel_l2": rel}
 
 
-def phase_generate(counters, cfg, ckpt, out_dir) -> list:
+def phase_generate(counters, cfg, ckpt, out_dir, dataset) -> tuple:
     """``gen_samples`` on the trained checkpoint (5 classes x 1 sample,
-    guide scales 2.0 and 4.0 in one sweep batch, DPM++-20), then the CLI's
-    ``--mode generate`` in a subprocess (DPM++-10)."""
+    guide scales 2.0 and 4.0 in one sweep batch, DPM++-20, scored against
+    4 of the dataset's images), then the CLI's ``--mode generate`` in a
+    subprocess (DPM++-10). Returns the launches and the sweep's 10
+    images."""
     import os
-    import shutil
     import sys as _sys
 
     from diffusionmodel_tpu_torch.sample import gen_samples
@@ -1440,8 +1542,8 @@ def phase_generate(counters, cfg, ckpt, out_dir) -> list:
         f.launches = 0
     t0 = time.perf_counter()
     res = gen_samples(cfg, ckpt, n_samples_per_class=1,
-                      guide_scales=[2.0, 4.0], eval_quality=False,
-                      verbose=False, device="cuda")
+                      guide_scales=[2.0, 4.0], eval_quality=True,
+                      dataset=dataset, verbose=False, device="cuda")
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = _counts(counters)
@@ -1454,12 +1556,18 @@ def phase_generate(counters, cfg, ckpt, out_dir) -> list:
          call_seconds=gen_s, se_launches=launches[0],
          ca_launches=launches[1], forwards=seen,
          files=sorted(os.listdir(res["out_dir"])))
+    quality_file = os.path.join(res["out_dir"], "quality_metrics.json")
+    emit("generate", run="quality", quality=res["quality"])
     for w in (2.0, 4.0):
         imgs = res[w]["images"]
         check(imgs.shape == (FLAGSHIP_CLASSES, 256, 256, 3)
               and bool(np.isfinite(imgs).all())
               and os.path.exists(res[w]["grid_path"]),
               f"generate images at scale {w}")
+        check(set(res["quality"].get(w, {})) == {"ssim", "psnr"}
+              and all(np.isfinite(v) for v in res["quality"][w].values())
+              and os.path.exists(quality_file),
+              f"generate quality at scale {w}: {res['quality']}")
     check(seen["eval"]["forwards"] == 20
           and seen["eval"]["launches_per_forward"] == [(SE_PER_FORWARD,
                                                         CA_PER_FORWARD)]
@@ -1487,8 +1595,129 @@ def phase_generate(counters, cfg, ckpt, out_dir) -> list:
          stderr_tail=proc.stderr[-2000:])
     check(proc.returncode == 0 and len(made) == n_img + 2,
           f"cli --mode generate: rc {proc.returncode}, files {made}")
-    shutil.rmtree(out_dir, ignore_errors=True)  # multi-GB checkpoints
-    return launches
+    return launches, np.concatenate([res[2.0]["images"], res[4.0]["images"]])
+
+
+def _rel_l2_np(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def phase_eval(gen, dataset, out_dir) -> dict:
+    """The sweep's 10 generated images scored against the dataset's 25 by
+    ``ImageMetrics()`` on the card (the proxy InceptionV3 trunk at 299 px,
+    fp32 with TF32 off, cuDNN's heuristics), the same trunk on the CPU,
+    then ``cli --mode eval`` on the images written as PNG files."""
+    import json
+    import os
+
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.metrics import ImageMetrics
+    from diffusionmodel_tpu_torch.metrics.image_metrics import (
+        calc_psnr,
+        calc_ssim,
+        frechet_distance,
+        kid_from_feats,
+        resize_to_299,
+    )
+    from diffusionmodel_tpu_torch.utils.grid import save_image
+
+    t_phase = time.perf_counter()
+    real = np.stack([dataset.load(i)[0] for i in range(len(dataset))])
+    im = ImageMetrics()
+    t0 = time.perf_counter()
+    rf = im.extract_features(real)  # builds the trunk; first cuDNN calls
+    first_s = time.perf_counter() - t0
+    gf = im.extract_features(gen)
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        im.extract_features(real[:24])  # three batches of 8
+    images_per_s = reps * 24 / (time.perf_counter() - t0)
+    rf, gf = rf.astype(np.float64), gf.astype(np.float64)
+    t0 = time.perf_counter()
+    fid = frechet_distance(rf.mean(0), np.cov(rf, rowvar=False),
+                           gf.mean(0), np.cov(gf, rowvar=False))
+    fid_host_s = time.perf_counter() - t0
+    kid, kid_std = kid_from_feats(rf, gf)
+    pairs = list(zip(real, gen))
+    scores = {"fid_proxy": fid, "kid_proxy_x1000": kid * 1000,
+              "kid_proxy_x1000_std": kid_std * 1000,
+              "ssim": float(np.mean([calc_ssim(r, g) for r, g in pairs])),
+              "psnr": float(np.mean([calc_psnr(r, g) for r, g in pairs]))}
+    # cuDNN's search for the trunk's shapes at batch 8: its one-off cost
+    # against what it saves per batch. cuDNN keeps the plan it took for a
+    # shape per thread, searched or not, so the autotuned pass runs in a
+    # thread of its own.
+    x8 = resize_to_299(torch.from_numpy((real[:8] + 1) / 2).cuda())
+    with torch.no_grad(), fp32_compute(torch.device("cuda"),
+                                       autotune=False):
+        heuristic_ms = cuda_ms(lambda: im.inception(x8), 5)
+    tuned = {}
+
+    def autotuned():
+        with torch.no_grad(), fp32_compute(torch.device("cuda")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            im.inception(x8)
+            torch.cuda.synchronize()
+            tuned["search_s"] = time.perf_counter() - t
+            tuned["ms"] = cuda_ms(lambda: im.inception(x8), 5)
+
+    worker = threading.Thread(target=autotuned)
+    worker.start()
+    worker.join()
+    search_s, tuned_ms = tuned["search_s"], tuned["ms"]
+    del x8
+    emit("eval", real=len(real), generated=len(gen), **scores,
+         features_first_call_s=first_s, images_per_s_batch8=images_per_s,
+         fid_host_s=fid_host_s, trunk_batch8_ms_heuristics=heuristic_ms,
+         trunk_batch8_ms_autotuned=tuned_ms, autotune_search_s=search_s)
+    check(rf.shape == (25, 2048) and gf.shape == (10, 2048)
+          and all(np.isfinite(v) for v in scores.values()),
+          f"eval scores {scores}")
+
+    # the same extractor on the CPU (the proxy's weights are drawn on the
+    # host): features of the same 4 images, then the dispatcher on both
+    cpu = ImageMetrics(device="cpu")
+    rel = _rel_l2_np(rf[:4], cpu.extract_features(real[:4]))
+    on_card = im.evaluate_batch(real[:10], gen)
+    on_cpu = cpu.evaluate_batch(real[:10], gen)
+    fid_rel = abs(on_card["fid_proxy"] - on_cpu["fid_proxy"]) \
+        / abs(on_cpu["fid_proxy"])
+    emit("eval", run="card_vs_cpu", features_rel_l2=rel, card=on_card,
+         cpu=on_cpu, fid_rel_diff=fid_rel)
+    check(rel <= FORWARD_RTOL, f"card vs CPU features: relative L2 {rel}")
+    check(on_card["ssim"] == on_cpu["ssim"]
+          and on_card["psnr"] == on_cpu["psnr"] and fid_rel <= FORWARD_RTOL,
+          f"evaluate_batch card vs CPU {on_card} {on_cpu}")
+
+    # the CLI on PNG files: real images in class folders, generated flat
+    real_dir, gen_dir = f"{out_dir}/eval_real", f"{out_dir}/eval_gen"
+    for i, img in enumerate(real):
+        d = os.path.join(real_dir, dataset.classes[dataset.samples[i][2]])
+        os.makedirs(d, exist_ok=True)
+        save_image(img, os.path.join(d, f"{i}.png"), denorm=True)
+    os.makedirs(gen_dir, exist_ok=True)
+    for i, img in enumerate(gen):
+        save_image(img, os.path.join(gen_dir, f"{i}.png"), denorm=True)
+    out_json = f"{out_dir}/eval_metrics.json"
+    cmd = [sys.executable, "-m", "diffusionmodel_tpu_torch.cli", "--mode",
+           "eval", "--device", "cuda", "--real_dir", real_dir, "--gen_dir",
+           gen_dir, "--eval_out", out_json]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    doc = json.load(open(out_json)) if proc.returncode == 0 else {}
+    emit("eval", run="cli", returncode=proc.returncode, seconds=cli_s,
+         result=doc, stderr_tail=proc.stderr[-2000:])
+    keys = ("fid_proxy", "kid_proxy_x1000", "ssim", "psnr")
+    check(proc.returncode == 0 and doc.get("n_real") == 25
+          and doc.get("n_gen") == 10
+          and all(np.isfinite(doc.get(k, np.nan)) for k in keys),
+          f"cli --mode eval: rc {proc.returncode}, {doc}")
+    emit("eval", seconds=time.perf_counter() - t_phase)
+    return scores
 
 
 def main() -> int:
@@ -1504,27 +1733,31 @@ def main() -> int:
     from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     counters = [se_block, coord_attn]
-    phase_env()
+    env = phase_env()
     phase_build()
     rows = phase_kernels()
     flash_rows = phase_flash()
     cfg, model = phase_forward(counters)
-    launches = phase_serve(cfg, model, counters)
+    launches = phase_serve(cfg, model, counters, env)
     del model
     torch.cuda.empty_cache()
     phase_ldm_forward(flash_attention)
-    flash_launches = phase_ldm(flash_attention)
+    flash_launches = phase_ldm(flash_attention, env)
     flash_counters = [flash_attention, flash_attention_dq, flash_attention_dkv]
     bwd_rows = phase_flash_bwd()
     phase_ldm_grad(flash_counters)
     train_launches = phase_train_ldm(flash_counters)
     import os
+    import shutil
 
     flagship_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "output", "chip_smoke_flagship")
-    flag_cfg, flag_ckpt, fit_launches = phase_train(counters, flagship_dir)
-    gen_launches = phase_generate(counters, flag_cfg, flag_ckpt,
-                                  flagship_dir)
+    flag_cfg, flag_ckpt, fit_launches, dataset = phase_train(counters,
+                                                             flagship_dir)
+    gen_launches, gen_images = phase_generate(counters, flag_cfg, flag_ckpt,
+                                              flagship_dir, dataset)
+    phase_eval(gen_images, dataset, flagship_dir)
+    shutil.rmtree(flagship_dir, ignore_errors=True)  # multi-GB checkpoints
 
     def entry(name, key, launched, replaces):
         sites = rows[key]

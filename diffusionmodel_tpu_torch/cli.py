@@ -14,15 +14,23 @@
     python -m diffusionmodel_tpu_torch.cli --mode train_ldm --data_root DIR \
         [--img_size 256] [--epochs 10] [--batch_size 4] [--remat] \
         [--train_ae_epochs 0] [--ldm_native OUT.pkl]
+    python -m diffusionmodel_tpu_torch.cli --mode eval --real_dir DIR \
+        --gen_dir DIR [--eval_out FILE] [--img_size 256] \
+        [--inception_weights FILE]
+    python -m diffusionmodel_tpu_torch.cli --mode visualize --data_root DIR \
+        [--viz_out FILE] [--samples 5]
+    python -m diffusionmodel_tpu_torch.cli --mode crop --img_dir DIR \
+        --anno_dir DIR [--anno_format voc|datasetninja] [--crop_out DIR] \
+        [--crop_size 512]
 
-``--mode train`` / ``generate`` (the ContextUnet presets ``full``, ``old``
-and ``generation``), ``--mode serve``, the latent-diffusion modes txt2img /
-img2img / inpaint and their training, ``train_ldm``, are ported; the other
-modes of the JAX CLI, the ``mnist`` / ``custom`` / ``labml`` presets of
-train and generate (ROADMAP A10), ``--inception_weights`` (A8) and
+Every mode of the JAX CLI is ported for the ContextUnet presets ``full``,
+``old`` and ``generation`` and the latent-diffusion stack; the ``mnist`` /
+``custom`` / ``labml`` presets of train and generate (ROADMAP A10) and
 ``--family main`` editing (A11) print that they are not ported yet and
-return 1. Flags keep the JAX CLI's spellings and defaults; ``--device``
-(default cuda) is the port's own.
+return 1. ``--inception_weights`` (a torchvision inception_v3 state dict,
+``.npz`` or ``.pt``) scores true FID in train, generate and eval;
+without it the score is ``fid_proxy``. Flags keep the JAX CLI's
+spellings and defaults; ``--device`` (default cuda) is the port's own.
 """
 
 from __future__ import annotations
@@ -40,10 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA port of the enhanced diffusion model")
     p.add_argument("--mode", type=str, default="train", choices=_MODES,
-                   help="train, generate, serve (HTTP generation service), "
-                        "the latent-diffusion pipelines txt2img / img2img / "
-                        "inpaint and train_ldm are ported; the other modes "
-                        "are not yet")
+                   help="train, generate, crop (offline dataset build), "
+                        "serve (HTTP generation service), eval (offline "
+                        "folder-vs-folder quality metrics), visualize "
+                        "(dataset/mask inspection sheet), or the "
+                        "latent-diffusion modes txt2img / img2img / "
+                        "inpaint / train_ldm")
     p.add_argument("--ckpt", "--checkpoint", dest="ckpt", type=str,
                    default=None, help="generate / serve: a checkpoint of "
                    "either package (.pkl or a directory with payload.pkl); "
@@ -56,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_eval", action="store_true",
                    help="Skip image quality evaluation")
     p.add_argument("--inception_weights", type=str, default=None,
-                   help="not ported yet (ROADMAP A8, quality metrics)")
+                   help="torchvision inception_v3 state dict (.pt/.pth/.npz) "
+                        "for real Inception FID; without it the in-loop "
+                        "metric is reported as fid_proxy")
     p.add_argument("--save_dir", type=str, default=None,
                    help="train: where checkpoints, metrics and sample "
                         "grids go (default train.save_dir)")
@@ -75,6 +87,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--override", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="Nested config override, e.g. -o model.use_pallas=true")
+    # crop mode
+    p.add_argument("--img_dir", type=str, default=None)
+    p.add_argument("--anno_dir", type=str, default=None)
+    p.add_argument("--anno_format", type=str, default="voc",
+                   choices=["voc", "datasetninja"])
+    p.add_argument("--crop_out", type=str, default="./data/cropped_images1")
+    p.add_argument("--crop_size", type=int, default=512)
+    # eval mode (offline folder-vs-folder quality metrics)
+    p.add_argument("--real_dir", type=str, default=None,
+                   help="eval mode: directory of real images (flat or "
+                        "one subdirectory per class)")
+    p.add_argument("--gen_dir", type=str, default=None,
+                   help="eval mode: directory of generated images")
+    p.add_argument("--eval_out", type=str,
+                   default="./output/eval_metrics.json",
+                   help="eval mode: metrics JSON path")
+    # visualize mode
+    p.add_argument("--viz_out", type=str, default="dataset_visualization.png",
+                   help="visualize mode: output sheet path")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_batch", type=int, default=8,
                    help="serve mode: fixed sampler batch (slot) size")
@@ -120,7 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default="./output/ldm/")
     # train_ldm
     p.add_argument("--img_size", type=int, default=256,
-                   help="train_ldm: image size (a multiple of 8)")
+                   help="eval: common image size for SSIM/PSNR; train_ldm: "
+                        "image size (a multiple of 8)")
     p.add_argument("--epochs", type=int, default=None,
                    help="train: epochs (unset: the preset's "
                         "train.n_epoch); train_ldm: epochs (unset or 0: 10, "
@@ -197,21 +229,33 @@ def _config(args):
     return cfg
 
 
+def _metrics(args):
+    """``ImageMetrics`` with ``--inception_weights`` (None without the
+    flag: the entry points build the proxy one on their device)."""
+    if not args.inception_weights:
+        return None
+    if not os.path.isfile(args.inception_weights):
+        raise FileNotFoundError(
+            f"--inception_weights: no such file: {args.inception_weights}")
+    from diffusionmodel_tpu_torch.metrics import ImageMetrics
+
+    return ImageMetrics(inception_weights=args.inception_weights,
+                        device=args.device)
+
+
 def _train_or_generate(args) -> int:
     """--mode train | generate: the ContextUnet family."""
     if args.preset in ("mnist", "custom", "labml"):
         print(f"--mode {args.mode} --preset {args.preset} is not ported to "
               "the PyTorch package yet (ROADMAP A10, side families)")
         return 1
-    if args.inception_weights:
-        print("--inception_weights is not ported to the PyTorch package "
-              "yet (ROADMAP A8, quality metrics)")
-        return 1
     cfg = _config(args)
+    metrics_impl = _metrics(args)
     if args.mode == "train":
         from diffusionmodel_tpu_torch.trainer import fit
 
-        fit(cfg, resume=args.resume, device=args.device)
+        fit(cfg, metrics_impl=metrics_impl, resume=args.resume,
+            device=args.device)
         return 0
     if args.ckpt is None:
         print("Error: Checkpoint path required for generation mode")
@@ -220,9 +264,77 @@ def _train_or_generate(args) -> int:
 
     gen_samples(cfg, args.ckpt, n_samples_per_class=args.samples,
                 guide_scales=args.guide_scales,
-                eval_quality=not args.no_eval,
+                eval_quality=not args.no_eval, metrics_impl=metrics_impl,
                 seed=args.seed if args.seed is not None else 0,
                 device=args.device)
+    return 0
+
+
+def _eval(args) -> int:
+    """--mode eval: folder-vs-folder quality metrics to a JSON file."""
+    import json
+
+    from diffusionmodel_tpu_torch.metrics.folder_eval import evaluate_folders
+
+    if not args.real_dir or not args.gen_dir:
+        print("Error: --real_dir and --gen_dir required for eval mode")
+        return 1
+    out = evaluate_folders(args.real_dir, args.gen_dir, metrics=_metrics(args),
+                           img_size=args.img_size, device=args.device)
+    os.makedirs(os.path.dirname(args.eval_out) or ".", exist_ok=True)
+    with open(args.eval_out, "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps(out))
+    print(f"Wrote {args.eval_out}")
+    return 0
+
+
+def _visualize(args) -> int:
+    """--mode visualize: the dataset / mask inspection sheet
+    (test_DroneDataset.py:8-94), written as a PNG (headless)."""
+    from diffusionmodel_tpu_torch.data import CrackDataset
+    from diffusionmodel_tpu_torch.data.visualize import (
+        visualize_dataset_samples,
+    )
+
+    cfg = _config(args)
+    dc = cfg.diffusion
+    try:
+        ds = CrackDataset(
+            cfg.data_root, img_size=cfg.model.img_size,
+            mask_values=(dc.low_weight, dc.mid_weight, dc.high_weight))
+    except (FileNotFoundError, NotADirectoryError, OSError) as e:
+        print(f"Error: no dataset at {cfg.data_root}: {e}")
+        return 1
+    if len(ds.samples) == 0:
+        print(f"Error: no annotated samples found under {cfg.data_root}")
+        return 1
+    out = visualize_dataset_samples(
+        ds, n_samples=args.samples or 5, out_path=args.viz_out,
+        seed=cfg.train.seed)
+    print(f"Wrote {out} ({min(args.samples or 5, len(ds.samples))} "
+          "samples x 3 panels)")
+    return 0
+
+
+def _crop(args) -> int:
+    """--mode crop: annotated images -> per-class crops + VOC XMLs."""
+    from diffusionmodel_tpu_torch.data.crop_tool import (
+        DatasetCropper,
+        parse_datasetninja_dir,
+        parse_voc_dir,
+    )
+
+    if not args.img_dir or not args.anno_dir:
+        print("Error: --img_dir and --anno_dir required for crop mode")
+        return 1
+    parse = (parse_voc_dir if args.anno_format == "voc"
+             else parse_datasetninja_dir)
+    samples = parse(args.img_dir, args.anno_dir)
+    cropper = DatasetCropper(samples, args.crop_out, args.crop_size)
+    n = cropper.process_all(verbose=True)
+    print(f"Cropped {n} objects into {args.crop_out}; "
+          f"classes: {cropper.class_map}")
     return 0
 
 
@@ -321,6 +433,9 @@ def _train_ldm(args) -> int:
     return 0
 
 
+_OTHER_MODES = {"eval": _eval, "visualize": _visualize, "crop": _crop}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mode in ("txt2img", "img2img", "inpaint") \
@@ -330,11 +445,12 @@ def main(argv=None) -> int:
         return _train_ldm(args)
     if args.mode in ("train", "generate"):
         return _train_or_generate(args)
+    if args.mode in _OTHER_MODES:
+        return _OTHER_MODES[args.mode](args)
     if args.mode != "serve":
-        what = f"--mode {args.mode}" + (" --family main" if args.mode in (
-            "img2img", "inpaint") else "")
-        print(f"{what} is not ported to the PyTorch package yet; "
-              "use python -m diffusionmodel_tpu.cli (see ROADMAP.md)")
+        print(f"--mode {args.mode} --family main is not ported to the "
+              "PyTorch package yet (ROADMAP A11); use python -m "
+              "diffusionmodel_tpu.cli")
         return 1
     if args.ckpt is None:
         print("Error: Checkpoint path required for serve mode")

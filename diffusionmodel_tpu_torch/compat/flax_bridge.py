@@ -456,3 +456,33 @@ def autoencoder_flax_from_state_dict(sd: Dict[str, torch.Tensor],
     parameter tree (numpy leaves), the inverse of
     :func:`autoencoder_state_dict_from_flax`."""
     return _to_rules(sd, autoencoder_rules(ch_mults, n_resnet))
+
+
+def inception_state_dict_from_flax(params: Dict[str, Any],
+                                   batch_stats: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """A JAX ``InceptionV3Features`` tree (``params``, ``batch_stats``) ->
+    the port's ``metrics.inception.InceptionV3Features`` state_dict
+    (torchvision's names): the inverse of the JAX package's
+    ``convert_torchvision_inception``. Every ``BasicConv2d`` is a
+    ``.../conv`` kernel and a ``.../bn`` scale, bias, mean and var."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node, stats, path):
+        if "conv" in node and "bn" in node:
+            key = ".".join(path)
+            bn, st = node["bn"], stats["bn"]
+            for name, v in (("conv.weight", _conv(node["conv"]["kernel"])),
+                            ("bn.weight", bn["scale"]),
+                            ("bn.bias", bn["bias"]),
+                            ("bn.running_mean", st["mean"]),
+                            ("bn.running_var", st["var"])):
+                sd[f"{key}.{name}"] = torch.from_numpy(
+                    np.array(v, np.float32, order="C"))
+            sd[f"{key}.bn.num_batches_tracked"] = torch.tensor(0)
+            return
+        for k in node:
+            walk(node[k], stats[k], path + (k,))
+
+    walk(params, batch_stats, ())
+    return sd

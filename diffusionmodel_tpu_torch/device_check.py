@@ -28,26 +28,30 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 @contextlib.contextmanager
-def fp32_compute(device: torch.device):
-    """The flagship's fp32 settings inside the block on a CUDA device,
+def fp32_compute(device: torch.device, autotune: bool = True):
+    """The port's fp32 settings inside the block on a CUDA device,
     restored after it: TF32 off in cuDNN and cuBLAS (PyTorch's default
-    leaves it on for cuDNN convolutions), and cuDNN autotuning on. With
-    the default heuristics, cuDNN takes an FFT algorithm for some of the
-    flagship's fp32 shapes (the 192-channel 3x3 convolutions at 128 px,
-    batch 4 or 20) that is ~60x slower than the one it takes at batch 16;
-    the search costs about two minutes of the first train step (NVIDIA
-    H100; tools/flagship_train_probe.py).
+    leaves it on for cuDNN convolutions), and cuDNN autotuning on unless
+    ``autotune`` is false. With the default heuristics, cuDNN takes an FFT
+    algorithm for some of the flagship's fp32 shapes (the 192-channel 3x3
+    convolutions at 128 px, batch 4 or 20) that is ~60x slower than the
+    one it takes at batch 16; the search costs about two minutes of the
+    first train step (NVIDIA H100; tools/flagship_train_probe.py).
 
-    ``trainer.fit`` and ``sample.gen_samples`` (and so ``--mode train`` and
-    ``--mode generate``) run under it. The serving and latent-diffusion
-    entry points do not set these flags: they run under the process's
-    settings (``chip_smoke.py`` turns TF32 off for its whole process)."""
+    ``trainer.fit`` and ``sample.gen_samples`` (``--mode train|generate``)
+    run under it for the call, ``SamplerService``'s worker thread for the
+    service's lifetime; ``LdmRunner``'s txt2img / img2img / inpaint and
+    ``ImageMetrics``' feature extraction run under it without autotuning
+    (the search costs more than it saves there). The flags are process
+    settings: another thread's CUDA work in the block runs under them
+    too."""
     if device.type != "cuda":
         yield
         return
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     before = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark)
-    cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = False, False, True
+    cudnn.allow_tf32, matmul.allow_tf32 = False, False
+    cudnn.benchmark = autotune
     try:
         yield
     finally:

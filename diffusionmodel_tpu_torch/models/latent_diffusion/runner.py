@@ -29,7 +29,7 @@ from diffusionmodel_tpu_torch.compat.flax_bridge import (
     autoencoder_state_dict_from_flax,
     ldm_unet_state_dict_from_flax,
 )
-from diffusionmodel_tpu_torch.device_check import resolve_device
+from diffusionmodel_tpu_torch.device_check import fp32_compute, resolve_device
 from diffusionmodel_tpu_torch.models.latent_diffusion.autoencoder import (
     Autoencoder,
 )
@@ -73,7 +73,11 @@ def _hash_embedding(prompts, d_cond: int, max_length: int = 77) -> np.ndarray:
 class LdmRunner:
     """The LDM stack on one device (default CUDA; raises without it unless
     ``device="cpu"``). ``sampler_name`` and ``steps`` may be changed
-    between calls."""
+    between calls. txt2img / img2img / inpaint run fp32 with TF32 off
+    (``device_check.fp32_compute``) for the call, with cuDNN's heuristics:
+    autotuning saves 0.6 s of a 6.6 s txt2img DDIM-50 at 512 px but its
+    search costs the first call 23 s, and each CLI call is a process of
+    its own (NVIDIA H100; tools/fp32_autotune_probe.py)."""
 
     def __init__(self, sd_ckpt: Optional[str] = None, arch: str = "sd",
                  use_flash: bool = True, sampler: str = "ddim",
@@ -150,11 +154,13 @@ class LdmRunner:
         (DDIM, DDPM) runs only the last steps of the schedule."""
         pipe = Txt2Img(self.model, sampler=self.sampler_name,
                        n_steps=self.steps, ddim_eta=self.ddim_eta)
-        return self._out(pipe(
-            self.cond([prompt] * batch_size), batch_size=batch_size, h=h,
-            w=w, uncond_scale=uncond_scale,
-            uncond=self.cond([""] * batch_size),
-            generator=self._generator(generator), skip_steps=skip_steps))
+        with fp32_compute(self.device, autotune=False):
+            return self._out(pipe(
+                self.cond([prompt] * batch_size), batch_size=batch_size,
+                h=h, w=w, uncond_scale=uncond_scale,
+                uncond=self.cond([""] * batch_size),
+                generator=self._generator(generator),
+                skip_steps=skip_steps))
 
     def img2img(self, orig_img: np.ndarray, prompt: str,
                 strength: float = 0.75, uncond_scale: float = 5.0,
@@ -162,10 +168,11 @@ class LdmRunner:
         """[B,H,W,3] image in [-1, 1] + prompt -> repainted images."""
         batch = int(orig_img.shape[0])
         pipe = Img2Img(self.model, n_steps=self.steps, ddim_eta=self.ddim_eta)
-        return self._out(pipe(
-            orig_img, self.cond([prompt] * batch), strength=strength,
-            uncond_scale=uncond_scale, uncond=self.cond([""] * batch),
-            generator=self._generator(generator)))
+        with fp32_compute(self.device, autotune=False):
+            return self._out(pipe(
+                orig_img, self.cond([prompt] * batch), strength=strength,
+                uncond_scale=uncond_scale, uncond=self.cond([""] * batch),
+                generator=self._generator(generator)))
 
     def inpaint(self, orig_img: np.ndarray, prompt: str,
                 mask: Optional[np.ndarray] = None, strength: float = 0.75,
@@ -175,8 +182,9 @@ class LdmRunner:
         (1 = keep the original), by default the bottom half."""
         batch = int(orig_img.shape[0])
         pipe = InPaint(self.model, n_steps=self.steps, ddim_eta=self.ddim_eta)
-        return self._out(pipe(
-            orig_img, self.cond([prompt] * batch), mask=mask,
-            strength=strength, uncond_scale=uncond_scale,
-            uncond=self.cond([""] * batch),
-            generator=self._generator(generator)))
+        with fp32_compute(self.device, autotune=False):
+            return self._out(pipe(
+                orig_img, self.cond([prompt] * batch), mask=mask,
+                strength=strength, uncond_scale=uncond_scale,
+                uncond=self.cond([""] * batch),
+                generator=self._generator(generator)))

@@ -4,9 +4,9 @@ counterpart of ``diffusionmodel_tpu/sample.py``.
 Loads a checkpoint of either package (the EMA shadow when it has one),
 runs the configured sampler per guidance scale, saves the grid
 (``samples_g{w}.png``) and per-class files (``{class}_s{i}_g{w}.png``),
-optionally scores the samples against real images with an injected
-``metrics_impl`` (the port's own FID / SSIM / PSNR are ROADMAP A8), and
-dumps ``quality_metrics.json``.
+optionally scores the samples against real images drawn from the dataset
+(``metrics.ImageMetrics`` on the run's device unless ``metrics_impl`` is
+given), and dumps ``quality_metrics.json``.
 
 Noise comes from a ``torch.Generator`` seeded with ``seed`` (Philox), so
 images differ from the JAX package's (threefry) for the same seed; pass
@@ -31,8 +31,9 @@ from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.data import CrackDataset
 from diffusionmodel_tpu_torch.device_check import fp32_compute, resolve_device
 from diffusionmodel_tpu_torch.diffusion import Schedule
+from diffusionmodel_tpu_torch.metrics import ImageMetrics
 from diffusionmodel_tpu_torch.nn import build_model
-from diffusionmodel_tpu_torch.trainer import A8_NOTE, _sanitize, make_sampler
+from diffusionmodel_tpu_torch.trainer import _sanitize, make_sampler
 from diffusionmodel_tpu_torch.utils.grid import save_image, save_samples
 
 
@@ -106,9 +107,9 @@ def gen_samples(cfg: Config, ckpt_path: str,
         print(f"Samples will be saved to: {out_dir}")
 
     real_images = None
-    if do_eval and metrics_impl is None:
-        print(A8_NOTE)
-    elif do_eval and dataset is not None and len(dataset) > 0:
+    img_metrics = (metrics_impl if metrics_impl is not None
+                   else ImageMetrics(device=dev))
+    if do_eval and dataset is not None and len(dataset) > 0:
         needed = n_per * min(n_classes, 4)
         rng = np.random.RandomState(seed)
         order = rng.permutation(len(dataset))[:needed]
@@ -157,8 +158,8 @@ def gen_samples(cfg: Config, ckpt_path: str,
             }
             if real_images is not None:
                 try:
-                    m = metrics_impl.evaluate_batch(real_images,
-                                                    x_gen[: len(real_images)])
+                    m = img_metrics.evaluate_batch(real_images,
+                                                   x_gen[: len(real_images)])
                     quality[w] = m
                     if verbose:
                         print("  " + ", ".join(f"{k}={v:.4f}"

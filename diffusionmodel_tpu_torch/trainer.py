@@ -15,9 +15,10 @@ layout), so the JAX package's ``load_checkpoint`` reads them and
 ``--resume`` reads either package's. They are written by a background
 thread (``_CkptWriter``) from host copies taken on the training thread.
 
-Quality metrics (FID / SSIM / PSNR) are ROADMAP A8: without an injected
-``metrics_impl`` the loop saves the sample grids and logs the timing
-entries only. Mesh axes and ZeRO-1 are ROADMAP A12; the textbook family
+Each sampling epoch scores the samples against the collected real images
+(``metrics.ImageMetrics`` on the run's device unless ``metrics_impl`` is
+given: fid or fid_proxy from 10 images per side, SSIM and PSNR when the
+counts match). Mesh axes and ZeRO-1 are ROADMAP A12; the textbook family
 is A10.
 """
 
@@ -53,6 +54,7 @@ from diffusionmodel_tpu_torch.diffusion import (
     sample_cfg_dpmpp,
 )
 from diffusionmodel_tpu_torch.lr_schedules import build_schedule
+from diffusionmodel_tpu_torch.metrics import ImageMetrics
 from diffusionmodel_tpu_torch.nn import build_model
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
@@ -65,9 +67,6 @@ from diffusionmodel_tpu_torch.train import (
     opt_state_to_host,
 )
 from diffusionmodel_tpu_torch.utils.grid import save_samples
-
-A8_NOTE = ("FID, SSIM and PSNR are not ported yet (ROADMAP A8): sample "
-           "grids are saved and timed, quality is not scored")
 
 
 def _sanitize(obj):
@@ -310,9 +309,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     if eval_samples:
         classes = torch.tensor([c for _, c in eval_samples], device=dev)
         sampler = make_sampler(cfg, sched, len(eval_samples), classes=classes)
-    if metrics_impl is None and sampler is not None and tc.eval_every > 0 \
-            and verbose:
-        print(A8_NOTE)
+    img_metrics = (metrics_impl if metrics_impl is not None
+                   else ImageMetrics(device=dev))
 
     early_stop = EarlyStop(tc.patience, tc.min_delta, verbose=verbose,
                            snapshot_min_epochs=tc.best_snapshot_min_epochs)
@@ -449,8 +447,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                             tc.save_dir, f"img_ep{ep}_w{w}.png"), nrow=4,
                             denorm=cfg.sample.denorm)
                         try:
-                            qm = (metrics_impl.evaluate_batch(real, gen)
-                                  if metrics_impl is not None else {})
+                            qm = img_metrics.evaluate_batch(real, gen)
                             qm.update(guide_scale=w, epoch=ep,
                                       images_per_min=imgs_per_min)
                             metrics_log["img_metrics"].append(qm)

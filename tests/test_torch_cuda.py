@@ -539,3 +539,74 @@ def test_coord_attn_cache_follows_a_train_step_on_the_card(dev):
     plain.load_state_dict(model.state_dict())
     want = _eval_out(plain, dev)
     assert ((after - want).norm() / want.norm()).item() <= 1e-4
+
+
+# ------------------------------------------------ metrics and fp32 paths
+def test_inception_features_on_the_card_match_the_cpu(dev):
+    """The proxy extractor's features of the same four 256 px images on
+    the card (fp32, TF32 off, cuDNN) and on the CPU: relative L2 of the
+    2048-d features <= 1e-4."""
+    from diffusionmodel_tpu_torch.metrics import ImageMetrics
+
+    imgs = torch.rand((4, 256, 256, 3), generator=torch.Generator()
+                      .manual_seed(0)).numpy() * 2 - 1
+    # the proxy's weights are drawn on the host: the same on both
+    got = ImageMetrics(device=dev).extract_features(imgs)
+    want = ImageMetrics(device="cpu").extract_features(imgs)
+    assert got.shape == want.shape == (4, 2048)
+    rel = float(((got - want) ** 2).sum() ** 0.5 / (want ** 2).sum() ** 0.5)
+    assert rel <= 1e-4, rel
+
+
+def _flags_seen(module):
+    """A forward pre-hook recording the TF32 flags each forward sees."""
+    seen = []
+
+    def pre(mod, args):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+
+    return seen, module.register_forward_pre_hook(pre)
+
+
+def test_serving_and_ldm_entry_points_run_fp32(dev):
+    """Under PyTorch's TF32 defaults, ``SamplerService``'s worker and
+    ``LdmRunner``'s txt2img / img2img / inpaint run their denoisers with
+    TF32 off in cuDNN and cuBLAS; the caller's flags are back after."""
+    import numpy as np
+
+    from diffusionmodel_tpu_torch.config import preset
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
+        LdmRunner,
+    )
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.serving import SamplerService
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32, matmul.allow_tf32 = True, True
+    try:
+        cfg = preset("full", **{"model.n_feat": 16, "model.img_size": 32,
+                                "sample.ddim_steps": 2})
+        dc = cfg.diffusion
+        model = build_model(cfg.model, dc.high_thresh, device=dev)
+        seen, hook = _flags_seen(model)
+        with SamplerService(model, cfg, Schedule.create(
+                dc.beta1, dc.beta2, dc.n_T, dev), max_batch=2,
+                sampler="ddim") as svc:
+            svc.generate([0, 1], seed=1)
+        hook.remove()
+        assert seen and set(seen) == {(False, False)}
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+
+        runner = LdmRunner(arch="tiny", steps=2, verbose=False, device=dev)
+        seen, hook = _flags_seen(runner.unet)
+        runner.txt2img("a crack", h=64, w=64)
+        img = np.zeros((1, 64, 64, 3), np.float32)
+        runner.img2img(img, "a crack", strength=0.5)
+        runner.inpaint(img, "a crack", strength=0.5)
+        hook.remove()
+        assert len(seen) >= 3 and set(seen) == {(False, False)}
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = False, False

@@ -68,6 +68,11 @@ def test_port_imports_no_jax():
     bad = []
     files = _port_sources()
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {f"diffusionmodel_tpu_torch/{m}.py" for m in (
+        "metrics/__init__", "metrics/image_metrics", "metrics/inception",
+        "metrics/folder_eval", "data/crop_tool", "data/visualize")} \
+        <= scanned
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -125,8 +130,9 @@ def test_train_and_generate_entry_points_raise_without_cuda(tmp_path):
 def test_fp32_compute_sets_and_restores_flags():
     """``fp32_compute`` on a CUDA device turns TF32 off in cuDNN and
     cuBLAS and cuDNN autotuning on, and restores the caller's flags after
-    the block, also when it raises; on the CPU it changes nothing. (The
-    flags are process settings; a CPU build sets them all the same.)"""
+    the block, also when it raises; ``autotune=False`` leaves autotuning
+    off; on the CPU it changes nothing. (The flags are process settings; a
+    CPU build sets them all the same.)"""
     from diffusionmodel_tpu_torch.device_check import fp32_compute
 
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
@@ -145,6 +151,10 @@ def test_fp32_compute_sets_and_restores_flags():
                 assert flags() == (False, False, True)
                 raise KeyError
         assert flags() == (True, True, False)
+        cudnn.benchmark = True
+        with fp32_compute(torch.device("cuda"), autotune=False):
+            assert flags() == (False, False, False)
+        assert flags() == (True, True, True)
     finally:
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = saved
 
@@ -239,12 +249,13 @@ def test_checkpoint_loader_stubs_unknown_classes(tmp_path):
 
 
 # train and generate are ported for the ContextUnet presets; their side
-# family presets (ROADMAP A10) are not
+# family presets (ROADMAP A10) are not, nor is the flagship's editing (A11)
 _UNPORTED_ARGS = {"train": ["--preset", "mnist"],
-                  "generate": ["--preset", "labml", "--ckpt", "x.pkl"]}
+                  "generate": ["--preset", "labml", "--ckpt", "x.pkl"],
+                  "img2img": ["--family", "main"]}
 
 
-@pytest.mark.parametrize("mode", ["train", "generate", "eval"])
+@pytest.mark.parametrize("mode", ["train", "generate", "img2img"])
 def test_cli_unported_modes_return_1(mode, capsys):
     from diffusionmodel_tpu_torch.cli import main
 
