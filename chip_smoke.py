@@ -144,6 +144,36 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             the images written as PNG files (rc 0, n_real 25, n_gen 10,
             finite scores). The checkpoints are deleted afterwards.
 
+The flagship as the README runs it, in bfloat16 (``model.dtype=
+bfloat16``; parameters, optimizer state and checkpoints float32), in four
+more phases:
+
+kernels_bf16 (after kernels)  the bf16 forms of the SE and CoordAttn
+            kernels at every flagship site at batch 16 against their bf16
+            twins: relative L2 <= 4e-3 and max |diff| <= 2**-7 of max |y|;
+            kernel and twin ms, the bytes bound and its share; float16
+            and C % 8 != 0 refused.
+forward_bf16 (after serve)  one set of weights at fp32 and bf16, fused
+            upsample off and on, batch 16: forward ms, 5 SE / 4 CoordAttn
+            launches per forward, bf16-vs-fp32 and fused-vs-unfused
+            relative L2 (fused at fp32 <= 1e-5), each bf16 output unmoved
+            when the batch is rolled.
+serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-50 at max_batch 8
+            in bf16, under PyTorch's TF32 defaults as in serve: the first
+            request (cuDNN's search included) and a batch of three, the
+            pinned request bit-identical, images/s, launches per forward.
+train_bf16 (last)  ``trainer.fit`` with the README's training settings
+            (bf16, fused upsample) and the train phase's others, one
+            epoch: finite losses, launches per forward by mode, fp32
+            parameters, EMA and checkpoint, the checkpoint reloaded
+            bit-identically; one more step, profiled: steady seconds per
+            step, idle share, peak GiB, and the first step's search (the
+            epoch's time less two steady steps).
+
+The kernels line lists the bf16 forms of SE and CoordAttn as two more
+entries (``se_block_bf16``, ``coord_attn_bf16``) with their launches on
+the bf16 serving path.
+
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 not 0 and the last line is not printed. Without CUDA it exits 2 at once.
@@ -385,16 +415,21 @@ def phase_build() -> None:
     regs, spills = {}, {}
     for r in report.values():  # ptxas -v: registers and spills per kernel
         for chunk in r["log"].split("Function properties for ")[1:]:
-            fn = re.search(r"(?:se|ca)_[a-z_]+(?:ILi\d+E)?(?=E)", chunk)
+            fn = re.search(r"((?:se|ca)_[a-z_]+)(?:I(f|13__nv_bfloat16)"
+                           r"(?:Li(\d+)E)?E)?(?=E)", chunk)
             flash = re.search(_FLASH_MANGLED, chunk)
             used = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             if flash and used:
                 regs[_flash_name(flash)] = int(used.group(1))
                 spills[_flash_name(flash)] = int(spill.group(1)) if spill else 0
-            elif fn and used:
-                regs[re.sub(r"ILi(\d+)E", r"<\1>", fn.group(0))] = int(
-                    used.group(1))
+            elif fn and used:  # e.g. ca_pool<bf16, 4>, se_apply<fp32>
+                args = [{"f": "fp32"}.get(fn.group(2), "bf16")] \
+                    if fn.group(2) else []
+                args += [fn.group(3)] if fn.group(3) else []
+                name = fn.group(1) + (f"<{', '.join(args)}>" if args else "")
+                regs[name] = int(used.group(1))
+                spills[name] = int(spill.group(1)) if spill else 0
     sass = {**_sass_mma(_build.library_path("flash_attn")),
             **_sass_mma(_build.library_path("flash_attn_bwd"))}
     emit("build", seconds=time.monotonic() - t0,
@@ -1719,6 +1754,361 @@ def phase_eval(gen, dataset, out_dir) -> dict:
     emit("eval", seconds=time.perf_counter() - t_phase)
     return scores
 
+BF16_REL_L2 = 4e-3  # a bf16 kernel against its bf16 twin: relative L2
+# ... and max |diff| over max |y|: about one bf16 ulp at the top of the
+# range (a value rounded the other way where a float32 sum or gate lands
+# on the other side of a rounding boundary)
+BF16_MAX_REL = 2.0 ** -7
+FUSED_RTOL_F32 = 1e-5  # fused vs unfused upsample head at fp32 (rel L2)
+
+
+def _bf16_row(kernel, twin, x, wbytes: int, flops: float) -> dict:
+    """A bf16 kernel at one site against its bf16 twin: relative L2 and
+    max |diff| over max |y|, kernel and twin ms (CUDA events), the
+    profiler's device ms, the bound (x read once and out written once in
+    bf16, the weights once in fp32, the operations at the fp32 rate)."""
+    y, want = kernel().float(), twin().float()
+    rel = ((y - want).norm() / want.norm()).item()
+    max_abs = (y - want).abs().max().item()
+    top = want.abs().max().item()
+    b_ms, b_by = bound(2 * x.numel() * x.element_size() + wbytes, flops)
+    ms = cuda_ms(kernel, 20)
+    return dict(shape=list(x.shape), dtype="bfloat16", rel_l2=rel,
+                max_abs_err=max_abs, max_abs_out=top, ms=ms,
+                plain_ms=cuda_ms(twin, 10), device_ms=device_times(kernel),
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+
+
+def _check_bf16_row(name: str, row: dict) -> None:
+    check(row["rel_l2"] <= BF16_REL_L2
+          and row["max_abs_err"] <= BF16_MAX_REL * row["max_abs_out"],
+          f"{name} bf16 {row['shape']}: relative L2 {row['rel_l2']}, max "
+          f"|diff| {row['max_abs_err']} of max |y| {row['max_abs_out']}")
+
+
+def phase_kernels_bf16() -> dict:
+    """The bf16 forms of the SE and CoordAttn kernels at every site of a
+    batch-16 flagship forward (bf16 x, fp32 weights drawn as in
+    ``phase_kernels``) against their bf16 twins."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn,
+        coord_attn_plain,
+    )
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        se_block,
+        se_block_plain,
+    )
+
+    rows = {"se_block": [], "coord_attn": []}
+    with torch.no_grad():
+        for i, (h, c) in enumerate(SE_SITES):
+            r = c // 16
+            x = _site_x(BATCH, h, c, i).bfloat16()
+            g = torch.Generator(device="cuda").manual_seed(100 + i)
+            w1 = torch.randn((c, r), generator=g, device="cuda") / c ** 0.5
+            w2 = torch.randn((r, c), generator=g, device="cuda") / r ** 0.5
+            row = _bf16_row(lambda: se_block(x, w1, w2),
+                            lambda: se_block_plain(x, w1, w2), x,
+                            2 * c * r * 4, 3 * x.numel() + 4 * BATCH * c * r)
+            rows["se_block"].append(row)
+            emit("kernels_bf16", kernel="se_block", **row)
+            _check_bf16_row("se_block", row)
+            del x
+        for i, (h, c) in enumerate(CA_SITES):
+            wts, groups = ca_site_weights(i, c, "group")
+            x = _site_x(BATCH, h, c, 10 + i).bfloat16()
+            r = wts.w1h.shape[-1]
+            wbytes = sum(getattr(wts, f.name).numel() * 4
+                         for f in dataclasses.fields(wts))
+            mlp = BATCH * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
+            row = _bf16_row(lambda: coord_attn(x, wts, "group", groups),
+                            lambda: coord_attn_plain(x, wts, "group", groups),
+                            x, wbytes, 4 * x.numel() + mlp)
+            rows["coord_attn"].append(row)
+            emit("kernels_bf16", kernel="coord_attn", **row)
+            _check_bf16_row("coord_attn", row)
+            del x
+        # a float16 x is refused, as is a bf16 x the 16-byte loads cannot
+        # take (C % 8 != 0)
+        wts, groups = ca_site_weights(0, 192, "group")
+        g = torch.Generator(device="cuda").manual_seed(7)
+        w1 = torch.randn((192, 12), generator=g, device="cuda")
+        w2 = torch.randn((12, 192), generator=g, device="cuda")
+        x = _site_x(2, 16, 192, 0)
+        refused = []
+        for fn in (lambda a: se_block(a, w1[:a.shape[-1]], w2[:, :a.shape[-1]]),
+                   lambda a: coord_attn(a, wts, "group", groups)):
+            for bad, exc in ((x.half(), TypeError),
+                             (x.bfloat16()[..., :188].contiguous(),
+                              ValueError)):
+                try:
+                    fn(bad)
+                except exc:
+                    refused.append(True)
+                    continue
+                refused.append(False)
+        check(refused == [True] * 4, f"float16 / C % 8 refusals {refused}")
+    return rows
+
+
+def _flagship_bf16_cfg(**over):
+    from diffusionmodel_tpu_torch.config import preset
+
+    return preset("full", **{"model.use_pallas": True,
+                             "model.dtype": "bfloat16", **over})
+
+
+def phase_forward_bf16(counters) -> None:
+    """``preset("full")`` at full width and depth with ``use_pallas``, one
+    set of weights (torch seed 0, as ``phase_forward``) at fp32 and at
+    bf16, fused upsample off and on, batch 16: forward ms (host clock
+    around a synchronised call, best of 3 after a first one), SE and
+    CoordAttn launches per forward (5 and 4 in bf16 too), the relative L2
+    of bf16 against fp32 and of fused against unfused (fp32 within 1e-5;
+    bf16 printed), and each bf16 output unmoved when the batch is rolled
+    by 3 slots."""
+    from diffusionmodel_tpu_torch.nn import build_model
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((BATCH, 256, 256, 3), generator=g, device="cuda")
+    c = torch.arange(BATCH, device="cuda") % 5
+    t = torch.rand(BATCH, generator=g, device="cuda")
+    ctx = (torch.arange(BATCH, device="cuda") >= BATCH // 2).float()
+    sd, outs, rows = None, {}, {}
+    for dt in ("float32", "bfloat16"):
+        for fused in (False, True):
+            cfg = _flagship_bf16_cfg(**{"model.dtype": dt,
+                                        "model.fused_upsample": fused})
+            torch.manual_seed(0)
+            m = build_model(cfg.model, cfg.diffusion.high_thresh,
+                            device="cuda")
+            if sd is None:
+                sd = {k: v.clone() for k, v in m.state_dict().items()}
+            m.load_state_dict(sd)
+            with torch.no_grad():
+                before = _counts(counters)
+                t0 = time.perf_counter()
+                y = m(x, c, t, ctx)
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                launched = [b - a for a, b in zip(before, _counts(counters))]
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    m(x, c, t, ctx)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            key = f"{dt}{'_fused' if fused else ''}"
+            outs[key] = y.float()
+            if dt == "bfloat16":  # a sample's output whatever its slot
+                perm = torch.roll(torch.arange(BATCH, device="cuda"), 3)
+                with torch.no_grad():
+                    moved = m(x[perm], c[perm], t[perm], ctx[perm])
+                check(torch.equal(moved[torch.argsort(perm)], y),
+                      f"{key}: outputs move with their batch position")
+            rows[key] = dict(out_dtype=str(y.dtype), first_ms=first_ms,
+                             ms=min(times), launches=launched)
+            check(bool(torch.isfinite(y.float()).all())
+                  and tuple(y.shape) == (BATCH, 256, 256, 3),
+                  f"{key} forward output")
+            check(launched == [SE_PER_FORWARD, CA_PER_FORWARD],
+                  f"{key}: launches per forward {launched}")
+            check(y.dtype == (torch.bfloat16 if dt == "bfloat16"
+                              else torch.float32), f"{key}: {y.dtype}")
+            del m, y
+            torch.cuda.empty_cache()
+    rel = {"bf16_vs_fp32": _rel_l2(outs["bfloat16"], outs["float32"]),
+           "bf16_fused_vs_fp32_fused": _rel_l2(outs["bfloat16_fused"],
+                                               outs["float32_fused"]),
+           "fused_vs_unfused_fp32": _rel_l2(outs["float32_fused"],
+                                            outs["float32"]),
+           "fused_vs_unfused_bf16": _rel_l2(outs["bfloat16_fused"],
+                                            outs["bfloat16"])}
+    emit("forward_bf16", batch=BATCH, forwards=rows, rel_l2=rel,
+         speedup_bf16=rows["float32"]["ms"] / rows["bfloat16"]["ms"],
+         speedup_bf16_fused=rows["float32"]["ms"]
+         / rows["bfloat16_fused"]["ms"])
+    check(rel["fused_vs_unfused_fp32"] <= FUSED_RTOL_F32,
+          f"fused vs unfused at fp32: {rel['fused_vs_unfused_fp32']}")
+
+
+def phase_serve_bf16(counters, env) -> list:
+    """The README's serve command in bf16 (``-o model.dtype=bfloat16``,
+    with ``use_pallas``): ``SamplerService`` DDIM-50 at max_batch 8, the
+    launch counts zeroed just before and PyTorch's TF32 defaults restored
+    (the worker turns TF32 off itself; the denoiser's bf16 convolutions
+    are unaffected): a pinned request alone (the service's first batch,
+    cuDNN's search included), then batched with two others (one batch),
+    bit-identical; latencies and images/s."""
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.serving import SamplerService
+
+    cfg = _flagship_bf16_cfg()
+    dc = cfg.diffusion
+    torch.manual_seed(0)
+    model = build_model(cfg.model, dc.high_thresh, device="cuda")
+    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, "cuda")
+    for f in counters:
+        f.launches = 0
+    t_serve = time.perf_counter()
+    flags = _EntryPointFlags(model, env["tf32_default"]).start()
+    with SamplerService(model, cfg, sched, max_batch=8, sampler="ddim",
+                        service_seed=0) as svc:
+        t0 = time.perf_counter()
+        alone = svc.generate([0, 1, 2], guide_w=2.0, seed=1234)
+        alone_s = time.perf_counter() - t0
+        n0 = svc.stats["batches"]
+        t0 = time.perf_counter()
+        futs = [svc.submit([3, 4], guide_w=4.0),
+                svc.submit([0, 1, 2], guide_w=2.0, seed=1234),
+                svc.submit([4, 0, 1], guide_w=4.0, seed=99)]
+        outs = [f.result(timeout=900) for f in futs]
+        batched_s = time.perf_counter() - t0
+        batched_runs = svc.stats["batches"] - n0
+        st = dict(svc.stats)
+    flags.stop()
+    torch.cuda.synchronize()
+    launches = _counts(counters)
+    forwards = 2 * cfg.sample.ddim_steps
+    pin_err = float(np.abs(outs[1] - alone).max())
+    emit("serve_bf16", sampler="ddim", steps=cfg.sample.ddim_steps,
+         max_batch=8, dtype=cfg.model.dtype,
+         pinned_alone_vs_batched_max_abs=pin_err, batched_runs=batched_runs,
+         first_request_s=alone_s, batched_s=batched_s,
+         images_per_s=st["slots_used"] / st["busy_seconds"],
+         batched_images_per_s=8 / batched_s, stats=st,
+         seconds=time.perf_counter() - t_serve, forwards=forwards,
+         se_launches=launches[0], ca_launches=launches[1],
+         precision=flags.summary())
+    flags.check("serve_bf16")
+    check(_finite(alone, 3) and all(_finite(o, len(o)) for o in outs),
+          "bf16 DDIM images finite, [n,256,256,3]")
+    check(batched_runs == 1, f"three requests took {batched_runs} batches")
+    check(pin_err == 0.0, f"bf16: pinned request moved by {pin_err}")
+    check(launches == [SE_PER_FORWARD * forwards, CA_PER_FORWARD * forwards],
+          f"bf16 serving launches {launches} for {forwards} forwards")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_bf16(counters, out_dir, dataset) -> list:
+    """``trainer.fit`` with the README's model settings
+    (``model.dtype=bfloat16``, ``model.fused_upsample=True``) and the fp32
+    ``train`` phase's others (4 x 4 micro-batches, full remat, bf16 Adam
+    moment, the same 25 synthetic images), one epoch: finite losses,
+    launches per forward by mode, parameters and the checkpoint in fp32,
+    the reloaded checkpoint bit-identical; then one more step, profiled:
+    steady seconds per step, idle share, peak GiB. The first step's
+    search is the epoch's time less two steady steps."""
+    import json
+    import os
+
+    from diffusionmodel_tpu_torch.checkpoint import (
+        extract_params,
+        load_checkpoint,
+    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import (
+        state_dict_from_flax,
+    )
+    from diffusionmodel_tpu_torch.data import BatchLoader
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.train import build_optimizer, make_train_step
+    from diffusionmodel_tpu_torch.trainer import fit
+
+    base = _flagship_train_cfg(out_dir)
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dtype="bfloat16",
+                                  fused_upsample=True),
+        train=dataclasses.replace(base.train, n_epoch=1))
+    tc, dc = cfg.train, cfg.diffusion
+    watch = _ForwardLaunches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    state = fit(cfg, dataset=dataset, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_steps = state.step
+    launches = _counts(counters)
+    watch.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = f"{out_dir}/run"
+    log = json.load(open(os.path.join(run, "metrics", "metrics_ep0.json")))
+    seen = watch.summary()
+    check(all(np.isfinite(log["train_loss"] + log["val_loss"])),
+          f"bf16 finite losses {log}")
+    check(fit_steps == 2, f"bf16: {fit_steps} optimizer steps")
+    check(state.model.dtype == torch.bfloat16
+          and all(p.dtype == torch.float32 for p in state.params)
+          and all(p.dtype == torch.float32 for p in state.ema.parameters()),
+          "bf16 compute on fp32 parameters and EMA")
+    check(seen["eval"]["launches_per_forward"] == [(SE_PER_FORWARD,
+                                                    CA_PER_FORWARD)]
+          and seen["train"]["launches_per_forward"] == [(0, 0)]
+          and launches == [SE_PER_FORWARD * seen["eval"]["forwards"],
+                           CA_PER_FORWARD * seen["eval"]["forwards"]],
+          f"bf16 train launches {launches}, {seen}")
+    ck = load_checkpoint(os.path.join(run, "ckpt_ep0"))
+    dtypes = {str(np.asarray(a).dtype) for tree in (ck["params"],
+                                                    ck["ema_params"])
+              for a in _leaves(tree)}
+    kept = _flagship_eval_forward(state.model)
+    torch.manual_seed(1)
+    fresh = build_model(cfg.model, dc.high_thresh, device="cuda")
+    fresh.load_state_dict(state_dict_from_flax(extract_params(
+        ck, prefer_ema=False), ck["batch_stats"]))
+    same = torch.equal(_flagship_eval_forward(fresh), kept)
+    del fresh, ck
+    check(dtypes == {"float32"}, f"bf16 checkpoint arrays {dtypes}")
+    check(same, "bf16: the reloaded checkpoint gives another output")
+
+    step = make_train_step(state.model, Schedule.create(
+        dc.beta1, dc.beta2, dc.n_T, "cuda"), cfg, build_optimizer(cfg, 2))
+    loader = BatchLoader(dataset, np.arange(len(dataset)), tc.batch_size,
+                         tc.accum_steps, seed=2, num_workers=0)
+    one = next(iter(loader))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with fp32_compute(torch.device("cuda")):
+        torch.cuda.reset_peak_memory_stats()
+        by_kernel, busy_ms, wall_ms = kernel_breakdown(
+            lambda: step(state, one, gen))
+        steady_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = wall_ms / 1e3
+    epoch_steps_s = fit_steps / log["steps_per_sec"][-1]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit("train_bf16", dtype=cfg.model.dtype,
+         fused_upsample=cfg.model.fused_upsample, images=len(dataset),
+         epochs=1, steps=fit_steps, batch=[tc.accum_steps, tc.batch_size],
+         remat=tc.remat_policy, moment_dtype=tc.moment_dtype,
+         train_loss=log["train_loss"], val_loss=log["val_loss"],
+         fit_s=fit_s, fit_peak_mem_gib=peak,
+         epoch_seconds_per_step=1.0 / log["steps_per_sec"][-1],
+         steady_seconds_per_step=per_step,
+         images_per_s=tc.batch_size * tc.accum_steps / per_step,
+         first_step_search_s=epoch_steps_s - 2 * per_step,
+         idle_share=1.0 - busy_ms / wall_ms, steady_peak_mem_gib=steady_peak,
+         device_ms=sum(by_kernel.values()),
+         top_kernels=[[k, v] for k, v in top], se_launches=launches[0],
+         ca_launches=launches[1], forwards=seen,
+         checkpoint_dtypes=sorted(dtypes), checkpoint_bit_identical=same,
+         img_metrics=log["img_metrics"])
+    del step, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1736,11 +2126,14 @@ def main() -> int:
     env = phase_env()
     phase_build()
     rows = phase_kernels()
+    bf16_rows = phase_kernels_bf16()
     flash_rows = phase_flash()
     cfg, model = phase_forward(counters)
     launches = phase_serve(cfg, model, counters, env)
     del model
     torch.cuda.empty_cache()
+    phase_forward_bf16(counters)
+    bf16_launches = phase_serve_bf16(counters, env)
     phase_ldm_forward(flash_attention)
     flash_launches = phase_ldm(flash_attention, env)
     flash_counters = [flash_attention, flash_attention_dq, flash_attention_dkv]
@@ -1758,12 +2151,15 @@ def main() -> int:
                                               flagship_dir, dataset)
     phase_eval(gen_images, dataset, flagship_dir)
     shutil.rmtree(flagship_dir, ignore_errors=True)  # multi-GB checkpoints
+    bf16_dir = flagship_dir + "_bf16"
+    bf16_fit_launches = phase_train_bf16(counters, bf16_dir, dataset)
+    shutil.rmtree(bf16_dir, ignore_errors=True)
 
-    def entry(name, key, launched, replaces):
-        sites = rows[key]
+    def entry(name, key, launched, replaces, table=rows):
+        sites = table[key]
         return {
             "name": name, "route": "cuda",
-            "source": f"diffusionmodel_tpu_torch/kernels/csrc/{name}.cu",
+            "source": f"diffusionmodel_tpu_torch/kernels/csrc/{key}.cu",
             "replaces": replaces, "launches": launched,
             "max_abs_err": max(s["max_abs_err"] for s in sites),
             "ms": sum(s["ms"] for s in sites),
@@ -1831,9 +2227,21 @@ def main() -> int:
     for row, i in ((se, 0), (ca, 1)):
         row["train_launches"] = fit_launches[i]
         row["generate_launches"] = gen_launches[i]
+    # the bf16 forms: launches on the bf16 serving path (and bf16 fit)
+    se16 = entry("se_block_bf16", "se_block", bf16_launches[0],
+                 "diffusionmodel_tpu/kernels/se_block.py:202", bf16_rows)
+    ca16 = entry("coord_attn_bf16", "coord_attn", bf16_launches[1],
+                 "diffusionmodel_tpu/kernels/coord_attn.py:296", bf16_rows)
+    for row, i in ((se16, 0), (ca16, 1)):
+        row["train_launches"] = bf16_fit_launches[i]
+        row["dtype"] = "bfloat16"
+        row["rel_l2"] = max(s["rel_l2"] for s in bf16_rows[
+            "se_block" if i == 0 else "coord_attn"])
     print(json.dumps({"kernels": [
         se,
         ca,
+        se16,
+        ca16,
         fwd,
         bwd_entry("flash_attn_dq", "dq", train_launches[1],
                   "diffusionmodel_tpu/kernels/flash_attn.py:268"),

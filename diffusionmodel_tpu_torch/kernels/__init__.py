@@ -23,3 +23,24 @@ def per_sample_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rows = a.reshape(b, -1, a.shape[-1])
     out = torch.bmm(rows, w.expand(b, *w.shape))
     return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+def per_sample_conv(conv, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; for a bf16 ``x`` without gradients (inference), one
+    call per sample.
+
+    cuDNN's bf16 kernels on Hopper split some shapes' work unevenly over
+    the batch (six of the flagship's convolutions, on its 32x32 maps at
+    batch 16), so a sample's sums, and their rounding, would depend on
+    where it sits in the batch, and a seed-pinned request would change
+    with its batch neighbours (``SamplerService``'s contract, as for
+    :func:`per_sample_matmul`). One call per sample costs 9-10% of a
+    batch-16 bf16 forward: 202.2-203.9 ms against 184.9-186.3 ms on an
+    NVIDIA H100 at 700 W (``tools/bf16_batch_invariance_probe.py``, two
+    runs; ``chip_smoke.py``'s ``forward_bf16`` checks the invariance).
+    float32 convolutions were invariant already, and training keeps one
+    call for the batch."""
+    if x.dtype == torch.float32 or torch.is_grad_enabled() \
+            or x.shape[0] == 1:
+        return conv(x)
+    return torch.cat([conv(s) for s in x.split(1)])

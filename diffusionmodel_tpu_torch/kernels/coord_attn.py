@@ -14,6 +14,10 @@ The kernel runs in three launches (pool, bottleneck, apply);
 :func:`launch_plan` sizes them, and :func:`coord_attn_staged` follows
 their stages and tiles in plain torch, for the tests and as documentation.
 
+x is float32 or bfloat16; the packed weights are float32 either way, and
+both the kernel and the twin compute in float32 inside and round the
+output once to x's dtype, as the Pallas kernel does.
+
 Norm kinds, as in the JAX package: ``"group"`` computes GroupNorm
 statistics of the pooled [L, R] tensors per sample; ``"affine"`` is an
 inference BatchNorm folded to scale/shift.
@@ -32,10 +36,11 @@ import torch.nn.functional as F
 
 from diffusionmodel_tpu_torch.kernels import _build, per_sample_matmul
 
-# The pooling pass reads x in chunks of 32 channels (8 float4 vectors), as
-# a tile of at most 16 rows per block; a warp reads 4 columns of a row, a
-# block at most 8 warps, and a lane keeps at most 8 columns' sums. Its
-# static shared memory holds the rows' per-warp sums.
+# The pooling pass reads x in chunks of 8 vectors of 16 bytes (32 float32
+# or 64 bf16 channels), as a tile of at most 16 rows per block; a warp
+# reads 4 columns of a row, a block at most 8 warps, and a lane keeps at
+# most 8 columns' sums. Its static shared memory holds the rows' per-warp
+# sums (twice as many floats for bf16).
 CHUNK_CHANNELS = 32
 POOL_ROWS = 16
 POOL_WARPS = 8
@@ -86,17 +91,20 @@ class LaunchPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(b: int, l: int, c: int, r: int, norm_kind: str = "group",
-                groups: int = 1) -> LaunchPlan:
+                groups: int = 1, elem_bytes: int = 4) -> LaunchPlan:
     """Grid, block and shared memory of each pass, and the scratch, for x
-    [b, l, l, c] and R = r (``groups`` 1 for the affine norm). Plain
-    Python, so the CPU tests check it; the wrapper hands its numbers to the
-    C entry point. Tiles depend on l, c and r, never on b: a sample's sums
-    do not depend on its batch."""
-    chunks = -(-c // CHUNK_CHANNELS)
+    [b, l, l, c] of ``elem_bytes``-byte elements (4 float32, 2 bf16) and
+    R = r (``groups`` 1 for the affine norm). Plain Python, so the CPU
+    tests check it; the wrapper hands its numbers to the C entry point.
+    Tiles depend on l, c and r, never on b: a sample's sums do not depend
+    on its batch. Only the pooling pass's chunks depend on the type."""
+    per_chunk = CHUNK_CHANNELS * 4 // elem_bytes
+    chunks = -(-c // per_chunk)
     pool_rows = min(POOL_ROWS, l)
     n_tiles = -(-l // pool_rows)
     pool_warps = min(POOL_WARPS, -(-l // 4))
-    pool = PassPlan((chunks, n_tiles, b), 32 * pool_warps, POOL_SMEM)
+    pool = PassPlan((chunks, n_tiles, b), 32 * pool_warps,
+                    POOL_SMEM * per_chunk // CHUNK_CHANNELS)
     k_chunks = -(-c // BN_CHUNK)
     n_splits = -(-k_chunks // BN_SPLIT_CHUNKS)
     split_chunks = -(-k_chunks // n_splits)
@@ -304,8 +312,9 @@ def coord_attn_staged(x: torch.Tensor, wts: CoordAttnWeights,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("coord_attn")
     if lib.coord_attn_forward.argtypes is None:
-        lib.coord_attn_forward.argtypes = [ctypes.c_void_p] * 7
-        lib.coord_attn_forward.restype = ctypes.c_int
+        for fn in (lib.coord_attn_forward, lib.coord_attn_forward_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 7
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -395,7 +404,7 @@ def _weight_ptrs(wts: CoordAttnWeights, device: torch.device,
 
 def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
                norm_kind: str = "group", gn_groups: int = 4) -> torch.Tensor:
-    """x: [B,L,L,C] contiguous NHWC (square maps).
+    """x: [B,L,L,C] contiguous NHWC (square maps), float32 or bfloat16.
 
     CPU tensors take :func:`coord_attn_plain`; CUDA tensors launch the
     kernel's three passes (``coord_attn.launches`` counts those calls)."""
@@ -408,18 +417,20 @@ def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
             f"coord_attn: x must be [B,H,W,C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
     r = wts.w1h.shape[-1]
-    if x.dtype != torch.float32:
-        raise TypeError(
-            f"coord_attn: the kernel takes float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"coord_attn: the kernel takes float32 or bfloat16,"
+                        f" got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("coord_attn: x must be contiguous NHWC "
                          "(a channels_last NCHW tensor, permuted)")
     if h != w or h > MAX_SIDE:
         raise ValueError(f"coord_attn: the kernel takes square maps with "
                          f"side <= {MAX_SIDE}, got {h}x{w}")
-    if x.data_ptr() % 16 or c % 4 or b * h == 0:
+    vec = 16 // x.element_size()  # channels per 16-byte access
+    if x.data_ptr() % 16 or c % vec or b * h == 0:
         raise ValueError(f"coord_attn: needs a 16-byte aligned x with "
-                         f"C % 4 == 0 and no empty axis, got {tuple(x.shape)}")
+                         f"C % {vec} == 0 and no empty axis, got "
+                         f"{tuple(x.shape)}")
     if norm_kind == "group":
         kind, groups = 0, gn_groups
         if groups < 1 or r % groups:
@@ -429,7 +440,7 @@ def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
         kind, groups = 1, 1
     else:
         raise ValueError(f"unknown norm_kind {norm_kind!r}")
-    plan = launch_plan(b, h, c, r, norm_kind, groups)
+    plan = launch_plan(b, h, c, r, norm_kind, groups, x.element_size())
     if max(plan.bottleneck.smem, plan.apply.smem) > MAX_DYNAMIC_SMEM:
         raise ValueError(f"coord_attn: L={h}, R={r} exceed a block's "
                          "shared memory")
@@ -439,7 +450,9 @@ def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     counters, scratch = _workspace(x.device, stream, plan)
     params = _params(x.device.index, b, h, c, r, norm_kind, groups)
-    err = lib.coord_attn_forward(
+    fn = (lib.coord_attn_forward if x.dtype == torch.float32
+          else lib.coord_attn_forward_bf16)
+    err = fn(
         x.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),
         scratch.data_ptr(), counters.data_ptr(), ctypes.addressof(params),
         stream)

@@ -1,4 +1,5 @@
-// Coordinate attention for Hopper (sm_90a), fp32, NHWC, square maps (L = H = W).
+// Coordinate attention for Hopper (sm_90a), NHWC, square maps (L = H = W),
+// x and out in fp32 or bf16.
 //
 // Replaces the Pallas kernel diffusionmodel_tpu/kernels/coord_attn.py
 // (coord_attn_fused -> _make_kernel, weights packed as CoordAttnWeights).
@@ -52,7 +53,7 @@
 //                  rows and all L columns, the gates s2*sigmoid(zh@Wh+bh)
 //                  and s3*sigmoid(zw@Ww+bw) of its chunk into shared memory
 //                  (the output projection, fused: gates never reach device
-//                  memory), then streams x as float4, 8 loads in flight.
+//                  memory), then streams x 16 bytes a load, 8 loads in flight.
 //
 // Each kernel lets the next one start early (programmatic dependent
 // launch): ca_bottleneck warms L2 with the cross-mix weights, ca_apply
@@ -69,6 +70,16 @@
 //                  direction), writes y, the k-slices' partials, yn, yx
 //   ca_apply       reads x, yn, yx and Wout (from L2), writes out
 //
+// Types: x and out are float or __nv_bfloat16 (ca_pool and ca_apply, the
+// two passes that touch them, are templated on it); everything else (the
+// means, y, yn, yx, the gates, the weights) is fp32. In bf16 the kernel
+// computes what the Pallas kernel computes on bf16 x: x widened to fp32,
+// fp32 throughout, and out = bf16(float(x) * attn) with attn not rounded.
+// A lane reads x 16 bytes at a time: 4 fp32 or 8 bf16 channels, so a
+// ca_pool chunk is 32 fp32 or 64 bf16 channels (8 vectors) and a ca_apply
+// block's 32 channels are 8 or 4 vectors; the wrapper requires C % 4 or
+// C % 8 and 16-byte alignment. bf16 halves the x bytes and so the bound.
+//
 // Determinism: no sum uses atomics, and every sum runs in a fixed order
 // (lane-strided loops, xor-butterfly shuffles, tiles, k-groups, k-slices
 // and warps added in index order), with tiles that depend on L, C and R but
@@ -82,6 +93,7 @@
 // back to zero, so the kernel leaves the buffer as it found it and a call
 // needs no memset.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -89,7 +101,7 @@
 
 namespace {
 
-constexpr int kChunkV = 8;       // float4 vectors per channel chunk (32 channels)
+constexpr int kChunkV = 8;       // 16-byte vectors per ca_pool channel chunk
 constexpr int kColsPerWarp = 4;  // ca_pool: a warp reads 4 columns x 8 vectors
 constexpr int kPoolRows = 16;    // ca_pool: rows per tile, at most
 constexpr int kPoolWarps = 8;    // ca_pool: warps per block, at most
@@ -99,23 +111,53 @@ constexpr int kBnChunk = 64;     // ca_bottleneck: channels per staged chunk
 constexpr int kBnGroups = 4;     // ca_bottleneck: k-groups, 16 channels of a chunk each
 constexpr int kBnPitch = kBnChunk + 4;  // padded row of the staged means
 constexpr int kBnMaxStages = 7;  // ca_bottleneck: ring depth, at most
-constexpr int kApplyUnroll = 8;  // ca_apply: float4 loads in flight per thread
+constexpr int kApplyUnroll = 8;  // ca_apply: 16-byte loads of x in flight per thread
 constexpr int kApplyCh = 32;     // ca_apply: channels per block (a multiple of 32)
 constexpr int kThreads = 256;    // ca_bottleneck and ca_apply
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
+// A 16-byte vector of x: 4 fp32 or 8 bf16 channels, widened to fp32.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void widen(const float4& v, float (&f)[4]) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  static __device__ __forceinline__ float4 narrow(const float (&f)[4]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  using type = uint4;
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void widen(const uint4& v, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 narrow(const float (&f)[8]) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
 
-__device__ __forceinline__ float4 div4(float4 a, float d) {
-  return make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
-}
-
-__device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
-  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, m),
-                     __shfl_xor_sync(0xffffffffu, v.y, m),
-                     __shfl_xor_sync(0xffffffffu, v.z, m),
-                     __shfl_xor_sync(0xffffffffu, v.w, m));
+// n fp32 values to 16-byte aligned memory, as float4 stores.
+template <int N>
+__device__ __forceinline__ void store_floats(float* dst, const float (&f)[N]) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k)
+    reinterpret_cast<float4*>(dst)[k] =
+        make_float4(f[4 * k], f[4 * k + 1], f[4 * k + 2], f[4 * k + 3]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -179,71 +221,94 @@ __device__ __forceinline__ bool last_block(unsigned int* count, unsigned int n,
   return true;
 }
 
-// grid (ceil(c4 / kChunkV), ceil(l / rows), b), block 32 * warps with
-// warps * kColsPerWarp * KC >= l. Lane = (column, vector) = (lane / 8,
-// lane % 8); warp w owns columns w*4 + lane/8 + k*4*warps, k < KC. Writes
-// the tile's row means to rmean [b, l, c4] and its column sums to
-// cp [b, T, l, c4].
-template <int KC>
+// grid (ceil(cv / kChunkV), ceil(l / rows), b), block 32 * warps with
+// warps * kColsPerWarp * KC >= l; cv = c / Vec<T>::n vectors per pixel.
+// Lane = (column, vector) = (lane / 8, lane % 8); warp w owns columns
+// w*4 + lane/8 + k*4*warps, k < KC. Writes the tile's row means to rmean
+// [b, l, c] and its column sums to cp [b, T, l, c] (fp32).
+template <typename T, int KC>
 __global__ void __launch_bounds__(kPoolWarps * 32)
-ca_pool(const float4* __restrict__ x, float4* __restrict__ rmean,
-        float4* __restrict__ cp, int l, int c4, int rows) {
+ca_pool(const typename Vec<T>::type* __restrict__ x, float* __restrict__ rmean,
+        float* __restrict__ cp, int l, int cv_n, int rows) {
+  using V = typename Vec<T>::type;
+  constexpr int N = Vec<T>::n;
   constexpr int G = KC >= 8 ? 1 : 8 / KC;  // rows loaded together
-  __shared__ float4 red[kPoolRows][kPoolWarps][kChunkV];
+  __shared__ float red[kPoolRows][kPoolWarps][kChunkV][N];
   allow_dependents();  // ca_bottleneck may take free SMs for its prologue
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int cv = blockIdx.x * kChunkV + (lane & 7);
   const int tile = blockIdx.y, b = blockIdx.z;
   const int h0 = tile * rows, h1 = min(h0 + rows, l);
-  const bool active = cv < c4;
+  const bool active = cv < cv_n;
   const int col0 = warp * kColsPerWarp + (lane >> 3);
   const int step = nw * kColsPerWarp;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4* xs = x + (size_t)b * l * l * c4 + cv;
-  float4 col[KC];
+  const int c = cv_n * N;
+  const V zero{};
+  const V* xs = x + (size_t)b * l * l * cv_n + cv;
+  float col[KC][N];
 #pragma unroll
-  for (int k = 0; k < KC; ++k) col[k] = zero;
+  for (int k = 0; k < KC; ++k)
+#pragma unroll
+    for (int i = 0; i < N; ++i) col[k][i] = 0.f;
   for (int h = h0; h < h1; h += G) {
-    float4 v[G][KC];
+    V v[G][KC];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
         const int w = col0 + k * step;
         v[g][k] = (active && h + g < h1 && w < l)
-                      ? __ldg(xs + ((size_t)(h + g) * l + w) * c4)
+                      ? __ldg(xs + ((size_t)(h + g) * l + w) * cv_n)
                       : zero;
       }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (h + g >= h1) break;  // uniform over the block
-      float4 row = zero;
+      float row[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) row[i] = 0.f;
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
-        col[k] = add4(col[k], v[g][k]);
-        row = add4(row, v[g][k]);
+        float f[N];
+        Vec<T>::widen(v[g][k], f);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          col[k][i] += f[i];
+          row[i] += f[i];
+        }
       }
-      row = add4(row, shfl_xor4(row, 8));  // the warp's 4 columns
-      row = add4(row, shfl_xor4(row, 16));
-      if (lane < kChunkV) red[h + g - h0][warp][lane] = row;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {  // the warp's 4 columns
+        row[i] += __shfl_xor_sync(0xffffffffu, row[i], 8);
+        row[i] += __shfl_xor_sync(0xffffffffu, row[i], 16);
+      }
+      if (lane < kChunkV)
+#pragma unroll
+        for (int i = 0; i < N; ++i) red[h + g - h0][warp][lane][i] = row[i];
     }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < (h1 - h0) * kChunkV; t += blockDim.x) {
     const int i = t / kChunkV, vi = t % kChunkV;
     const int cvv = blockIdx.x * kChunkV + vi;
-    if (cvv >= c4) continue;
-    float4 s = red[i][0][vi];
-    for (int w = 1; w < nw; ++w) s = add4(s, red[i][w][vi]);
-    rmean[((size_t)b * l + h0 + i) * c4 + cvv] = div4(s, (float)l);
+    if (cvv >= cv_n) continue;
+    float s[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) s[e] = red[i][0][vi][e];
+    for (int w = 1; w < nw; ++w)
+#pragma unroll
+      for (int e = 0; e < N; ++e) s[e] += red[i][w][vi][e];
+#pragma unroll
+    for (int e = 0; e < N; ++e) s[e] = s[e] / (float)l;
+    store_floats<N>(rmean + ((size_t)b * l + h0 + i) * c + (size_t)cvv * N, s);
   }
   if (active) {
-    float4* o = cp + ((size_t)b * gridDim.y + tile) * l * c4 + cv;
+    float* o = cp + ((size_t)b * gridDim.y + tile) * l * c + (size_t)cv * N;
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
       const int w = col0 + k * step;
-      if (w < l) o[(size_t)w * c4] = col[k];
+      if (w < l) store_floats<N>(o + (size_t)w * c, col[k]);
     }
   }
 }
@@ -516,19 +581,22 @@ ca_bottleneck(const float* __restrict__ rmean, const float* __restrict__ cp,
 // grid (ceil(c / kApplyCh), ceil(l / rows), b), block kThreads; dynamic
 // shared memory ((rows + l) * (rp + max(rp, kApplyCh)) + 2 * rp *
 // kApplyCh) floats, rp = r rounded up to 4. The chunk's Wout is staged by
-// cp.async and the thread's first kApplyUnroll float4 of x are loaded
+// cp.async and the thread's first kApplyUnroll 16-byte vectors of x are loaded
 // before the kernel waits for ca_bottleneck's yn and yx (programmatic
 // dependent launch), so both are in flight during the bottleneck's tail
 // and the gates' products.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-ca_apply(const float4* __restrict__ x, const float* __restrict__ yn,
+ca_apply(const typename Vec<T>::type* __restrict__ x, const float* __restrict__ yn,
          const float* __restrict__ yx, const float* __restrict__ wout,
          const float* __restrict__ bout,
-         const float* __restrict__ scal, float4* __restrict__ out, int l,
-         int c, int r, int rows) {
+         const float* __restrict__ scal, typename Vec<T>::type* __restrict__ out,
+         int l, int c, int r, int rows) {
   extern __shared__ __align__(16) float sm[];
-  constexpr int U = kApplyUnroll, V = kApplyCh / 4, H = kApplyCh / 32;
-  const int c4 = c / 4, rp = (r + 3) & ~3;
+  constexpr int N = Vec<T>::n;
+  // V: 16-byte vectors of x per chunk row (8 fp32 / 4 bf16)
+  constexpr int U = kApplyUnroll, V = kApplyCh / N, H = kApplyCh / 32;
+  const int cv_n = c / N, rp = (r + 3) & ~3;
   // blocks walk x in the reverse of ca_pool's order: the part it read last
   // may still be in L2
   const int chunk = gridDim.x - 1 - blockIdx.x, b = gridDim.z - 1 - blockIdx.z;
@@ -541,8 +609,9 @@ ca_apply(const float4* __restrict__ x, const float* __restrict__ yn,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = chunk * kApplyCh;
 
-  for (int i = tid; i < 2 * rp * V; i += kThreads) {  // rows of [Wh; Ww], V x 16 bytes
-    const int row = i / V, seg = 4 * (i % V);
+  constexpr int WV = kApplyCh / 4;  // 16-byte pieces of a Wout row (fp32)
+  for (int i = tid; i < 2 * rp * WV; i += kThreads) {  // rows of [Wh; Ww]
+    const int row = i / WV, seg = 4 * (i % WV);
     const int d = row / rp, k = row % rp;
     const bool ok = k < r && c0 + seg < c;
     cp_async16(ws + row * kApplyCh + seg,
@@ -550,18 +619,18 @@ ca_apply(const float4* __restrict__ x, const float* __restrict__ yn,
   }
   cp_commit();
 
-  // this thread's float4 of the tile: vector vi of the pairs (row, col)
-  // slot, slot + kThreads / V, ... (row-major over the tile)
+  // this thread's 16-byte vector of the tile: vector vi of the pairs (row,
+  // col) slot, slot + kThreads / V, ... (row-major over the tile)
   const int vi = tid % V, pstep = kThreads / V;
-  const bool vok = chunk * V + vi < c4;
-  const size_t base = ((size_t)b * l + h0) * l * c4 + chunk * V + vi;
+  const bool vok = chunk * V + vi < cv_n;
+  const size_t base = ((size_t)b * l + h0) * l * cv_n + chunk * V + vi;
   const int n_pairs = vok ? nh * l : 0;
   int pair = tid / V;
-  float4 xv[U];
+  typename Vec<T>::type xv[U];
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (pair + u * pstep < n_pairs)
-      xv[u] = __ldg(x + base + (size_t)(pair + u * pstep) * c4);
+      xv[u] = __ldg(x + base + (size_t)(pair + u * pstep) * cv_n);
 
   wait_for_prior_grid();  // ca_bottleneck's yn and yx
   // z rows: zh = yn_h + s0 * yx_w for the tile's rows, then
@@ -633,28 +702,35 @@ ca_apply(const float4* __restrict__ x, const float* __restrict__ yn,
       const int pr = pair + u * pstep;
       if (pr >= n_pairs) break;
       const int row = pr / l, col = pr - row * l;
-      const float4 gh = *reinterpret_cast<const float4*>(gs + row * kApplyCh + 4 * vi);
-      const float4 gw =
-          *reinterpret_cast<const float4*>(gs + (nh + col) * kApplyCh + 4 * vi);
-      out[base + (size_t)pr * c4] =
-          make_float4(xv[u].x * (gh.x + gw.x), xv[u].y * (gh.y + gw.y),
-                      xv[u].z * (gh.z + gw.z), xv[u].w * (gh.w + gw.w));
+      const float4* gh = reinterpret_cast<const float4*>(gs + row * kApplyCh + N * vi);
+      const float4* gw = reinterpret_cast<const float4*>(gs + (nh + col) * kApplyCh + N * vi);
+      float f[N];
+      Vec<T>::widen(xv[u], f);
+#pragma unroll
+      for (int k = 0; k < N / 4; ++k) {
+        const float4 a = gh[k], bw = gw[k];
+        f[4 * k] *= a.x + bw.x;
+        f[4 * k + 1] *= a.y + bw.y;
+        f[4 * k + 2] *= a.z + bw.z;
+        f[4 * k + 3] *= a.w + bw.w;
+      }
+      out[base + (size_t)pr * cv_n] = Vec<T>::narrow(f);
     }
     const int next = pair + U * pstep;
     if (next >= n_pairs) break;
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (next + u * pstep < n_pairs)
-        xv[u] = __ldg(x + base + (size_t)(next + u * pstep) * c4);
+        xv[u] = __ldg(x + base + (size_t)(next + u * pstep) * cv_n);
   }
 }
 
-template <int KC>
-cudaError_t launch_pool(dim3 grid, int threads, cudaStream_t s, const float* x,
-                        float* rmean, float* cp, int l, int c4, int rows) {
-  ca_pool<KC><<<grid, threads, 0, s>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(rmean),
-      reinterpret_cast<float4*>(cp), l, c4, rows);
+template <typename T, int KC>
+cudaError_t launch_pool(dim3 grid, int threads, cudaStream_t s, const T* x,
+                        float* rmean, float* cp, int l, int cv_n, int rows) {
+  ca_pool<T, KC><<<grid, threads, 0, s>>>(
+      reinterpret_cast<const typename Vec<T>::type*>(x), rmean, cp, l, cv_n,
+      rows);
   return cudaGetLastError();
 }
 
@@ -695,21 +771,22 @@ cudaError_t allow_smem(const void* fn, int bytes, bool (&done)[kMaxDevices]) {
 }
 
 // The three launches of one call, on stream s of the current device.
-cudaError_t launch(const float* x, const float* w1h, const float* w1w,
+template <typename T>
+cudaError_t launch(const T* x, const float* w1h, const float* w1w,
                    const float* nh, const float* nw, const float* wmix,
                    const float* wout, const float* bout, const float* scal,
-                   float* out, float* scratch, unsigned int* counter, int b,
+                   T* out, float* scratch, unsigned int* counter, int b,
                    int l, int c, int r, int norm_kind, int groups,
                    int pool_rows, int pool_threads, int n_splits,
                    int split_chunks, int n_stages, int apply_rows,
                    int bottleneck_smem, int apply_smem, cudaStream_t s) {
-  const int c4 = c / 4;
+  const int cv_n = c / Vec<T>::n;
   const int n_tiles = (l + pool_rows - 1) / pool_rows;
-  const int chunks = (c4 + kChunkV - 1) / kChunkV;
+  const int chunks = (cv_n + kChunkV - 1) / kChunkV;
   const int cols_per_step = (pool_threads / 32) * kColsPerWarp;
   const int kc = (l + cols_per_step - 1) / cols_per_step;
   if (pool_rows > kPoolRows || pool_threads > kPoolWarps * 32 || kc > 8 ||
-      n_stages < 2 || n_stages > kBnMaxStages ||
+      n_stages < 2 || n_stages > kBnMaxStages || c % Vec<T>::n ||
       (size_t)n_splits * split_chunks * kBnChunk < (size_t)c)
     return cudaErrorInvalidValue;
   float* rmean = scratch;
@@ -721,10 +798,10 @@ cudaError_t launch(const float* x, const float* w1h, const float* w1w,
 
   const dim3 pool_grid(chunks, n_tiles, b);
   cudaError_t err =
-      kc <= 1 ? launch_pool<1>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows)
-      : kc <= 2 ? launch_pool<2>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows)
-      : kc <= 4 ? launch_pool<4>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows)
-                : launch_pool<8>(pool_grid, pool_threads, s, x, rmean, cp, l, c4, pool_rows);
+      kc <= 1 ? launch_pool<T, 1>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows)
+      : kc <= 2 ? launch_pool<T, 2>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows)
+      : kc <= 4 ? launch_pool<T, 4>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows)
+                : launch_pool<T, 8>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows);
   if (err != cudaSuccess) return err;
 
   static bool bn_smem[kMaxDevices] = {}, apply_smem_set[kMaxDevices] = {};
@@ -739,15 +816,39 @@ cudaError_t launch(const float* x, const float* w1h, const float* w1w,
                          n_stages, norm_kind, groups);
   if (err != cudaSuccess) return err;
 
-  err = allow_smem(reinterpret_cast<const void*>(ca_apply), apply_smem,
+  err = allow_smem(reinterpret_cast<const void*>(ca_apply<T>), apply_smem,
                    apply_smem_set);
   if (err != cudaSuccess) return err;
   const dim3 apply_grid((c + kApplyCh - 1) / kApplyCh,
                         (l + apply_rows - 1) / apply_rows, b);
+  using V = typename Vec<T>::type;
   return launch_dependent(
-      ca_apply, apply_grid, kThreads, apply_smem, s,
-      reinterpret_cast<const float4*>(x), yn, yx, wout, bout, scal,
-      reinterpret_cast<float4*>(out), l, c, r, apply_rows);
+      ca_apply<T>, apply_grid, kThreads, apply_smem, s,
+      reinterpret_cast<const V*>(x), yn, yx, wout, bout, scal,
+      reinterpret_cast<V*>(out), l, c, r, apply_rows);
+}
+
+// The entry points' body: the shape and plan from p, on the given device.
+template <typename T>
+int forward(const T* x, const float* const* w, T* out, float* scratch,
+            unsigned int* counter, const int* p, void* stream) {
+  const int device = p[0], b = p[1], l = p[2], c = p[3], r = p[4];
+  const int norm_kind = p[5], groups = p[6], pool_rows = p[7];
+  const int pool_threads = p[8], n_splits = p[9], split_chunks = p[10];
+  const int n_stages = p[11], apply_rows = p[12], bottleneck_smem = p[13];
+  const int apply_smem = p[14];
+  const float *w1h = w[0], *w1w = w[1], *nh = w[2], *nw = w[3], *wmix = w[4];
+  const float *wout = w[5], *bout = w[6], *scal = w[7];
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch<T>(x, w1h, w1w, nh, nw, wmix, wout, bout, scal, out, scratch,
+                  counter, b, l, c, r, norm_kind, groups, pool_rows,
+                  pool_threads, n_splits, split_chunks, n_stages, apply_rows,
+                  bottleneck_smem, apply_smem, static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -758,9 +859,11 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, out: [b, l, l, c]; w holds the packed weights w1h, w1w: [c+1, r];
+// x, out: [b, l, l, c], fp32 (coord_attn_forward) or bf16
+// (coord_attn_forward_bf16); w holds the packed weights w1h, w1w: [c+1, r];
 // nh, nw: [2, r]; wmix: [2(r+1), r]; wout: [2r, c]; bout: [2, c]; scal: >= 4
-// floats. All fp32, contiguous; x and out 16-byte aligned, c % 4 == 0.
+// floats, all fp32. All contiguous; x and out 16-byte aligned, c % 4 == 0
+// (fp32) or c % 8 == 0 (bf16).
 // p holds the shape and the launch plan (kernels/coord_attn.py
 // launch_plan): the device, b, l, c, r, norm_kind (0 = group with
 // r % groups == 0, 1 = affine), groups, pool_rows rows per ca_pool tile (T =
@@ -776,23 +879,13 @@ const char* error_string(int err) {
 int coord_attn_forward(const float* x, const float* const* w, float* out,
                        float* scratch, unsigned int* counter, const int* p,
                        void* stream) {
-  const int device = p[0], b = p[1], l = p[2], c = p[3], r = p[4];
-  const int norm_kind = p[5], groups = p[6], pool_rows = p[7];
-  const int pool_threads = p[8], n_splits = p[9], split_chunks = p[10];
-  const int n_stages = p[11], apply_rows = p[12], bottleneck_smem = p[13];
-  const int apply_smem = p[14];
-  const float *w1h = w[0], *w1w = w[1], *nh = w[2], *nw = w[3], *wmix = w[4];
-  const float *wout = w[5], *bout = w[6], *scal = w[7];
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch(x, w1h, w1w, nh, nw, wmix, wout, bout, scal, out, scratch,
-               counter, b, l, c, r, norm_kind, groups, pool_rows,
-               pool_threads, n_splits, split_chunks, n_stages, apply_rows,
-               bottleneck_smem, apply_smem, static_cast<cudaStream_t>(stream));
-  if (prev != device) cudaSetDevice(prev);
-  return static_cast<int>(err);
+  return forward<float>(x, w, out, scratch, counter, p, stream);
+}
+
+int coord_attn_forward_bf16(const __nv_bfloat16* x, const float* const* w,
+                            __nv_bfloat16* out, float* scratch,
+                            unsigned int* counter, const int* p, void* stream) {
+  return forward<__nv_bfloat16>(x, w, out, scratch, counter, p, stream);
 }
 
 }  // extern "C"

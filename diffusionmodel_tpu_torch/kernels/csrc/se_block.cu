@@ -1,4 +1,4 @@
-// Squeeze-excitation for Hopper (sm_90a), fp32, NHWC.
+// Squeeze-excitation for Hopper (sm_90a), NHWC, x in fp32 or bf16.
 //
 //   out = x * sigmoid(GELU(mean_HW(x) @ w1) @ w2)     x [B,H,W,C], w1 [C,R], w2 [R,C]
 //
@@ -26,24 +26,67 @@
 // reach at best 2/3 of the bandwidth bound. The arithmetic (2 flops per
 // element plus 4*C*R per sample) is far below the card's rate.
 //
+// Types: x and out are float or __nv_bfloat16 (the launches below are
+// templated on it); weights, partial sums, the hidden vector and the gate
+// are fp32. In bf16 the kernel computes what the Pallas kernel computes on
+// bf16 x: fp32 pooling and MLP, the gate rounded to bf16
+// (__float2bfloat16_rn), and out = bf16(float(x) * float(gate)), a product
+// that is exact in fp32 before its one rounding. A thread reads and writes
+// x 16 bytes at a time: 4 fp32 or 8 bf16 channels (the wrapper requires
+// C % 4 or C % 8 and 16-byte alignment). bf16 halves the bytes and so the
+// bound.
+//
 // Determinism: no atomics; every sum runs in a fixed order, so a sample's
 // output does not depend on the other samples of its batch or on the run.
 // GELU is the exact erf form, as in the JAX module and its XLA twin (the
 // Pallas kernel used the tanh form).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kTX = 16;  // threads across channel vectors (16 x float4 = 64 channels)
+constexpr int kTX = 16;  // threads across 16-byte channel vectors (64 fp32 / 128 bf16 channels)
 constexpr int kTY = 16;  // threads across pixels
 constexpr int kSlice = 64;  // channels per se_squeeze block
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
+// A 16-byte vector of x: 4 fp32 or 8 bf16 channels, widened to fp32.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void widen(const float4& v, float (&f)[4]) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  static __device__ __forceinline__ float4 narrow(const float (&f)[4]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  using type = uint4;
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void widen(const uint4& v, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 narrow(const float (&f)[8]) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
@@ -53,29 +96,44 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// grid (n_tiles, ceil(c4 / kTX), B), block (kTX, kTY)
-__global__ void se_pool_partial(const float4* __restrict__ x,
-                                float4* __restrict__ partial, int hw, int c4,
+// grid (n_tiles, ceil(cv / kTX), B), block (kTX, kTY); cv = C / Vec<T>::n
+// vectors per pixel. partial [B, n_tiles, C] fp32.
+template <typename T>
+__global__ void se_pool_partial(const typename Vec<T>::type* __restrict__ x,
+                                float* __restrict__ partial, int hw, int cv_n,
                                 int tile_pixels, int n_tiles) {
+  constexpr int N = Vec<T>::n;
   const int tile = blockIdx.x;
   const int cv = blockIdx.y * kTX + threadIdx.x;
   const int b = blockIdx.z;
   const int p0 = tile * tile_pixels;
   const int p1 = min(p0 + tile_pixels, hw);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (cv < c4) {
-    const float4* xb = x + (size_t)b * hw * c4 + cv;
+  float acc[N] = {};
+  if (cv < cv_n) {
+    const typename Vec<T>::type* xb = x + (size_t)b * hw * cv_n + cv;
     for (int p = p0 + threadIdx.y; p < p1; p += kTY) {
-      acc = add4(acc, xb[(size_t)p * c4]);
+      float f[N];
+      Vec<T>::widen(xb[(size_t)p * cv_n], f);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[i] += f[i];
     }
   }
-  __shared__ float4 red[kTY][kTX];
-  red[threadIdx.y][threadIdx.x] = acc;
+  __shared__ float red[kTY][kTX][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) red[threadIdx.y][threadIdx.x][i] = acc[i];
   __syncthreads();
-  if (threadIdx.y == 0 && cv < c4) {
-    float4 s = red[0][threadIdx.x];
-    for (int i = 1; i < kTY; ++i) s = add4(s, red[i][threadIdx.x]);
-    partial[((size_t)b * n_tiles + tile) * c4 + cv] = s;
+  if (threadIdx.y == 0 && cv < cv_n) {
+    float s[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = red[0][threadIdx.x][i];
+    for (int j = 1; j < kTY; ++j)
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[i] += red[j][threadIdx.x][i];
+    float4* o = reinterpret_cast<float4*>(
+        partial + ((size_t)b * n_tiles + tile) * cv_n * N + (size_t)cv * N);
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k)
+      o[k] = make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
   }
 }
 
@@ -103,10 +161,11 @@ __global__ void se_squeeze(const float* __restrict__ partial,
   }
 }
 
-// grid (ceil(c / kThreads), B), block (kThreads), dynamic shared memory r floats
+// grid (ceil(c / kThreads), B), block (kThreads), dynamic shared memory r
+// floats. With round_bf16 the gate is rounded to bf16 (kept as fp32).
 __global__ void se_excite(const float* __restrict__ hidden_part,
                           const float* __restrict__ w2, float* __restrict__ gate,
-                          int c, int r, int n_slices) {
+                          int c, int r, int n_slices, int round_bf16) {
   extern __shared__ float hidden[];
   const int b = blockIdx.y;
   const float* hp = hidden_part + (size_t)b * n_slices * r;
@@ -120,22 +179,69 @@ __global__ void se_excite(const float* __restrict__ hidden_part,
   if (ch >= c) return;
   float s = 0.f;
   for (int j = 0; j < r; ++j) s += hidden[j] * w2[(size_t)j * c + ch];
-  gate[(size_t)b * c + ch] = sigmoid(s);
+  const float g = sigmoid(s);
+  gate[(size_t)b * c + ch] = round_bf16 ? __bfloat162float(__float2bfloat16_rn(g)) : g;
 }
 
-// grid-stride over the n4 float4 elements of x
-__global__ void se_apply(const float4* __restrict__ x,
-                         const float4* __restrict__ gate,
-                         float4* __restrict__ out, size_t n4, size_t per_sample4,
-                         int c4) {
+// grid-stride over the nv 16-byte vectors of x
+template <typename T>
+__global__ void se_apply(const typename Vec<T>::type* __restrict__ x,
+                         const float* __restrict__ gate,
+                         typename Vec<T>::type* __restrict__ out, size_t nv,
+                         size_t per_sample_v, int cv_n) {
+  constexpr int N = Vec<T>::n;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-    const size_t b = i / per_sample4;
-    const int cv = (int)(i % (size_t)c4);
-    const float4 g = gate[b * c4 + cv];
-    const float4 v = x[i];
-    out[i] = make_float4(v.x * g.x, v.y * g.y, v.z * g.z, v.w * g.w);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nv; i += stride) {
+    const size_t b = i / per_sample_v;
+    const int cv = (int)(i % (size_t)cv_n);
+    const float4* g4 = reinterpret_cast<const float4*>(gate + (b * cv_n + cv) * N);
+    float f[N];
+    Vec<T>::widen(x[i], f);
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) {
+      const float4 g = g4[k];
+      f[4 * k] *= g.x;
+      f[4 * k + 1] *= g.y;
+      f[4 * k + 2] *= g.z;
+      f[4 * k + 3] *= g.w;
+    }
+    out[i] = Vec<T>::narrow(f);
   }
+}
+
+template <typename T>
+int forward(const T* x, const float* w1, const float* w2, T* out,
+            float* partial, float* hidden_part, float* gate, int b, int hw,
+            int c, int r, int tile_pixels, int n_tiles, void* stream) {
+  using V = typename Vec<T>::type;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cv_n = c / Vec<T>::n;
+  const int n_slices = (c + kSlice - 1) / kSlice;
+  if ((size_t)r * sizeof(float) > 48 * 1024 || c % Vec<T>::n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 pool_grid(n_tiles, (cv_n + kTX - 1) / kTX, b);
+  se_pool_partial<T><<<pool_grid, dim3(kTX, kTY), 0, s>>>(
+      reinterpret_cast<const V*>(x), partial, hw, cv_n, tile_pixels, n_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  se_squeeze<<<dim3(n_slices, b), kThreads, 0, s>>>(partial, w1, hidden_part, hw,
+                                                    c, r, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  se_excite<<<dim3((c + kThreads - 1) / kThreads, b), kThreads,
+              (size_t)r * sizeof(float), s>>>(hidden_part, w2, gate, c, r,
+                                              n_slices, Vec<T>::n == 8);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t per_sample_v = (size_t)hw * cv_n;
+  const size_t nv = per_sample_v * b;
+  const size_t want = (nv + 255) / 256;
+  const int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
+  se_apply<T><<<blocks, 256, 0, s>>>(reinterpret_cast<const V*>(x), gate,
+                                     reinterpret_cast<V*>(out), nv,
+                                     per_sample_v, cv_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -150,42 +256,25 @@ const char* error_string(int err) {
 int se_slice() { return kSlice; }
 
 // x, out: [b, hw, c]; w1: [c, r]; w2: [r, c]; partial: [b, n_tiles, c];
-// hidden_part: [b, ceil(c / se_slice()), r]; gate: [b, c]. All fp32,
-// contiguous, 16-byte aligned; c % 4 == 0; r * 4 bytes of shared memory.
+// hidden_part: [b, ceil(c / se_slice()), r]; gate: [b, c]. x and out fp32
+// (se_block_forward) or bf16 (se_block_forward_bf16), the rest fp32; all
+// contiguous and 16-byte aligned; c % 4 == 0 (fp32) or c % 8 == 0 (bf16);
+// r * 4 bytes of shared memory.
 int se_block_forward(const float* x, const float* w1, const float* w2,
                      float* out, float* partial, float* hidden_part, float* gate,
                      int b, int hw, int c, int r, int tile_pixels, int n_tiles,
                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c4 = c / 4;
-  const int n_slices = (c + kSlice - 1) / kSlice;
-  if ((size_t)r * sizeof(float) > 48 * 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 pool_grid(n_tiles, (c4 + kTX - 1) / kTX, b);
-  se_pool_partial<<<pool_grid, dim3(kTX, kTY), 0, s>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(partial),
-      hw, c4, tile_pixels, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  se_squeeze<<<dim3(n_slices, b), kThreads, 0, s>>>(partial, w1, hidden_part, hw,
-                                                    c, r, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  se_excite<<<dim3((c + kThreads - 1) / kThreads, b), kThreads,
-              (size_t)r * sizeof(float), s>>>(hidden_part, w2, gate, c, r,
-                                              n_slices);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t per_sample4 = (size_t)hw * c4;
-  const size_t n4 = per_sample4 * b;
-  const size_t want = (n4 + 255) / 256;
-  const int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
-  se_apply<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(x),
-                                  reinterpret_cast<const float4*>(gate),
-                                  reinterpret_cast<float4*>(out), n4,
-                                  per_sample4, c4);
-  return static_cast<int>(cudaGetLastError());
+  return forward<float>(x, w1, w2, out, partial, hidden_part, gate, b, hw, c,
+                        r, tile_pixels, n_tiles, stream);
+}
+
+int se_block_forward_bf16(const __nv_bfloat16* x, const float* w1,
+                          const float* w2, __nv_bfloat16* out, float* partial,
+                          float* hidden_part, float* gate, int b, int hw,
+                          int c, int r, int tile_pixels, int n_tiles,
+                          void* stream) {
+  return forward<__nv_bfloat16>(x, w1, w2, out, partial, hidden_part, gate, b,
+                                hw, c, r, tile_pixels, n_tiles, stream);
 }
 
 }  // extern "C"

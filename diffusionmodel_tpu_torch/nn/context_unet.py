@@ -14,8 +14,13 @@ Architecture (n_feat=192, img 256):
 is this network without the LocalEnhancer (``use_local_enhancer=False``).
 
 Public layout is the JAX package's: ``forward`` takes x [B,H,W,C] and
-returns [B,H,W,in_ch]; inside, tensors are NCHW views in channels_last
-memory. Parameter names are the reference's, so
+returns [B,H,W,in_ch] in the compute ``dtype`` (float32 or bfloat16;
+parameters are float32 either way, cast where they are used, see
+``nn/blocks.py``); inside, tensors are NCHW views in channels_last
+memory. As in the JAX package, the one-hot, the context mask and t are
+cast to ``dtype`` (t/T in bf16 rounds neighbouring steps near 1 to one
+value), and ``fused_upsample`` takes the fused head in every UnetUp.
+Parameter names are the reference's, so
 ``diffusionmodel_tpu/compat/torch_convert.py::convert_context_unet_v2``
 reads ``state_dict()`` directly.
 """
@@ -29,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusionmodel_tpu_torch.nn.blocks import (
+    ConvTranspose2d,
     EmbedFC,
     GroupNorm,
     LocalEnhancer,
@@ -49,8 +55,10 @@ class ContextUnet(nn.Module):
                  attn_reduction: int = 16, use_coord_attn: bool = True,
                  use_se: bool = True, use_local_enhancer: bool = True,
                  high_thresh: float = 1.2, mnist_style_ctx_flip: bool = False,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, dtype: torch.dtype = torch.float32,
+                 fused_upsample: bool = False):
         super().__init__()
+        dt = self.dtype = dtype
         nf = n_feat
         d4 = img_size // 16
         pool = min(8, d4)
@@ -63,34 +71,40 @@ class ContextUnet(nn.Module):
 
         self.init_conv = ResConvBlock(in_ch, nf, is_res=True, use_se=use_se,
                                       norm=norm, attn_reduction=attn_reduction,
-                                      use_pallas=use_pallas)
+                                      use_pallas=use_pallas, dtype=dt)
         chans = [nf, 2 * nf, 4 * nf, 8 * nf]
         in_chans = [nf, nf, 2 * nf, 4 * nf]
         for i, (ci, co) in enumerate(zip(in_chans, chans)):
             self.add_module(f"down{i + 1}", UnetDown(
                 ci, co, use_se=use_se, norm=norm,
-                attn_reduction=attn_reduction, use_pallas=use_pallas))
+                attn_reduction=attn_reduction, use_pallas=use_pallas,
+                dtype=dt))
             if use_coord_attn:
                 self.add_module(f"ca{i + 1}", CoordAttn(
-                    co, attn_reduction, norm=norm, use_pallas=use_pallas))
+                    co, attn_reduction, norm=norm, use_pallas=use_pallas,
+                    dtype=dt))
 
-        self.time_emb1 = EmbedFC(1, 8 * nf)
-        self.time_emb2 = EmbedFC(1, 4 * nf)
-        self.ctx_emb1 = EmbedFC(n_classes, 8 * nf)
-        self.ctx_emb2 = EmbedFC(n_classes, 4 * nf)
+        self.time_emb1 = EmbedFC(1, 8 * nf, dt)
+        self.time_emb2 = EmbedFC(1, 4 * nf, dt)
+        self.ctx_emb1 = EmbedFC(n_classes, 8 * nf, dt)
+        self.ctx_emb2 = EmbedFC(n_classes, 4 * nf, dt)
 
         self.up0 = nn.Sequential(
-            nn.ConvTranspose2d(8 * nf, 8 * nf, pool, stride=pool),
-            GroupNorm(gn_groups(8 * nf, 8), 8 * nf), nn.ReLU())
-        self.up1 = UnetUp(16 * nf, 4 * nf, norm)
-        self.up2 = UnetUp(8 * nf, 2 * nf, norm)
-        self.up3 = UnetUp(4 * nf, nf, norm)
-        self.up4 = UnetUp(2 * nf, nf, norm)
-        self.local_enhance = (LocalEnhancer(nf, high_thresh)
+            ConvTranspose2d(8 * nf, 8 * nf, pool, stride=pool,
+                            compute_dtype=dt),
+            GroupNorm(gn_groups(8 * nf, 8), 8 * nf, compute_dtype=dt),
+            nn.ReLU())
+        up = dict(norm=norm, dtype=dt, fused_upsample=fused_upsample)
+        self.up1 = UnetUp(16 * nf, 4 * nf, **up)
+        self.up2 = UnetUp(8 * nf, 2 * nf, **up)
+        self.up3 = UnetUp(4 * nf, nf, **up)
+        self.up4 = UnetUp(2 * nf, nf, **up)
+        self.local_enhance = (LocalEnhancer(nf, high_thresh, dtype=dt)
                               if use_local_enhancer else None)
         self.out = nn.Sequential(
-            conv(2 * nf, nf, 3), GroupNorm(gn_groups(nf, 8), nf), nn.ReLU(),
-            conv(nf, in_ch, 3))
+            conv(2 * nf, nf, 3, dtype=dt),
+            GroupNorm(gn_groups(nf, 8), nf, compute_dtype=dt), nn.ReLU(),
+            conv(nf, in_ch, 3, dtype=dt))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 t: Union[torch.Tensor, float], ctx_mask: torch.Tensor,
@@ -115,14 +129,15 @@ class ContextUnet(nn.Module):
 
         # Context one-hot, masked (v2: multiply by keep-mask; MNIST style
         # flips 0<->1 and negates the kept one-hot, MNIST_script.py:170).
+        dt = self.dtype
         classes = torch.arange(self.n_classes, device=x.device)
-        c1h = (c.to(x.device)[:, None] == classes[None, :]).to(x.dtype)
-        m = ctx_mask.to(device=x.device, dtype=x.dtype)[:, None]
+        c1h = (c.to(x.device)[:, None] == classes[None, :]).to(dt)
+        m = torch.as_tensor(ctx_mask, device=x.device).to(dt)[:, None]
         if self.mnist_style_ctx_flip:
             m = -1.0 * (1.0 - m)
         cvec = c1h * m
 
-        t = torch.as_tensor(t, dtype=x.dtype, device=x.device).reshape(-1)
+        t = torch.as_tensor(t, device=x.device).to(dt).reshape(-1)
         if t.shape[0] == 1 and b > 1:
             t = t.expand(b)
 

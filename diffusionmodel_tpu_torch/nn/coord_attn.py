@@ -10,7 +10,15 @@ attention maps mixed by sigmoid(alpha)/sigmoid(beta), normalised.
 With ``use_pallas`` and GroupNorm the block runs on the packed weights
 (:class:`kernels.coord_attn.CoordAttnWeights`): the CUDA kernel in eval
 mode, its plain twin in train mode — the JAX package's dispatch. In eval
-mode without gradients the packing is cached on the module.
+mode without gradients the packing is cached on the module. That path
+computes in float32 inside and returns x's dtype (the kernels take
+float32 or bf16 x; the packed weights stay float32).
+
+With a bf16 ``dtype`` the plain path computes as the JAX module does:
+the directional means in float32 rounded to bf16, the 1x1 convs, norms
+and GELU in bf16, then the cross mix, the weighting and the product with
+x promoted to float32 by the float32 scalars (gamma, alpha, beta): the
+block returns float32, which the next layer rounds.
 """
 
 from __future__ import annotations
@@ -23,25 +31,33 @@ from diffusionmodel_tpu_torch.kernels.coord_attn import (
     coord_attn,
     coord_attn_plain,
 )
-from diffusionmodel_tpu_torch.nn.blocks import gelu, gn_groups, norm_layer, to_nhwc
+from diffusionmodel_tpu_torch.nn.blocks import (
+    Conv2d,
+    gelu,
+    sigmoid,
+    gn_groups,
+    norm_layer,
+    to_nhwc,
+)
 from diffusionmodel_tpu_torch.ops.pool import adaptive_avg_pool_axis
 
 
 class CoordAttn(nn.Module):
     def __init__(self, channels: int, reduction: int = 16,
-                 norm: str = "group", use_pallas: bool = False):
+                 norm: str = "group", use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         red = max(1, channels // reduction)
         self.norm = norm
         self.use_pallas = use_pallas
-        self.conv1_h = nn.Conv2d(channels, red, 1)
-        self.conv1_w = nn.Conv2d(channels, red, 1)
-        self.bn1_h = norm_layer(norm, red)
-        self.bn1_w = norm_layer(norm, red)
-        self.h2w_proj = nn.Conv2d(red, red, 1)
-        self.w2h_proj = nn.Conv2d(red, red, 1)
-        self.conv_h = nn.Conv2d(red, channels, 1)
-        self.conv_w = nn.Conv2d(red, channels, 1)
+        self.conv1_h = Conv2d(channels, red, 1, compute_dtype=dtype)
+        self.conv1_w = Conv2d(channels, red, 1, compute_dtype=dtype)
+        self.bn1_h = norm_layer(norm, red, dtype=dtype)
+        self.bn1_w = norm_layer(norm, red, dtype=dtype)
+        self.h2w_proj = Conv2d(red, red, 1, compute_dtype=dtype)
+        self.w2h_proj = Conv2d(red, red, 1, compute_dtype=dtype)
+        self.conv_h = Conv2d(red, channels, 1, compute_dtype=dtype)
+        self.conv_w = Conv2d(red, channels, 1, compute_dtype=dtype)
         self.gamma_h = nn.Parameter(torch.zeros(1))
         self.gamma_w = nn.Parameter(torch.zeros(1))
         self.alpha = nn.Parameter(torch.zeros(1))
@@ -51,8 +67,10 @@ class CoordAttn(nn.Module):
         if self.use_pallas and self.norm == "group":
             return self._fused_path(x)
         _, _, h, w = x.shape
-        x_h = x.mean(dim=3, keepdim=True)  # [B, C, H, 1]
-        x_w = x.mean(dim=2, keepdim=True)  # [B, C, 1, W]
+        dt = self.conv1_h.compute_dtype
+        # [B, C, H, 1] and [B, C, 1, W], means in float32
+        x_h = x.mean(dim=3, keepdim=True, dtype=torch.float32).to(dt)
+        x_w = x.mean(dim=2, keepdim=True, dtype=torch.float32).to(dt)
         x_h = gelu(self.bn1_h(self.conv1_h(x_h)))
         x_w = gelu(self.bn1_w(self.conv1_w(x_w)))
 
@@ -65,8 +83,8 @@ class CoordAttn(nn.Module):
         x_h = x_h + torch.sigmoid(self.gamma_h) * w2h_adapted
         x_w = x_w + torch.sigmoid(self.gamma_w) * h2w_adapted
 
-        a_h = torch.sigmoid(self.conv_h(x_h))
-        a_w = torch.sigmoid(self.conv_w(x_w))
+        a_h = sigmoid(self.conv_h(x_h))
+        a_w = sigmoid(self.conv_w(x_w))
         alpha = torch.sigmoid(self.alpha)
         beta = torch.sigmoid(self.beta)
         s = alpha + beta + 1e-8

@@ -9,6 +9,7 @@ import torch
 
 from diffusionmodel_tpu_torch.config import ModelConfig
 from diffusionmodel_tpu_torch.device_check import resolve_device
+from diffusionmodel_tpu_torch.nn.blocks import compute_dtype
 from diffusionmodel_tpu_torch.nn.context_unet import ContextUnet
 
 # What later slices bring, by ROADMAP.md queue-A item.
@@ -25,23 +26,18 @@ def build_model(mc: ModelConfig, high_thresh: float = 1.2,
                 ) -> ContextUnet:
     """The ContextUnet v2 / v1 in eval mode on ``device`` (default CUDA;
     raises when CUDA is missing unless ``device="cpu"``). Parameters get
-    PyTorch's default initialisation from the global torch seed."""
+    PyTorch's default initialisation from the global torch seed and stay
+    float32; ``model.dtype`` sets the compute type ("bfloat16", else
+    float32, as the JAX factory maps it)."""
     dev = resolve_device(device)
     if mc.arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {mc.arch!r} is not ported yet: {_NOT_PORTED[mc.arch]}")
     if mc.arch not in ("context_unet_v2", "context_unet_v1"):
         raise ValueError(f"unknown arch {mc.arch!r}")
-    if mc.fused_upsample:
-        raise NotImplementedError(
-            "model.fused_upsample is not ported yet: ROADMAP A3")
     if spatial_shards > 0:
         raise NotImplementedError(
             "spatial sharding is not ported yet: ROADMAP A12 (parallel)")
-    if mc.dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype={mc.dtype!r} is not ported yet: the port computes "
-            "in float32 (ROADMAP A2, bfloat16 compute)")
     with torch.device(dev):
         model = ContextUnet(
             in_ch=mc.in_ch,
@@ -57,5 +53,7 @@ def build_model(mc: ModelConfig, high_thresh: float = 1.2,
             high_thresh=high_thresh,
             mnist_style_ctx_flip=mc.mnist_style_ctx_flip,
             use_pallas=mc.use_pallas,
+            dtype=compute_dtype(mc.dtype),
+            fused_upsample=mc.fused_upsample,
         )
     return model.to(memory_format=torch.channels_last).eval()

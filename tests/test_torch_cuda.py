@@ -6,6 +6,12 @@ without the repository's conftest (it imports jax):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
+The bf16 forms of SE and CoordAttn are held to their bf16 twins: the
+same float32 arithmetic inside and one rounding of the output, so
+relative L2 <= 4e-3 and max |diff| <= 2**-7 of max |y| (about one bf16 ulp
+at the top of the range, where a float32 sum lands a value on the other
+side of a rounding boundary).
+
 Tolerance: max |kernel - twin| <= 1e-4 on standard-normal inputs. Both
 compute in fp32 (TF32 is switched off for the twin's products); the
 kernels sum in another order, which moves results by ~1e-6. The flash
@@ -146,26 +152,30 @@ def test_coord_attn_calls_of_other_shapes_in_turn(dev):
 
 def test_coord_attn_launches_three_kernels_per_call(dev):
     """pool, bottleneck (with the last-block mix) and apply (with the output
-    projection): three kernels, nothing else, per call."""
+    projection): three kernels, nothing else, per call, for fp32 and bf16
+    x (pool and apply are templated on x's type)."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     mod = _ca_module(192, "group", dev)
     wts = CoordAttnWeights.from_module(mod)
-    x = torch.randn((2, 32, 32, 192), device=dev)
-    with torch.no_grad():
-        coord_attn(x, wts, "group", 6)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 32, 32, 192), device=dev).to(dtype)
+        with torch.no_grad():
             coord_attn(x, wts, "group", 6)
             torch.cuda.synchronize()
-    names = sorted({(e.name, e.time_range.start) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and e.time_range.end > e.time_range.start})
-    assert len(names) == 3, names
-    for want, (name, _) in zip(("ca_apply", "ca_bottleneck", "ca_pool"),
-                               sorted(names)):
-        assert want in name, names
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                coord_attn(x, wts, "group", 6)
+                torch.cuda.synchronize()
+        names = sorted({(e.name, e.time_range.start) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and e.time_range.end > e.time_range.start})
+        assert len(names) == 3, names
+        short = sorted(re.search(r"\bca_[a-z_]+(?=[(<])", n).group(0)
+                       for n, _ in names)
+        assert short == ["ca_apply", "ca_bottleneck", "ca_pool"], names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -184,6 +194,94 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     big = torch.zeros((1, 264, 264, 64), device=dev)
     with pytest.raises(ValueError, match="side"):
         coord_attn(big, wts, "group", 4)
+
+
+# Two flagship sites of each kernel at batch 2: the widest and the deepest.
+BF16_SE_SHAPES = [(2, 256, 256, 192), (2, 32, 32, 1536)]
+BF16_CA_SHAPES = [(2, 128, 128, 192), (2, 16, 16, 1536)]
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    assert ((got - want).norm() / want.norm()).item() <= 4e-3
+    assert (got - want).abs().max().item() <= 2 ** -7 * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", BF16_SE_SHAPES)
+def test_se_kernel_bf16_matches_twin(dev, shape):
+    x, w1, w2 = _se_inputs(shape, dev)
+    x = x.bfloat16()
+    n = se_block.launches
+    got = se_block(x, w1, w2)
+    torch.cuda.synchronize()
+    assert se_block.launches == n + 1
+    _bf16_close(got, se_block_plain(x, w1, w2))
+    assert torch.equal(se_block(x, w1, w2), got)
+    assert torch.equal(se_block(x[-1:].contiguous(), w1, w2), got[-1:])
+
+
+@pytest.mark.parametrize("shape", BF16_CA_SHAPES)
+def test_coord_attn_kernel_bf16_matches_twin(dev, shape):
+    c = shape[-1]
+    wts = CoordAttnWeights.from_module(_ca_module(c, "group", dev), "group")
+    groups = gn_groups(c // 16, 8)
+    x = torch.randn(shape, generator=torch.Generator(device=dev)
+                    .manual_seed(2), device=dev).bfloat16()
+    n = coord_attn.launches
+    with torch.no_grad():
+        got = coord_attn(x, wts, "group", groups)
+        torch.cuda.synchronize()
+        assert coord_attn.launches == n + 1
+        _bf16_close(got, coord_attn_plain(x, wts, "group", groups))
+        assert torch.equal(coord_attn(x, wts, "group", groups), got)
+        assert torch.equal(coord_attn(x[-1:].contiguous(), wts, "group",
+                                      groups), got[-1:])
+
+
+def test_bf16_wrappers_refuse_float16_and_unaligned_x(dev):
+    """float16 raises TypeError; a bf16 x whose C is not a multiple of 8,
+    or that does not start on 16 bytes, raises ValueError: no fallback."""
+    x, w1, w2 = _se_inputs((2, 8, 8, 64), dev)
+    wts = CoordAttnWeights.from_module(_ca_module(64, "group", dev))
+    xb = x.bfloat16()
+    flat = torch.zeros(xb.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(xb.shape)  # 2 bytes off a 16-byte boundary
+    n = (se_block.launches, coord_attn.launches)
+    for fn in (lambda a: se_block(a, w1[:a.shape[-1]], w2[:, :a.shape[-1]]),
+               lambda a: coord_attn(a, wts, "group", 4)):
+        with pytest.raises(TypeError, match="bfloat16"):
+            fn(x.half())
+        with pytest.raises(ValueError, match="C % 8"):
+            fn(xb[..., :60].contiguous())
+        with pytest.raises(ValueError, match="aligned"):
+            fn(shifted)
+    assert (se_block.launches, coord_attn.launches) == n
+
+
+def test_context_unet_bf16_on_the_card(dev):
+    """A narrow bf16 flagship with use_pallas: an eval forward launches 5
+    SE and 4 CoordAttn kernels on bf16 activations and returns finite
+    bf16, within bf16's reach of the fp32 forward; the fused head too."""
+    _, m32, _ = _flagship_small(True, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 64, 64, 3), generator=g, device=dev)
+    args = (x, torch.tensor([0, 3], device=dev),
+            torch.full((2,), 0.3, device=dev), torch.ones(2, device=dev))
+    with torch.no_grad():
+        want = m32.eval()(*args)
+        for fused in (False, True):
+            _, m16, _ = _flagship_small(True, dev, **{
+                "model.dtype": "bfloat16", "model.fused_upsample": fused})
+            m16.load_state_dict(m32.state_dict())
+            n = (se_block.launches, coord_attn.launches)
+            got = m16.eval()(*args)
+            torch.cuda.synchronize()
+            assert (se_block.launches - n[0], coord_attn.launches - n[1]) \
+                == (5, 4)
+            assert got.dtype == torch.bfloat16
+            assert torch.isfinite(got.float()).all()
+            assert ((got.float() - want).norm() / want.norm()).item() < 0.1
 
 
 def test_modules_dispatch_on_the_card(dev):

@@ -160,16 +160,35 @@ def test_fp32_compute_sets_and_restores_flags():
 
 
 @pytest.mark.parametrize("override, exc", [
-    ({"model.fused_upsample": True}, NotImplementedError),
-    ({"model.dtype": "bfloat16"}, NotImplementedError),
+    ({"model.fused_upsample": True}, None),  # ported: builds
+    ({"model.dtype": "bfloat16"}, None),  # ported: builds
     ({"model.arch": "mnist_unet"}, NotImplementedError),
     ({"model.arch": "nope"}, ValueError),
 ])
 def test_build_model_refuses_unported_options(override, exc):
     cfg = preset("full", **{"model.n_feat": 8, "model.img_size": 32},
                  **override)
-    with pytest.raises(exc):
-        build_model(cfg.model, device="cpu")
+    if exc is not None:
+        with pytest.raises(exc):
+            build_model(cfg.model, device="cpu")
+        return
+    # what earlier slices refused now builds, computing in the configured
+    # type on float32 parameters with the default model's state_dict keys
+    model = build_model(cfg.model, device="cpu")
+    plain = build_model(preset("full", **{"model.n_feat": 8,
+                                          "model.img_size": 32}).model,
+                        device="cpu")
+    assert list(model.state_dict()) == list(plain.state_dict())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    want = (torch.bfloat16 if cfg.model.dtype == "bfloat16"
+            else torch.float32)
+    assert model.dtype == want
+    assert model.up4.fused_upsample == cfg.model.fused_upsample
+    with torch.no_grad():
+        out = model(torch.randn(2, 32, 32, 3), torch.tensor([0, 1]),
+                    torch.tensor([0.5, 0.25]), torch.ones(2))
+    assert out.shape == (2, 32, 32, 3) and out.dtype == want
+    assert torch.isfinite(out.float()).all()
 
 
 def _randomize(model, seed):
