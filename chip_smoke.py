@@ -30,10 +30,15 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             norm kinds): max |diff| (tolerance 1e-4 on standard-normal
             inputs: the same fp32 arithmetic summed in another order),
             kernel and twin times, and the least time the card could take;
-            for CoordAttn also the profiler's device ms per pass and their
-            sum, the kernels launched per call (must be its 3), and the
-            shares of the bound and of the floor of a design that reads x
-            twice.
+            for SE (weights as ``SEBlock`` passes them) the kernel timed
+            over rotating copies of x of >= 200 MB, the CUDA kernels one
+            call launches (must be its 1: no weight copy), the launch
+            plan's design bound and bytes of x re-read, the shares of both
+            bounds, and ncu's ``dram__bytes_read.sum`` where ncu runs (else
+            null); for CoordAttn also the profiler's device ms per pass and
+            their sum, the kernels launched per call (must be its 3), and
+            the shares of the bound and of the floor of a design that reads
+            x twice.
 4. flash    the flash-attention kernel against its twin (output and
             logsumexp) at the SD UNet's 512 px site (4, 4096, 8, 40), a
             ragged 416 px site, D = 80 and 160, an M != N case, the tiny
@@ -49,7 +54,8 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             the plain path on the same weights (relative L2 tolerance
             1e-4), with 5 SE and 4 CoordAttn launches; then the device
             kernels of one eval CoordAttn module call, its packed weights
-            cached (must be the kernel's 3).
+            cached (must be the kernel's 3), and of one eval SEBlock call
+            (must be the kernel's 1).
 6. serve    the ContextUnet main path, with every launch count zeroed just
             before it and PyTorch's TF32 defaults restored for the two
             services (their worker must turn TF32 off itself: a forward
@@ -151,8 +157,9 @@ more phases:
 kernels_bf16 (after kernels)  the bf16 forms of the SE and CoordAttn
             kernels at every flagship site at batch 16 against their bf16
             twins: relative L2 <= 4e-3 and max |diff| <= 2**-7 of max |y|;
-            kernel and twin ms, the bytes bound and its share; float16
-            and C % 8 != 0 refused.
+            kernel and twin ms, the bytes bound and its share (SE as in
+            ``kernels``, and no byte of x re-read); float16 and C % 8 != 0
+            refused.
 forward_bf16 (after serve)  one set of weights at fp32 and bf16, fused
             upsample off and on, batch 16: forward ms, 5 SE / 4 CoordAttn
             launches per forward, bf16-vs-fp32 and fused-vs-unfused
@@ -223,6 +230,8 @@ TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 2, 2
 SE_SITES = [(256, 192), (256, 192), (128, 384), (64, 768), (32, 1536)]
 CA_SITES = [(128, 192), (64, 384), (32, 768), (16, 1536)]
 CA_KERNELS_PER_CALL = 3  # ca_pool, ca_bottleneck, ca_apply
+SE_KERNELS_PER_CALL = 1  # se_fused: one cooperative launch
+ROTATE_BYTES = 200e6  # x copies cycled through when a kernel is timed
 
 
 def emit(phase: str, **kv) -> None:
@@ -453,6 +462,183 @@ def _site_x(b, h, c, seed):
     return torch.randn((b, h, h, c), generator=g, device="cuda")
 
 
+def se_site_weights(i: int, c: int):
+    """w1 [C, R] and w2 [R, C] of SE site ``i`` (random from fixed seeds),
+    as ``SEBlock`` hands them to the kernel: transposed views of
+    ``nn.Linear`` weights, which the kernel reads without a copy."""
+    r = c // 16
+    g = torch.Generator(device="cuda").manual_seed(100 + i)
+    w1 = torch.randn((c, r), generator=g, device="cuda") / c ** 0.5
+    w2 = torch.randn((r, c), generator=g, device="cuda") / r ** 0.5
+    return w1.t().contiguous().t(), w2.t().contiguous().t()
+
+
+def rotating_ms(fn, x, iters: int) -> tuple:
+    """Mean CUDA-event ms of ``fn(a)`` over ``iters`` calls that cycle
+    through copies of x totalling at least ``ROTATE_BYTES`` (so no call
+    finds its x in the 50 MB L2 from the call before), and the copies."""
+    n = max(1, -(-int(ROTATE_BYTES) // (x.numel() * x.element_size())))
+    xs = [x] + [x.clone() for _ in range(n - 1)]
+    for a in xs:
+        fn(a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(xs[i % n])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, n
+
+
+def se_site_row(x, w1, w2, iters: int = 20) -> dict:
+    """The SE kernel at one site against its twin: max |diff| (and, for
+    bf16, relative L2 and max |y|), kernel ms over rotating copies of x,
+    twin ms, the profiler's device ms, the bytes bound (x read once, out
+    written once, the weights once; the operations at the fp32 rate) and
+    the design's bound from the launch plan (x re-read where a sample does
+    not fit on chip), with the shares of both. The kernels one call
+    launches come from ``fresh_kernel_counts``."""
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        launch_plan,
+        se_block,
+        se_block_plain,
+    )
+
+    b, h, w, c = x.shape
+    r = w1.shape[1]
+    y, want = se_block(x, w1, w2).float(), se_block_plain(x, w1, w2).float()
+    row = dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[-1],
+               max_abs_err=(y - want).abs().max().item(),
+               max_abs_out=want.abs().max().item(),
+               rel_l2=((y - want).norm() / want.norm()).item())
+    del y, want
+    ms, copies = rotating_ms(lambda a: se_block(a, w1, w2), x, iters)
+    b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * c * r * 4,
+                       3 * x.numel() + 4 * b * c * r)
+    plan = launch_plan(b, h, w, c, r, x.dtype)
+    d_ms = (plan.bytes_read + plan.bytes_reread + plan.bytes_written) \
+        / HBM_BYTES_PER_S * 1e3
+    row.update(ms=ms, copies=copies,
+               plain_ms=cuda_ms(lambda: se_block_plain(x, w1, w2), 10),
+               device_ms=device_times(lambda: se_block(x, w1, w2)),
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+               design_bound_ms=d_ms, design_bound_share=d_ms / ms,
+               bytes_reread=plan.bytes_reread, parts=plan.parts,
+               tiles_per_part=plan.tiles_per_part)
+    return row
+
+
+def check_se_row(row: dict) -> None:
+    check(row["kernels_per_call"] == SE_KERNELS_PER_CALL,
+          f"se_block {row['shape']}: {row['kernels_per_call']} kernels per "
+          f"call, the design launches {SE_KERNELS_PER_CALL}")
+    check(row["dtype"] == "float32" or row["bytes_reread"] == 0,
+          f"se_block bf16 {row['shape']}: the plan re-reads "
+          f"{row['bytes_reread']} bytes of x")
+
+
+def count_kernels_per_call() -> dict:
+    """The CUDA kernels one call launches (torch.profiler): the SE kernel
+    at every SE site in fp32 and bf16 (all kernels: no weight copy), the
+    CoordAttn kernel at every CoordAttn site under both norm kinds and in
+    bf16 (its ``ca_`` kernels), one eval CoordAttn module call with its
+    packed weights cached and one eval SEBlock call (all kernels). Run by
+    ``fresh_kernel_counts`` in a process of its own."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn
+    from diffusionmodel_tpu_torch.kernels.se_block import se_block
+    from diffusionmodel_tpu_torch.nn.blocks import SEBlock
+    from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
+
+    out = {}
+    with torch.no_grad():
+        for i, (h, c) in enumerate(SE_SITES):
+            w1, w2 = se_site_weights(i, c)
+            for dtype in ("float32", "bfloat16"):
+                x = _site_x(BATCH, h, c, i).to(getattr(torch, dtype))
+                out[f"se {dtype} {h} {c}"] = sum(kernel_launches(
+                    lambda: se_block(x, w1, w2)).values())
+        for kind, dtype in (("group", "float32"), ("affine", "float32"),
+                            ("group", "bfloat16")):
+            for i, (h, c) in enumerate(CA_SITES):
+                wts, groups = ca_site_weights(i, c, kind)
+                x = _site_x(BATCH, h, c, 10 + i).to(getattr(torch, dtype))
+                out[f"ca {kind} {dtype} {h} {c}"] = sum(
+                    n for k, n in kernel_launches(
+                        lambda: coord_attn(x, wts, kind, groups)).items()
+                    if k.startswith("ca_"))
+        torch.manual_seed(0)
+        ca = CoordAttn(192, 16, norm="group").cuda().eval()
+        ca.use_pallas = True
+        x = torch.randn((BATCH, 192, 128, 128), device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        out["ca module"] = sum(kernel_launches(lambda: ca(x)).values())
+        se = SEBlock(192, 16, use_pallas=True).cuda().eval()
+        x = torch.randn((BATCH, 192, 64, 64), device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        out["se module"] = sum(kernel_launches(lambda: se(x)).values())
+    return out
+
+
+def fresh_kernel_counts() -> dict:
+    """``count_kernels_per_call`` in a process of its own, before any load:
+    on the card, torch.profiler drops device events once a process has
+    kept it busy for ~15-30 s (seen with plain matrix products alone, no
+    kernel of the port), so counts taken late in this run would read
+    short."""
+    import os
+
+    code = ("import json, chip_smoke as cs\n"
+            "print('COUNTS ' + json.dumps(cs.count_kernels_per_call()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("COUNTS ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"kernel counts: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    counts = json.loads(lines[0][len("COUNTS "):])
+    emit("kernel_counts", **counts)
+    return counts
+
+
+def se_dram_bytes(dtype: str) -> list:
+    """``dram__bytes_read.sum`` of one SE call at each site, from ``ncu``
+    in a subprocess, where ``ncu`` is installed and works; else None per
+    site (not measured)."""
+    import os
+    import shutil
+
+    none = [None] * len(SE_SITES)
+    if shutil.which("ncu") is None:
+        return none
+    code = ("import torch, chip_smoke as cs\n"
+            "from diffusionmodel_tpu_torch.kernels.se_block import se_block\n"
+            "for i, (h, c) in enumerate(cs.SE_SITES):\n"
+            f"    x = cs._site_x(cs.BATCH, h, c, i).to(torch.{dtype})\n"
+            "    se_block(x, *cs.se_site_weights(i, c))\n"
+            "torch.cuda.synchronize()\n")
+    try:
+        out = subprocess.run(
+            ["ncu", "--kernel-name", "regex:se_fused", "--metrics",
+             "dram__bytes_read.sum", "--csv", sys.executable, "-c", code],
+            capture_output=True, text=True, timeout=180,
+            cwd=os.path.dirname(os.path.abspath(__file__))).stdout
+    except (OSError, subprocess.SubprocessError):
+        return none
+    vals = []
+    for line in out.splitlines():
+        if "dram__bytes_read.sum" in line:
+            cells = [v.strip('"') for v in line.split('","')]
+            try:
+                unit, val = cells[-2], float(cells[-1].replace(",", ""))
+            except (IndexError, ValueError):
+                continue
+            vals.append(val * {"byte": 1, "Kbyte": 1e3, "Mbyte": 1e6,
+                               "Gbyte": 1e9}.get(unit, 1))
+    return vals if len(vals) == len(SE_SITES) else none
+
+
 def ca_site_weights(i: int, c: int, kind: str):
     """Packed weights of a CoordAttn module at CoordAttn site ``i`` (random
     from fixed seeds, the norms and gates drawn too) and its group count."""
@@ -537,36 +723,24 @@ def check_ca_row(row: dict) -> None:
           f"per call, the design launches {CA_KERNELS_PER_CALL}")
 
 
-def phase_kernels() -> list:
+def phase_kernels(counts: dict) -> list:
     from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn_plain
-    from diffusionmodel_tpu_torch.kernels.se_block import (
-        se_block,
-        se_block_plain,
-    )
 
     rows = {"se_block": [], "coord_attn": [], "coord_attn_affine": []}
     with torch.no_grad():
+        dram = se_dram_bytes("float32")
         for i, (h, c) in enumerate(SE_SITES):
-            r = c // 16
             x = _site_x(BATCH, h, c, i)
-            g = torch.Generator(device="cuda").manual_seed(100 + i)
-            w1 = torch.randn((c, r), generator=g, device="cuda") / c ** 0.5
-            w2 = torch.randn((r, c), generator=g, device="cuda") / r ** 0.5
-            err = (se_block(x, w1, w2) - se_block_plain(x, w1, w2)
-                   ).abs().max().item()
-            xb = x.numel() * 4
-            b_ms, b_by = bound(2 * xb + 2 * c * r * 4,
-                               3 * x.numel() + 4 * BATCH * c * r)
-            rows["se_block"].append(dict(
-                shape=list(x.shape), max_abs_err=err,
-                ms=cuda_ms(lambda: se_block(x, w1, w2), 20),
-                plain_ms=cuda_ms(lambda: se_block_plain(x, w1, w2), 10),
-                device_ms=device_times(lambda: se_block(x, w1, w2)),
-                bound_ms=b_ms, bound_by=b_by,
-                design_bound_ms=3 * xb / HBM_BYTES_PER_S * 1e3))
-            emit("kernels", kernel="se_block", **rows["se_block"][-1])
-            check(err <= KERNEL_ATOL, f"se_block {x.shape}: |diff| {err}")
+            row = se_site_row(x, *se_site_weights(i, c))
+            row["dram_bytes_read"] = dram[i]
+            row["kernels_per_call"] = counts[f"se float32 {h} {c}"]
+            rows["se_block"].append(row)
+            emit("kernels", kernel="se_block", **row)
+            check(row["max_abs_err"] <= KERNEL_ATOL,
+                  f"se_block {x.shape}: |diff| {row['max_abs_err']}")
+            check_se_row(row)
             del x
+            torch.cuda.empty_cache()
 
         for kind, key in (("group", "coord_attn"),
                           ("affine", "coord_attn_affine")):
@@ -574,6 +748,8 @@ def phase_kernels() -> list:
                 wts, groups = ca_site_weights(i, c, kind)
                 x = _site_x(BATCH, h, c, 10 + i)
                 rows[key].append(ca_site_row(x, wts, kind, groups))
+                rows[key][-1]["kernels_per_call"] = counts[
+                    f"ca {kind} float32 {h} {c}"]
                 rows[key][-1]["plain_ms"] = cuda_ms(
                     lambda: coord_attn_plain(x, wts, kind, groups), 10)
                 emit("kernels", kernel="coord_attn", **rows[key][-1])
@@ -592,9 +768,7 @@ def _flagship(use_pallas: bool):
                             device="cuda")
 
 
-def phase_forward(counters):
-    from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
-
+def phase_forward(counters, counts: dict):
     cfg, model = _flagship(True)
     _, plain = _flagship(False)
     plain.load_state_dict(model.state_dict())
@@ -620,15 +794,11 @@ def phase_forward(counters):
             torch.cuda.synchronize()
             times[name] = (time.perf_counter() - t0) * 1e3
         by_kernel = device_times(lambda: model(x, c, t, ctx))
-        # one eval CoordAttn module call, its packed weights cached: every
-        # device kernel it launches (the kernel's three passes, no packing)
-        ca = next(m for m in model.modules() if isinstance(m, CoordAttn))
-        h = 256 // 2
-        xa = torch.randn((BATCH, ca.conv_h.out_channels, h, h),
-                         generator=g, device="cuda").contiguous(
-                             memory_format=torch.channels_last)
-        ca_module_kernels = kernel_launches(lambda: ca(xa))
-        del xa
+    # every device kernel of one eval CoordAttn module call, its packed
+    # weights cached (the kernel's three passes, no packing), and of one
+    # eval SEBlock call (the kernel alone, no weight copy)
+    ca_module_kernels = counts["ca module"]
+    se_module_kernels = counts["se module"]
     total = sum(by_kernel.values())
     ours = sum(v for k, v in by_kernel.items() if k[:3] in ("se_", "ca_"))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -636,15 +806,18 @@ def phase_forward(counters):
          top_kernels=[[k, v] for k, v in top])
     emit("forward", params=n_params, shape=list(got.shape),
          se_launches=launched[0], ca_launches=launched[1],
-         ca_module_kernels=ca_module_kernels, rel_l2=rel,
+         ca_module_kernels=ca_module_kernels,
+         se_module_kernels=se_module_kernels, rel_l2=rel,
          max_abs_err=(got - want).abs().max().item(),
          max_abs_out=want.abs().max().item(), ms=times)
     check(n_params > 300e6, f"flagship has {n_params} parameters")
     check(tuple(got.shape) == (BATCH, 256, 256, 3)
           and bool(torch.isfinite(got).all()), "forward output")
     check(launched == [5, 4], f"launches per forward {launched}")
-    check(sum(ca_module_kernels.values()) == CA_KERNELS_PER_CALL,
+    check(ca_module_kernels == CA_KERNELS_PER_CALL,
           f"device kernels per eval CoordAttn call {ca_module_kernels}")
+    check(se_module_kernels == SE_KERNELS_PER_CALL,
+          f"device kernels per eval SEBlock call {se_module_kernels}")
     check(rel <= FORWARD_RTOL, f"forward relative L2 {rel}")
     del plain
     torch.cuda.empty_cache()
@@ -1786,7 +1959,7 @@ def _check_bf16_row(name: str, row: dict) -> None:
           f"|diff| {row['max_abs_err']} of max |y| {row['max_abs_out']}")
 
 
-def phase_kernels_bf16() -> dict:
+def phase_kernels_bf16(counts: dict) -> dict:
     """The bf16 forms of the SE and CoordAttn kernels at every site of a
     batch-16 flagship forward (bf16 x, fp32 weights drawn as in
     ``phase_kernels``) against their bf16 twins."""
@@ -1794,26 +1967,22 @@ def phase_kernels_bf16() -> dict:
         coord_attn,
         coord_attn_plain,
     )
-    from diffusionmodel_tpu_torch.kernels.se_block import (
-        se_block,
-        se_block_plain,
-    )
+    from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     rows = {"se_block": [], "coord_attn": []}
     with torch.no_grad():
+        dram = se_dram_bytes("bfloat16")
         for i, (h, c) in enumerate(SE_SITES):
-            r = c // 16
             x = _site_x(BATCH, h, c, i).bfloat16()
-            g = torch.Generator(device="cuda").manual_seed(100 + i)
-            w1 = torch.randn((c, r), generator=g, device="cuda") / c ** 0.5
-            w2 = torch.randn((r, c), generator=g, device="cuda") / r ** 0.5
-            row = _bf16_row(lambda: se_block(x, w1, w2),
-                            lambda: se_block_plain(x, w1, w2), x,
-                            2 * c * r * 4, 3 * x.numel() + 4 * BATCH * c * r)
+            row = se_site_row(x, *se_site_weights(i, c))
+            row["dram_bytes_read"] = dram[i]
+            row["kernels_per_call"] = counts[f"se bfloat16 {h} {c}"]
             rows["se_block"].append(row)
             emit("kernels_bf16", kernel="se_block", **row)
             _check_bf16_row("se_block", row)
+            check_se_row(row)
             del x
+            torch.cuda.empty_cache()
         for i, (h, c) in enumerate(CA_SITES):
             wts, groups = ca_site_weights(i, c, "group")
             x = _site_x(BATCH, h, c, 10 + i).bfloat16()
@@ -2125,10 +2294,11 @@ def main() -> int:
     counters = [se_block, coord_attn]
     env = phase_env()
     phase_build()
-    rows = phase_kernels()
-    bf16_rows = phase_kernels_bf16()
+    counts = fresh_kernel_counts()
+    rows = phase_kernels(counts)
+    bf16_rows = phase_kernels_bf16(counts)
     flash_rows = phase_flash()
-    cfg, model = phase_forward(counters)
+    cfg, model = phase_forward(counters, counts)
     launches = phase_serve(cfg, model, counters, env)
     del model
     torch.cuda.empty_cache()
@@ -2170,6 +2340,15 @@ def main() -> int:
             "library_ms": None,
             "device_ms": sum(sum(s["device_ms"].values()) for s in sites),
             "per": f"one batch-{BATCH} forward ({len(sites)} sites)",
+            **({"kernels_per_call": max(s["kernels_per_call"] for s in sites),
+                "design_bound_ms": sum(s["design_bound_ms"] for s in sites),
+                "bytes_reread": sum(s["bytes_reread"] for s in sites),
+                "bound_share": sum(s["bound_ms"] for s in sites)
+                / sum(s["ms"] for s in sites),
+                "dram_bytes_read": [s["dram_bytes_read"] for s in sites],
+                "timed_over": f">= {ROTATE_BYTES / 1e6:.0f} MB of rotating "
+                              "copies of x"}
+               if key == "se_block" else {}),
         }
 
     def flash_entry(sites, launched):

@@ -296,7 +296,10 @@ class SEBlock(nn.Module):
     x's dtype); otherwise through :func:`se_module_plain` in ``dtype``.
     The two coincide at float32 and differ in bf16, as in the JAX package.
     ``fc`` keeps the reference's layers for their ``state_dict`` names;
-    both paths compute with their weights, one product per sample."""
+    both paths compute with their weights, one product per sample. The
+    kernel reads ``fc[0].weight`` and ``fc[2].weight`` in place (it takes
+    ``w1``/``w2`` as their transposed views), so an eval call launches the
+    one kernel and no copy."""
 
     def __init__(self, channels: int, reduction: int = 16,
                  use_pallas: bool = False, dtype: torch.dtype = _F32):

@@ -94,6 +94,40 @@ def _ca_module(c, norm, dev, seed=0):
     return mod
 
 
+# Profiled first: on the card, torch.profiler drops device events once a
+# process has kept the card busy for a while (chip_smoke.fresh_kernel_counts).
+def _cuda_kernels(fn):
+    """The CUDA kernels one call of ``fn`` launches, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({(e.name, e.time_range.start) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_se_launches_one_kernel_per_call(dev, dtype):
+    w1, w2 = _se_linear(384, dev)
+    x = torch.randn((4, 32, 32, 384), device=dev).to(dtype)
+    names = _cuda_kernels(lambda: se_block(x, w1, w2))
+    assert len(names) == 1 and "se_fused" in names[0][0], names
+
+
+def test_se_module_eval_forward_launches_no_copy(dev):
+    """An eval SEBlock call passes its nn.Linear weights as they are: one
+    kernel, no weight copy, no layout copy of x."""
+    se = SEBlock(192, 16, use_pallas=True).to(dev).eval()
+    x = channels_last(torch.randn(2, 192, 16, 16, device=dev))
+    with torch.no_grad():
+        names = _cuda_kernels(lambda: se(x))
+    assert len(names) == 1 and "se_fused" in names[0][0], names
+
 @pytest.mark.parametrize("shape", SE_SHAPES)
 def test_se_kernel_matches_twin(dev, shape):
     x, w1, w2 = _se_inputs(shape, dev)
@@ -107,6 +141,73 @@ def test_se_kernel_matches_twin(dev, shape):
     # does not depend on what else is in its batch
     assert torch.equal(se_block(x, w1, w2), got)
     assert torch.equal(se_block(x[-1:].contiguous(), w1, w2), got[-1:])
+
+
+# SE shapes off the kernel's tiles: H*W not a multiple of a tile, C off
+# the 128-byte rows (200, 1040), B = 1, 5 and 16.
+SE_RAGGED = [(5, 37, 29, 64), (16, 23, 23, 200), (1, 130, 130, 192),
+             (2, 96, 96, 1040)]
+
+
+def _se_linear(c, dev, seed=0):
+    """w1 [C, R] and w2 [R, C] as SEBlock hands them over: transposed
+    views of nn.Linear weights (the kernel reads them without a copy)."""
+    r = max(1, c // 16)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w1 = torch.randn((r, c), generator=g, device=dev) / c ** 0.5
+    w2 = torch.randn((c, r), generator=g, device=dev) / r ** 0.5
+    return w1.t(), w2.t()
+
+
+def _se_close(got, want):
+    if want.dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SE_RAGGED)
+def test_se_kernel_ragged_matches_twin(dev, shape, dtype):
+    w1, w2 = _se_linear(shape[-1], dev, 1)
+    x = torch.randn(shape, generator=torch.Generator(device=dev)
+                    .manual_seed(2), device=dev).to(dtype)
+    got = se_block(x, w1, w2)
+    _se_close(got, se_block_plain(x, w1, w2))
+    assert torch.equal(se_block(x, w1, w2), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [5, 16])
+def test_se_kernel_rows_alone_match_the_batch(dev, b, dtype):
+    """Tiles, parts and sums depend on (H, W, C) only: row k of a batch is
+    bit-identical to x[k:k+1] alone (the serving contract)."""
+    w1, w2 = _se_linear(1536, dev, 3)
+    x = torch.randn((b, 32, 32, 1536), generator=torch.Generator(device=dev)
+                    .manual_seed(4), device=dev).to(dtype)
+    got = se_block(x, w1, w2)
+    for k in range(b):
+        assert torch.equal(se_block(x[k:k + 1].contiguous(), w1, w2),
+                           got[k:k + 1])
+
+
+def test_se_calls_of_other_shapes_in_turn(dev):
+    """Calls on one stream share one workspace (counters, flags, scratch)
+    across plans and types: a counter or flag left set would hang or give a
+    wrong gate."""
+    cases = []
+    for i, (shape, dtype) in enumerate((
+            ((2, 32, 32, 1536), torch.bfloat16),
+            ((5, 64, 64, 768), torch.float32),
+            ((3, 20, 20, 96), torch.bfloat16),
+            ((16, 16, 16, 192), torch.float32))):
+        w1, w2 = _se_linear(shape[-1], dev, 10 + i)
+        x = torch.randn(shape, device=dev).to(dtype)
+        cases.append((x, w1, w2, se_block_plain(x, w1, w2)))
+    for _ in range(3):
+        for x, w1, w2, want in cases:
+            _se_close(se_block(x, w1, w2), want)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kind", ["group", "affine"])

@@ -1,7 +1,7 @@
 """The port's SE and CoordAttn kernels on the CPU: their plain twins
 against the JAX package's XLA twins (``se_block_xla``, ``coord_attn_xla``)
-and modules, the wrappers' dispatch, the CoordAttn kernel's launch plan and
-its stages in plain torch, and the module's cache of packed weights. The CUDA kernels themselves are
+and modules, the wrappers' dispatch, both kernels' launch plans and their
+stages in plain torch, and the module's cache of packed weights. The CUDA kernels themselves are
 held to these twins on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance atol 1e-5: the same fp32 arithmetic, summed in another order."""
@@ -28,7 +28,12 @@ from diffusionmodel_tpu_torch.kernels.coord_attn import (
     coord_attn_staged,
     launch_plan,
 )
-from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_plain
+from diffusionmodel_tpu_torch.kernels import se_block as se_mod
+from diffusionmodel_tpu_torch.kernels.se_block import (
+    se_block,
+    se_block_plain,
+    se_block_staged,
+)
 from diffusionmodel_tpu_torch.nn.blocks import SEBlock, channels_last
 from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
 
@@ -254,3 +259,112 @@ def test_coord_attn_module_caches_packed_weights():
     mod(x).square().sum().backward()
     assert mod.conv1_h.weight.grad is not None
     assert mod.gamma_h.grad is not None and mod.gamma_h.grad.abs().item() > 0
+
+
+# The flagship's SE sites at batch 16 (chip_smoke.SE_SITES), and ragged
+# shapes: H*W off the tiles, C off the 128-byte rows (C = 8, 20, 200),
+# B = 1, 5 and 16.
+SE_FLAGSHIP = [(16, 256, 256, 192), (16, 128, 128, 384), (16, 64, 64, 768),
+               (16, 32, 32, 1536)]
+SE_RAGGED = [(1, 1, 1, 8), (5, 37, 29, 64), (16, 23, 23, 200),
+             (5, 130, 130, 192), (1, 5, 7, 8), (16, 3, 3, 1040)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SE_FLAGSHIP + SE_RAGGED)
+def test_se_launch_plan(shape, dtype):
+    b, h, w, c = shape
+    r = max(1, c // 16)
+    plan = se_mod.launch_plan(b, h, w, c, r, dtype)
+    vec = 16 // dtype.itemsize
+    hw = h * w
+    # tiles: rows of 1-8 16-byte vectors that tile C; pixels cut into
+    # tiles of at most 32 KB; every (pixel, channel) in exactly one tile
+    assert plan.row_vectors in (1, 2, 4, 8)
+    assert plan.slices * plan.slice_channels == c
+    assert plan.tile_pixels * plan.row_vectors * 16 <= se_mod.TILE_BYTES
+    assert plan.tiles == plan.slices * plan.pixel_tiles
+    cover = np.zeros((hw, c // vec), np.int32)
+    for t in range(plan.tiles):
+        s, q = divmod(t, plan.pixel_tiles)
+        p0 = q * plan.tile_pixels
+        assert p0 < hw
+        cover[p0:p0 + plan.tile_pixels,
+              s * plan.row_vectors:(s + 1) * plan.row_vectors] += 1
+    assert (cover == 1).all()
+    # parts: consecutive tiles, at most one per block of an H100
+    assert plan.parts == -(-plan.tiles // plan.tiles_per_part)
+    assert plan.parts <= se_mod.NOMINAL_BLOCKS and plan.grid <= 132
+    assert plan.grid == min(b * plan.parts, 132)
+    assert plan.streamed == max(0, plan.tiles_per_part - se_mod.SLOTS)
+    assert plan.smem == se_mod.smem_bytes(r) <= 227 * 1024
+    x_bytes = b * hw * c * dtype.itemsize
+    assert plan.bytes_written == x_bytes
+    assert plan.bytes_read == x_bytes + 2 * c * r * 4
+    assert 0 <= plan.bytes_reread < x_bytes
+    # the partition does not depend on the batch (nor on the grid)
+    for other in (1, 5, 16):
+        o = se_mod.launch_plan(other, h, w, c, r, dtype)
+        assert (o.tile_pixels, o.row_vectors, o.tiles_per_part, o.parts,
+                o.bytes_reread * b) == (
+            plan.tile_pixels, plan.row_vectors, plan.tiles_per_part,
+            plan.parts, plan.bytes_reread * other)
+    assert se_mod.launch_plan(b, h, w, c, r, dtype, 200).parts == plan.parts
+    if shape in SE_FLAGSHIP:
+        assert plan.row_vectors == 8  # 128-byte rows
+        if dtype == torch.bfloat16 or h < 256:
+            assert plan.bytes_reread == 0  # the sample stays on chip
+        else:  # fp32 at 256 px: half of each sample is re-read
+            assert plan.bytes_reread == x_bytes // 2
+
+
+def test_se_launch_plan_refusals():
+    with pytest.raises(ValueError, match="R="):
+        se_mod.launch_plan(2, 8, 8, 64, se_mod.MAX_R + 1)
+    with pytest.raises(ValueError, match="C % 8"):
+        se_mod.launch_plan(2, 8, 8, 60, 4, torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        se_mod.launch_plan(2, 8, 8, 64, 4, torch.float16)
+    with pytest.raises(ValueError, match="resident blocks"):
+        se_mod.launch_plan(2, 256, 256, 192, 12, torch.float32, 64)
+
+
+def _se_numpy(shape, seed):
+    b, h, w, c = shape
+    r = max(1, c // 16)
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*shape).astype(np.float32),
+            (rng.randn(c, r) / np.sqrt(c)).astype(np.float32),
+            (rng.randn(r, c) / np.sqrt(r)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 192), (3, 5, 7, 20),
+                                   (2, 37, 33, 64), (1, 16, 16, 1040)])
+def test_se_staged_matches_xla_twin(shape):
+    """The kernel's tiles, parts and order of summation, in plain torch,
+    against the JAX package's XLA twin (exact-erf GELU); (2, 37, 33, 64)
+    has a ragged last tile, (1, 16, 16, 1040) rows of 2 vectors."""
+    x, w1, w2 = _se_numpy(shape, 3)
+    want = np.asarray(se_block_xla(jnp.asarray(x), jnp.asarray(w1),
+                                   jnp.asarray(w2)))
+    got = se_block_staged(*map(torch.from_numpy, (x, w1, w2))).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(5, 16, 16, 192), (16, 9, 9, 64)])
+def test_se_staged_bf16_matches_twin_and_is_batch_invariant(shape):
+    """In bf16, the staged kernel against the bf16 twin within the card
+    tests' bounds (relative L2 <= 4e-3, max |diff| <= 2**-7 max |y|), and
+    each sample bit-identical alone and inside its batch."""
+    x, w1, w2 = _se_numpy(shape, 4)
+    tx = torch.from_numpy(x).bfloat16()
+    tw1, tw2 = torch.from_numpy(w1), torch.from_numpy(w2)
+    got = se_block_staged(tx, tw1, tw2)
+    want = se_block_plain(tx, tw1, tw2)
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, wf = got.float(), want.float()
+    assert ((g - wf).norm() / wf.norm()).item() <= 4e-3
+    assert (g - wf).abs().max().item() <= 2 ** -7 * wf.abs().max().item()
+    for k in (0, shape[0] // 2, shape[0] - 1):
+        assert torch.equal(se_block_staged(tx[k:k + 1], tw1, tw2),
+                           got[k:k + 1])
