@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths at full width, with weights drawn from
-fixed torch seeds: the ContextUnet serving path of ``preset("full")``
+fixed torch seeds (the flagship's editing, ``.pt`` checkpoints, the side
+families and the CLIP text encoder in the last phases, below): the ContextUnet serving path of ``preset("full")``
 (ContextUnet v2, n_feat 192, 256 px, 5 classes, GroupNorm, 353M
 parameters) with ``model.use_pallas=True``, so that SE and CoordAttn run
 through the hand-written CUDA kernels; the latent-diffusion path
@@ -57,15 +58,17 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             cached (must be the kernel's 3), and of one eval SEBlock call
             (must be the kernel's 1).
 6. serve    the ContextUnet main path, with every launch count zeroed just
-            before it and PyTorch's TF32 defaults restored for the two
-            services (their worker must turn TF32 off itself: a forward
-            pre-hook records the flags every denoiser forward sees, and
-            the phase fails unless both are off):
-            ``SamplerService`` with DDIM-50 (mixed classes, two guidance
-            scales, a pinned request alone and then batched with others,
-            which must give the same images bit for bit, and one HTTP round
-            trip), then DPM++-20, then the ancestral sampler over the last
-            10 steps. Every image must be finite and of the right shape.
+            before it and PyTorch's TF32 defaults restored for the service
+            (its worker must turn TF32 off itself: a forward pre-hook
+            records the flags every denoiser forward sees, and the phase
+            fails unless both are off): ``SamplerService`` with DDIM-10
+            (``SERVE_DDIM_STEPS``: cut from DDIM-50, and the DPM++-20
+            service moved to serve_bf16, to make room for the editing and
+            side-family phases; mixed classes, two guidance scales, a
+            pinned request alone and then batched with others, which must
+            give the same images bit for bit, and one HTTP round trip),
+            then the ancestral sampler over the last 10 steps. Every image
+            must be finite and of the right shape.
 7. ldm_forward  the SD UNet at 512 px on a CFG batch of 4 through the
             kernel (5 launches: down_0_{0,1}, up_0_{0,1,2}) against the
             plain attention path on the same weights (relative L2
@@ -133,10 +136,10 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             batches 4, 20, 10, 4 (validation, the sweep's and fit's CFG
             batches; the kernel model's back to back on one stream), each
             within relative L2 1e-4 of the plain path; then ``python -m
-            diffusionmodel_tpu_torch.cli --mode generate`` (DPM++-10) in a
-            subprocess (its wall time includes the process start, the
-            checkpoint load and cuDNN's search); seconds and images/s of
-            both.
+            diffusionmodel_tpu_torch.cli --mode generate`` (DPM++-10, one
+            guide scale) in a subprocess (its wall time includes the
+            process start, the checkpoint load and cuDNN's search); seconds
+            and images/s of both.
 14. eval    the sweep's 10 images against the dataset's 25 through
             ``ImageMetrics()`` on the card (the proxy InceptionV3 at 299
             px, fp32, TF32 off): fid_proxy, kid_proxy_x1000, SSIM, PSNR,
@@ -165,10 +168,13 @@ forward_bf16 (after serve)  one set of weights at fp32 and bf16, fused
             launches per forward, bf16-vs-fp32 and fused-vs-unfused
             relative L2 (fused at fp32 <= 1e-5), each bf16 output unmoved
             when the batch is rolled.
-serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-50 at max_batch 8
+serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-10 at max_batch 8
             in bf16, under PyTorch's TF32 defaults as in serve: the first
             request (cuDNN's search included) and a batch of three, the
-            pinned request bit-identical, images/s, launches per forward.
+            pinned request bit-identical; then a DPM++-20 service
+            (``--sampler dpmpp``), a pinned request alone and batched with
+            another, bit-identical; every forward of both with TF32 off,
+            finite images, images/s, launches per forward.
 train_bf16 (last)  ``trainer.fit`` with the README's training settings
             (bf16, fused upsample) and the train phase's others, one
             epoch: finite losses, launches per forward by mode, fp32
@@ -177,9 +183,50 @@ train_bf16 (last)  ``trainer.fit`` with the README's training settings
             step, idle share, peak GiB, and the first step's search (the
             epoch's time less two steady steps).
 
-The kernels line lists the bf16 forms of SE and CoordAttn as two more
+The flagship's editing, ``.pt`` checkpoints, the side families and CLIP:
+
+edit (after eval)  ``sample.edit_samples`` on the trained fp32 checkpoint
+            at full width: img2img and inpaint of a 256 px crack image
+            written as PNG (strength 0.75 of DDIM-50: 38 forwards, guide
+            2.0, batch 2, the start noise pinned): finite [2, 256, 256, 3]
+            images, 5 SE and 4 CoordAttn launches per forward (counts
+            zeroed just before each edit), the inpaint's kept half equal to
+            the source bit for bit before saving, each edit against the
+            plain path (``use_pallas=False``, the same weights and noise,
+            relative L2 <= 1e-4), and the img2img edit of a plain path
+            whose SE gates are planted 1% too large, which must read above
+            that tolerance; seconds per edit call and images/s; then
+            ``cli --mode inpaint --family main`` in a subprocess.
+pt_checkpoint  the trained weights written with ``torch.save`` in the
+            reference's layout (``nn_model.`` keys and the DDPM schedule
+            buffers), read by ``load_checkpoint(path, arch, norm)``: the
+            eval forward bit-identical to the pickle's.
+edit_bf16 (after train_bf16)  the edit phase on the bf16 checkpoint (bf16
+            compute, fused head): launches, finite images, the kept half.
+side_families  the ``mnist`` (28 px, n_feat 128, BatchNorm), ``custom``
+            (CBAM, 128 px, n_feat 128) and ``labml`` (the labml U-Net at
+            64 px, 64 channels, ch_mults 1-2-2-4, attention at 16 and 8
+            px) presets at their own widths: one ``fit`` epoch of one or
+            two steps on a synthetic dataset (finite losses, step seconds,
+            peak GiB), the checkpoint reloaded into a fresh model (the
+            same weights, and under cuDNN's deterministic algorithms the
+            same output bit for bit), a ``gen_samples`` call (DDIM-50 for
+            mnist and custom; the 1000-step textbook sampler for 4 slots
+            for labml), mnist's ancestral ``return_history`` written as a
+            GIF, a pinned labml ``SamplerService`` request alone and then
+            batched with another, bit-identical; mnist again at
+            bf16, and custom's float32 checkpoint sampled and reloaded at
+            bf16 (no second fit).
+clip        only where transformers is installed: a tiny random-config
+            ``CLIPTextModel`` with a minimal vocab on the card through
+            ``CLIPTextEmbedder`` (against the same model on the CPU,
+            relative L2 <= 1e-4), conditioning one ``LdmRunner(arch=
+            "tiny")`` txt2img.
+
+Each phase's seconds are printed as a ``{"phase": "seconds"}`` line. The
+kernels line lists the bf16 forms of SE and CoordAttn as two more
 entries (``se_block_bf16``, ``coord_attn_bf16``) with their launches on
-the bf16 serving path.
+the bf16 serving path, and for each form its launches in the edits.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -209,6 +256,12 @@ KERNEL_ATOL = 1e-4
 FORWARD_RTOL = 1e-4
 IMG_FRAC = 0.98  # share of decoded values that must lie in [-1.5, 1.5]
 BATCH = 16  # the sampler's doubled CFG batch at max_batch 8
+# the serve phases' DDIM depth: 10 steps (50 until the edit, .pt and side
+# family phases needed the time; each DDIM-50 batch of 8 took ~30 s). For
+# the same reason the DPM++-20 service runs in serve_bf16 (its worker's
+# bf16 search takes seconds), no longer in serve (~65 s at fp32, most of it
+# that worker's own cuDNN search).
+SERVE_DDIM_STEPS = 10
 # (B, N, M, H, D) flash-attention sites: the SD UNet's level 0 at 512 px
 # (CFG batch 4), 416 px (ragged: 52² tokens), D = 80 / 160 (SD levels 1
 # and 2 at larger sizes), M != N, and the tiny / mid head dims.
@@ -861,6 +914,8 @@ def phase_serve(cfg, model, counters, env) -> list:
     from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg
     from diffusionmodel_tpu_torch.serving import SamplerService
 
+    cfg = cfg.replace(sample=dataclasses.replace(
+        cfg.sample, ddim_steps=SERVE_DDIM_STEPS))
     dc = cfg.diffusion
     sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, "cuda")
     for f in counters:
@@ -897,14 +952,6 @@ def phase_serve(cfg, model, counters, env) -> list:
     check(batched_runs == 1, f"three requests took {batched_runs} batches")
     check(pin_err == 0.0, f"pinned request moved by {pin_err} when batched")
 
-    with SamplerService(model, cfg, sched, max_batch=8, sampler="dpmpp",
-                        service_seed=0) as svc:
-        t0 = time.perf_counter()
-        imgs = svc.generate([0, 1, 2, 3, 4, 0, 1, 2], guide_w=3.0, seed=7)
-        dpm_s = time.perf_counter() - t0
-    emit("serve", sampler="dpmpp", steps=cfg.sample.dpm_steps, max_batch=8,
-         seconds=dpm_s, images_per_s=8 / dpm_s)
-    check(_finite(imgs, 8), "DPM++ images finite, [8,256,256,3]")
     flags.stop()
     emit("serve", run="precision", **flags.summary())
     flags.check("serve")
@@ -923,7 +970,7 @@ def phase_serve(cfg, model, counters, env) -> list:
 
     torch.cuda.synchronize()
     launches = [f.launches for f in counters]
-    forwards = 3 * cfg.sample.ddim_steps + cfg.sample.dpm_steps + 10
+    forwards = 3 * cfg.sample.ddim_steps + 10
     emit("serve", seconds=time.perf_counter() - t_serve, forwards=forwards,
          se_launches=launches[0], ca_launches=launches[1],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -1787,10 +1834,12 @@ def phase_generate(counters, cfg, ckpt, out_dir, dataset) -> tuple:
           f"generation batches: kernel vs plain {match}")
 
     cli_dir = f"{out_dir}/cli_samples"
+    # one guide scale (a CFG batch of 10; two until the edit and side-family
+    # phases needed the time): the subprocess's cuDNN search is most of it
     cmd = [_sys.executable, "-m", "diffusionmodel_tpu_torch.cli", "--mode",
            "generate", "--ckpt", ckpt, "--sampler", "dpmpp", "--steps", "10",
-           "--samples", "1", "--no_eval", "--device", "cuda",
-           "-o", "model.use_pallas=true",
+           "--samples", "1", "--guide_scales", "2.0", "--no_eval",
+           "--device", "cuda", "-o", "model.use_pallas=true",
            "-o", f"sample.sample_dir={cli_dir}"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -1799,9 +1848,9 @@ def phase_generate(counters, cfg, ckpt, out_dir, dataset) -> tuple:
     made = sorted(os.listdir(os.path.join(cli_dir, os.listdir(cli_dir)[0]))) \
         if proc.returncode == 0 and os.path.isdir(cli_dir) else []
     emit("generate", run="cli", returncode=proc.returncode, seconds=cli_s,
-         images_per_s=n_img / cli_s, files=made,
+         images_per_s=FLAGSHIP_CLASSES / cli_s, files=made,
          stderr_tail=proc.stderr[-2000:])
-    check(proc.returncode == 0 and len(made) == n_img + 2,
+    check(proc.returncode == 0 and len(made) == FLAGSHIP_CLASSES + 1,
           f"cli --mode generate: rc {proc.returncode}, files {made}")
     return launches, np.concatenate([res[2.0]["images"], res[4.0]["images"]])
 
@@ -2103,17 +2152,22 @@ def phase_forward_bf16(counters) -> None:
 
 def phase_serve_bf16(counters, env) -> list:
     """The README's serve command in bf16 (``-o model.dtype=bfloat16``,
-    with ``use_pallas``): ``SamplerService`` DDIM-50 at max_batch 8, the
+    with ``use_pallas``): ``SamplerService`` DDIM-10 (``SERVE_DDIM_STEPS``,
+    50 until the edit and side-family phases) at max_batch 8, the
     launch counts zeroed just before and PyTorch's TF32 defaults restored
     (the worker turns TF32 off itself; the denoiser's bf16 convolutions
     are unaffected): a pinned request alone (the service's first batch,
     cuDNN's search included), then batched with two others (one batch),
-    bit-identical; latencies and images/s."""
+    bit-identical; then a DPM++-20 service (``--sampler dpmpp``), a pinned
+    request alone and batched with another, bit-identical; every
+    denoiser forward of both services seen with TF32 off; latencies and
+    images/s."""
     from diffusionmodel_tpu_torch.diffusion import Schedule
     from diffusionmodel_tpu_torch.nn import build_model
     from diffusionmodel_tpu_torch.serving import SamplerService
 
-    cfg = _flagship_bf16_cfg()
+    cfg = _flagship_bf16_cfg(**{"sample.ddim_steps": SERVE_DDIM_STEPS})
+    dpm_steps = cfg.sample.dpm_steps
     dc = cfg.diffusion
     torch.manual_seed(0)
     model = build_model(cfg.model, dc.high_thresh, device="cuda")
@@ -2136,11 +2190,31 @@ def phase_serve_bf16(counters, env) -> list:
         batched_s = time.perf_counter() - t0
         batched_runs = svc.stats["batches"] - n0
         st = dict(svc.stats)
+    # the DPM++ kind (``--mode serve --sampler dpmpp``): its own service,
+    # a pinned request alone (its first batch, cuDNN's search included),
+    # then batched with another request
+    with SamplerService(model, cfg, sched, max_batch=8, sampler="dpmpp",
+                        service_seed=0) as svc:
+        t0 = time.perf_counter()
+        dpm_alone = svc.generate([0, 1, 2, 3, 4], guide_w=3.0, seed=7)
+        dpm_alone_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futs = [svc.submit([1, 2, 3], guide_w=2.0),
+                svc.submit([0, 1, 2, 3, 4], guide_w=3.0, seed=7)]
+        dpm_outs = [f.result(timeout=900) for f in futs]
+        dpm_batched_s = time.perf_counter() - t0
+        dpm_st = dict(svc.stats)
     flags.stop()
     torch.cuda.synchronize()
     launches = _counts(counters)
-    forwards = 2 * cfg.sample.ddim_steps
+    forwards = 2 * cfg.sample.ddim_steps + 2 * dpm_steps
     pin_err = float(np.abs(outs[1] - alone).max())
+    dpm_pin_err = float(np.abs(dpm_outs[1] - dpm_alone).max())
+    emit("serve_bf16", sampler="dpmpp", steps=dpm_steps, max_batch=8,
+         pinned_alone_vs_batched_max_abs=dpm_pin_err,
+         first_request_s=dpm_alone_s, batched_s=dpm_batched_s,
+         images_per_s=dpm_st["slots_used"] / dpm_st["busy_seconds"],
+         stats=dpm_st)
     emit("serve_bf16", sampler="ddim", steps=cfg.sample.ddim_steps,
          max_batch=8, dtype=cfg.model.dtype,
          pinned_alone_vs_batched_max_abs=pin_err, batched_runs=batched_runs,
@@ -2155,6 +2229,12 @@ def phase_serve_bf16(counters, env) -> list:
           "bf16 DDIM images finite, [n,256,256,3]")
     check(batched_runs == 1, f"three requests took {batched_runs} batches")
     check(pin_err == 0.0, f"bf16: pinned request moved by {pin_err}")
+    check(_finite(dpm_alone, 5) and all(_finite(o, len(o)) for o in dpm_outs),
+          "bf16 DPM++ images finite, [n,256,256,3]")
+    check(dpm_st["batches"] == 2,
+          f"two DPM++ requests took {dpm_st['batches'] - 1} batches")
+    check(dpm_pin_err == 0.0,
+          f"bf16 DPM++: pinned request moved by {dpm_pin_err}")
     check(launches == [SE_PER_FORWARD * forwards, CA_PER_FORWARD * forwards],
           f"bf16 serving launches {launches} for {forwards} forwards")
     del model
@@ -2271,6 +2351,523 @@ def phase_train_bf16(counters, out_dir, dataset) -> list:
     return launches
 
 
+EDIT_STEPS, EDIT_STRENGTH, EDIT_GUIDE, EDIT_BATCH = 50, 0.75, 2.0, 2
+# the planted fault that shows the kernel-vs-plain comparison can fail:
+# every SE gate of the plain path 1% too large in one img2img run
+EDIT_PLANTED_GATE = 1.01
+# DDIM steps an edit runs: max(1, min(n, round(strength * n))) = 38
+EDIT_FORWARDS = max(1, min(EDIT_STEPS, round(EDIT_STRENGTH * EDIT_STEPS)))
+
+
+def _edit_source(dataset, out_dir) -> str:
+    """The dataset's first crack image (256 px), written as a PNG."""
+    import os
+
+    from diffusionmodel_tpu_torch.utils.grid import save_image
+
+    os.makedirs(out_dir, exist_ok=True)
+    return save_image(dataset.load(0, augment=False)[0],
+                      os.path.join(out_dir, "edit_source.png"), denorm=True)
+
+
+def phase_edit(counters, cfg, ckpt, out_dir, dataset, tag="edit") -> list:
+    """``sample.edit_samples`` (the ``--family main`` front door) on the
+    trained flagship checkpoint at full width, img2img and inpaint
+    (strength 0.75 of DDIM-50: 38 forwards, guide 2.0, batch 2, the
+    default bottom-half keep-mask) from a crack image written as PNG, the
+    start noise pinned: finite [2, 256, 256, 3] images, 5 SE and 4
+    CoordAttn launches per forward, the inpaint's kept half equal to the
+    source bit for bit before it is saved; at fp32 each edit against the
+    plain path (``use_pallas=False``, the same weights and noise) by
+    relative L2, and the img2img edit once more with a planted fault (the
+    plain path's SE gates 1% too large) that the comparison must catch;
+    seconds per edit call (sampling only) and images/s.
+    Returns the launches of both edits."""
+    import os
+
+    from diffusionmodel_tpu_torch.checkpoint import (
+        extract_params,
+        load_checkpoint,
+    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import load_flax
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg_edit
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.sample import (
+        _load_edit_image,
+        _load_keep_mask,
+        edit_samples,
+    )
+
+    mc, dc = cfg.model, cfg.diffusion
+    src = _edit_source(dataset, out_dir)
+    x0 = np.repeat(_load_edit_image(src, mc.img_size, mc.in_ch), EDIT_BATCH,
+                   axis=0)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    noise = torch.randn(x0.shape, generator=g, device="cuda")
+    plain = None
+    if mc.dtype == "float32":
+        ck = load_checkpoint(ckpt)
+        torch.manual_seed(1)
+        plain = build_model(dataclasses.replace(mc, use_pallas=False),
+                            dc.high_thresh, device="cuda")
+        load_flax(plain, extract_params(ck), ck["batch_stats"])
+        del ck
+    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, "cuda")
+    total = [0, 0]
+    for mode in ("img2img", "inpaint"):
+        watch = _ForwardLaunches(counters)
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = edit_samples(
+            cfg, ckpt, src, mode=mode, class_id=1, guide_w=EDIT_GUIDE,
+            strength=EDIT_STRENGTH, n_steps=EDIT_STEPS, batch=EDIT_BATCH,
+            out_dir=os.path.join(out_dir, f"{tag}_{mode}"), verbose=False,
+            device="cuda", noise=noise)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = _counts(counters)
+        watch.close()
+        seen = watch.summary()
+        imgs = res["images"]
+        kept = None
+        if mode == "inpaint":
+            keep = _load_keep_mask(None, mc.img_size) > 0
+            kept = bool(np.array_equal(imgs[:, keep], x0[:, keep]))
+        rel = None
+        if plain is not None:
+            mask = (_load_keep_mask(None, mc.img_size) if mode == "inpaint"
+                    else None)
+            with fp32_compute(torch.device("cuda")):
+                want = sample_cfg_edit(
+                    plain, None, x0, mc.n_classes, sched, dc,
+                    guide_w=EDIT_GUIDE, n_steps=EDIT_STEPS,
+                    strength=EDIT_STRENGTH, inpaint_mask=mask,
+                    classes=torch.full((EDIT_BATCH,), 1, device="cuda"),
+                    discretize=cfg.sample.ddim_discretize, noise=noise)
+            rel = _rel_l2_np(imgs, want.cpu().numpy())
+        planted = None
+        if plain is not None and mode == "img2img":
+            planted = _planted_gate_rel_l2(
+                plain, imgs, x0, cfg, sched, noise)
+        emit(tag, mode=mode, dtype=mc.dtype, steps=EDIT_STEPS,
+             strength=EDIT_STRENGTH, forwards=seen["eval"]["forwards"],
+             batch=EDIT_BATCH, seconds=res["seconds"],
+             images_per_s=EDIT_BATCH / res["seconds"], call_seconds=call_s,
+             se_launches=launches[0], ca_launches=launches[1],
+             kernel_vs_plain_rel_l2=rel,
+             planted_gate_vs_kernel_rel_l2=planted,
+             kept_region_bit_identical=kept,
+             files=sorted(os.listdir(res["out_dir"])))
+        check(imgs.shape == (EDIT_BATCH, 256, 256, 3)
+              and bool(np.isfinite(imgs).all()), f"{tag} {mode} images")
+        check(seen["eval"]["forwards"] == EDIT_FORWARDS
+              and launches == [SE_PER_FORWARD * EDIT_FORWARDS,
+                               CA_PER_FORWARD * EDIT_FORWARDS],
+              f"{tag} {mode} launches {launches}, {seen}")
+        check(kept is not False, f"{tag}: the kept region moved")
+        check(rel is None or rel <= FORWARD_RTOL,
+              f"{tag} {mode}: kernel vs plain {rel}")
+        check(planted is None or planted > FORWARD_RTOL,
+              f"{tag} {mode}: a plain path with its SE gates x"
+              f"{EDIT_PLANTED_GATE} passed the comparison ({planted})")
+        total = [a + b for a, b in zip(total, launches)]
+    del plain
+    torch.cuda.empty_cache()
+    return total
+
+
+def _planted_gate_rel_l2(plain, imgs, x0, cfg, sched, noise) -> float:
+    """The img2img edit of ``plain`` with every SE gate scaled by
+    ``EDIT_PLANTED_GATE`` (a forward hook on each ``SEBlock``: its output
+    is x * gate), against the kernel path's images by relative L2."""
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import sample_cfg_edit
+    from diffusionmodel_tpu_torch.nn.blocks import SEBlock
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: out * EDIT_PLANTED_GATE)
+        for m in plain.modules() if isinstance(m, SEBlock)]
+    check(len(hooks) == SE_PER_FORWARD, f"{len(hooks)} SE blocks")
+    try:
+        with fp32_compute(torch.device("cuda")):
+            got = sample_cfg_edit(
+                plain, None, x0, cfg.model.n_classes, sched, cfg.diffusion,
+                guide_w=EDIT_GUIDE, n_steps=EDIT_STEPS,
+                strength=EDIT_STRENGTH,
+                classes=torch.full((EDIT_BATCH,), 1, device="cuda"),
+                discretize=cfg.sample.ddim_discretize, noise=noise)
+    finally:
+        for h in hooks:
+            h.remove()
+    return _rel_l2_np(imgs, got.cpu().numpy())
+
+
+def phase_edit_cli(ckpt, out_dir, dataset) -> None:
+    """``python -m diffusionmodel_tpu_torch.cli --mode inpaint --family
+    main`` on the checkpoint in a subprocess, batch 1 (its time includes
+    the process start, the checkpoint load and cuDNN's search)."""
+    import os
+    import sys as _sys
+
+    src = _edit_source(dataset, out_dir)
+    cli_dir = os.path.join(out_dir, "edit_cli")
+    cmd = [_sys.executable, "-m", "diffusionmodel_tpu_torch.cli", "--mode",
+           "inpaint", "--family", "main", "--ckpt", ckpt, "--orig_img", src,
+           "--batch_size", "1", "--device", "cuda",
+           "--out_dir", cli_dir, "-o", "model.use_pallas=true"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    made = sorted(os.listdir(cli_dir)) if os.path.isdir(cli_dir) else []
+    emit("edit", run="cli", returncode=proc.returncode, seconds=cli_s,
+         files=made, stdout_tail=proc.stdout[-500:],
+         stderr_tail=proc.stderr[-2000:])
+    check(proc.returncode == 0 and made == [
+        "inpaint_grid.png", "inpaint_s0.png"],
+        f"cli --mode inpaint --family main: rc {proc.returncode}, {made}")
+
+
+def phase_pt_checkpoint(cfg, ckpt, out_dir) -> None:
+    """The trained flagship's sampling weights written with ``torch.save``
+    in the reference's layout (``{"model_state_dict": {"nn_model." + k: v}
+    + the DDPM schedule buffers, "epoch"}``), read back through
+    ``load_checkpoint(path, arch, norm)``: the eval forward of a model
+    loaded from the ``.pt`` is bit-identical to the one from the pickle."""
+    import os
+
+    from diffusionmodel_tpu_torch.checkpoint import (
+        extract_params,
+        load_checkpoint,
+    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import (
+        load_flax,
+        state_dict_from_flax,
+    )
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.schedules import ddpm_schedules_np
+
+    mc, dc = cfg.model, cfg.diffusion
+    ck = load_checkpoint(ckpt)
+    params, stats = extract_params(ck), ck["batch_stats"]
+    sd = {"nn_model." + k: v for k, v in
+          state_dict_from_flax(params, stats).items()}
+    sd.update({k: torch.from_numpy(v) for k, v in
+               ddpm_schedules_np(dc.beta1, dc.beta2, dc.n_T).items()})
+    path = os.path.join(out_dir, "flagship.pt")
+    t0 = time.perf_counter()
+    torch.save({"model_state_dict": sd, "epoch": int(ck["epoch"])}, path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    pt = load_checkpoint(path, arch=mc.arch, norm=mc.norm)
+    load_s = time.perf_counter() - t0
+    outs = []
+    for p, st in ((params, stats), (extract_params(pt), pt["batch_stats"])):
+        torch.manual_seed(1)
+        model = build_model(mc, dc.high_thresh, device="cuda")
+        load_flax(model, p, st)
+        outs.append(_flagship_eval_forward(model))
+        del model
+    same = torch.equal(*outs)
+    emit("pt_checkpoint", bytes=size, save_s=save_s, load_s=load_s,
+         weights_only=pt["weights_only"], epoch=pt["epoch"],
+         eval_output_bit_identical=same)
+    os.remove(path)
+    check(same, "the .pt checkpoint gives another eval output")
+    check(pt["weights_only"] is True and pt["epoch"] == ck["epoch"],
+          "the .pt checkpoint's reading")
+    del ck, pt, sd
+    torch.cuda.empty_cache()
+
+
+# the side presets at their own widths; datasets, epochs and (mnist,
+# custom: DDIM-50 for their 400 / 500-step ancestral loop) sampler depth cut
+SIDE = {
+    "mnist": {"train.n_epoch": 1, "sample.sampler": "ddim"},
+    "custom": {"train.n_epoch": 1, "sample.sampler": "ddim",
+               "model.n_classes": FLAGSHIP_CLASSES, "train.val_split": 0.2},
+    "labml": {"train.n_epoch": 1},
+}
+
+
+def _side_dataset(name, cfg):
+    from diffusionmodel_tpu_torch.data import (
+        MnistDataset,
+        SyntheticImageDataset,
+    )
+
+    tc = cfg.train
+    step = tc.batch_size * tc.accum_steps
+    if name == "mnist":  # two steps of 256 after the 10% validation split
+        return MnistDataset(synthetic=True, n_synthetic=int(2 * step / 0.9))
+    if name == "labml":
+        return SyntheticImageDataset(n=int(2 * step / 0.9), img_size=64,
+                                     channels=3)
+    dc = cfg.diffusion  # one step of 8 x 4 from 25 crack images
+    return _synthetic_crack_dataset(
+        128, (dc.low_weight, dc.mid_weight, dc.high_weight))
+
+
+def _side_forward(model, cfg, seed=5):
+    mc = cfg.model
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = mc.img_size
+    x = torch.randn((4, s, s, mc.in_ch), generator=g, device="cuda")
+    c = torch.arange(4, device="cuda") % mc.n_classes
+    t = (torch.tensor([1.0, 250.0, 600.0, 999.0], device="cuda")
+         if cfg.diffusion.schedule_family == "textbook"
+         else torch.rand(4, generator=g, device="cuda"))
+    with torch.no_grad():
+        return model.eval()(x, c, t, torch.ones(4, device="cuda"))
+
+
+def _side_run(name, cfg, dataset, ckpt=None) -> dict:
+    """One ``fit`` epoch (or, given ``ckpt``, none: that checkpoint is
+    sampled in ``cfg``'s compute type), the checkpoint reloaded into a
+    fresh model (the same weights and output), and a ``gen_samples``
+    call."""
+    import json
+    import os
+
+    from diffusionmodel_tpu_torch.checkpoint import (
+        extract_params,
+        load_checkpoint,
+    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import load_flax
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.sample import gen_samples
+    from diffusionmodel_tpu_torch.trainer import fit
+
+    mc, tc = cfg.model, cfg.train
+
+    def loaded():
+        ck = load_checkpoint(ckpt)
+        torch.manual_seed(1)
+        m = build_model(mc, cfg.diffusion.high_thresh, device="cuda")
+        load_flax(m, extract_params(ck, prefer_ema=False),
+                  ck.get("batch_stats"))
+        return m
+
+    torch.cuda.reset_peak_memory_stats()
+    row = dict(preset=name, arch=mc.arch, dtype=mc.dtype,
+               img_size=mc.img_size, n_feat=mc.n_feat, images=len(dataset))
+    if ckpt is None:
+        t0 = time.perf_counter()
+        state = fit(cfg, dataset=dataset, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        model = state.model
+        log = json.load(open(os.path.join(tc.save_dir, "metrics",
+                                          "metrics_ep0.json")))
+        ckpt = os.path.join(tc.save_dir, "ckpt_ep0")
+        row.update(steps=state.step, batch=[tc.accum_steps, tc.batch_size],
+            train_loss=log["train_loss"], val_loss=log["val_loss"],
+            seconds_per_step=1.0 / log["steps_per_sec"][-1], fit_s=fit_s,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        check(all(np.isfinite(log["train_loss"] + log["val_loss"])),
+              f"{name}: finite losses {log}")
+    else:
+        model = loaded()
+        row.update(fit="none: the float32 run's checkpoint")
+    fresh = loaded()
+    same_weights = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), fresh.state_dict().values()))
+    # under cuDNN's deterministic algorithms: with its default choice the
+    # labml net's eval output did not repeat bit for bit on the card
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        same = torch.equal(_side_forward(fresh, cfg),
+                           _side_forward(model, cfg))
+    finally:
+        cudnn.deterministic = saved
+    del fresh
+    n_per = 4 if name == "labml" else 1
+    t0 = time.perf_counter()
+    res = gen_samples(cfg, ckpt, n_samples_per_class=n_per,
+                      guide_scales=[2.0], eval_quality=False,
+                      dataset=dataset, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    imgs = res[2.0]["images"]
+    row.update(params=sum(p.numel() for p in model.parameters()),
+               reloaded_weights_equal=same_weights,
+               reloaded_bit_identical=same,
+               sampler=("textbook" if name == "labml"
+                        else cfg.sample.sampler),
+               sample_images=len(imgs), sample_seconds=res[2.0]["seconds"],
+               gen_call_seconds=gen_s)
+    emit("side_families", **row)
+    n_cls = mc.n_classes if name != "custom" else len(dataset.classes)
+    check(same_weights and same,
+          f"{name}: the reloaded checkpoint gives another output")
+    check(imgs.shape == (n_per * n_cls, mc.img_size, mc.img_size, mc.in_ch)
+          and bool(np.isfinite(imgs).all()), f"{name}: sampled images")
+    return {"model": model, "ckpt": ckpt}
+
+
+def phase_side_families(out_dir) -> None:
+    """The ``mnist`` (28 px, n_feat 128, BatchNorm), ``custom`` (CBAM, 128
+    px, n_feat 128) and ``labml`` (the labml U-Net at 64 px, 64 channels,
+    ch_mults 1-2-2-4, attention at 16 and 8 px, the textbook schedule)
+    presets at their own widths on the card: one ``fit`` epoch of one or
+    two steps on a synthetic dataset (finite losses; step seconds, peak
+    GiB), the checkpoint reloaded bit-identically, a ``gen_samples`` call
+    (mnist and custom DDIM-50, labml the 1000-step textbook sampler for 4
+    slots); mnist's ancestral ``return_history`` trajectory written as a
+    GIF; a pinned labml ``SamplerService`` request alone, then batched
+    with another, bit-identical; mnist once more at bf16,
+    and custom's checkpoint sampled at bf16 (no second fit)."""
+    import os
+    import shutil
+
+    from diffusionmodel_tpu_torch.config import preset
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg
+    from diffusionmodel_tpu_torch.serving import SamplerService
+    from diffusionmodel_tpu_torch.utils.animation import (
+        reference_frame_indices,
+        save_denoising_gif,
+    )
+
+    for name, over in SIDE.items():
+        fp32_ckpt = None
+        for dtype in (("float32", "bfloat16") if name != "labml"
+                      else ("float32",)):
+            run = os.path.join(out_dir, f"{name}_{dtype}")
+            cfg = preset(name, **over, **{
+                "model.dtype": dtype, "train.eval_every": 0,
+                "train.min_save_ep": 0, "train.save_dir": run,
+                "sample.sample_dir": os.path.join(run, "samples")})
+            # custom's bf16 repeat samples the float32 run's checkpoint
+            # instead of training again (cuDNN's bf16 search alone took
+            # ~25 s of a one-step epoch)
+            got = _side_run(name, cfg, _side_dataset(name, cfg),
+                            ckpt=fp32_ckpt if name == "custom" else None)
+            fp32_ckpt = got["ckpt"]
+            model, dc = got["model"], cfg.diffusion
+            if name == "mnist" and dtype == "float32":
+                t0 = time.perf_counter()
+                with fp32_compute(torch.device("cuda")):
+                    x, hist = sample_cfg(
+                        model.eval(), torch.Generator(device="cuda")
+                        .manual_seed(6), 10, (28, 28, 1), 10,
+                        Schedule.create(dc.beta1, dc.beta2, dc.n_T, "cuda"),
+                        dc, guide_w=2.0, return_history=True)
+                hist_s = time.perf_counter() - t0
+                gif = save_denoising_gif(hist, os.path.join(run, "mnist.gif"))
+                from PIL import Image
+
+                frames = Image.open(gif).n_frames
+                emit("side_families", preset=name, run="gif",
+                     history=list(hist.shape), seconds=hist_s,
+                     frames=frames, bytes=os.path.getsize(gif))
+                check(frames == len(reference_frame_indices(dc.n_T))
+                      and torch.equal(hist[-1], x)
+                      and bool(torch.isfinite(hist).all()), "mnist GIF")
+            if name == "labml":
+                sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, "cuda")
+                t0 = time.perf_counter()
+                with SamplerService(model, cfg, sched, max_batch=2,
+                                    service_seed=0) as svc:
+                    imgs = svc.generate([0], guide_w=0.0, seed=3)
+                    alone_s = time.perf_counter() - t0
+                    futs = [svc.submit([0], guide_w=4.0),
+                            svc.submit([0], guide_w=0.0, seed=3)]
+                    outs = [f.result(timeout=600) for f in futs]
+                    stats = dict(svc.stats)
+                svc_s = time.perf_counter() - t0
+                pin_err = float(np.abs(outs[1] - imgs).max())
+                emit("side_families", preset=name, run="service",
+                     kind="textbook", steps=dc.n_T, first_request_s=alone_s,
+                     pinned_alone_vs_batched_max_abs=pin_err,
+                     seconds=svc_s, stats=stats)
+                check(all(o.shape == (1, 64, 64, 3)
+                          and bool(np.isfinite(o).all())
+                          for o in [imgs] + outs), "labml service")
+                check(stats["batches"] == 2,
+                      f"labml: two requests took {stats['batches'] - 1} "
+                      "batches")
+                check(pin_err == 0.0,
+                      f"labml: pinned request moved by {pin_err}")
+            del got, model
+            torch.cuda.empty_cache()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_clip(out_dir) -> None:
+    """A tiny random-config ``CLIPTextModel`` (transformers' PyTorch one,
+    width 64 = the ``tiny`` LDM arch's d_cond) with a minimal vocab written
+    to a directory, on the card through ``CLIPTextEmbedder``: its output
+    against the same model on the CPU, then one ``LdmRunner(arch="tiny",
+    embedder=...)`` txt2img conditioned by it (DDIM-10, 64 px)."""
+    import json
+    import os
+
+    from transformers import CLIPTextConfig, CLIPTextModel, CLIPTokenizer
+
+    from diffusionmodel_tpu_torch.models.latent_diffusion.latent_diffusion import (  # noqa: E501
+        CLIPTextEmbedder,
+    )
+    from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
+        LdmRunner,
+    )
+
+    d = os.path.join(out_dir, "clip")
+    os.makedirs(d, exist_ok=True)
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for i, t in enumerate(["a</w>", "crack</w>", "road</w>", "in</w>",
+                           "the</w>", "photo</w>", "of</w>"]):
+        vocab[t] = i + 2
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    tok = CLIPTokenizer(os.path.join(d, "vocab.json"),
+                        os.path.join(d, "merges.txt"))
+    torch.manual_seed(0)
+    model = CLIPTextModel(CLIPTextConfig(
+        vocab_size=len(vocab), hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=2,
+        max_position_embeddings=77)).eval()
+    prompts = ["a crack in the road", ""]
+    want = CLIPTextEmbedder(tokenizer=tok, model=model)(prompts)
+    emb = CLIPTextEmbedder(tokenizer=tok, model=model.to("cuda"))
+    got = emb(prompts)
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    runner = LdmRunner(arch="tiny", steps=10, verbose=False, device="cuda",
+                       embedder=emb)
+    t0 = time.perf_counter()
+    img = runner.txt2img("a photo of a crack", h=64, w=64,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    txt_s = time.perf_counter() - t0
+    same = torch.equal(runner.cond(["a crack"]), emb(["a crack"]))
+    import transformers
+
+    emit("clip", transformers=transformers.__version__,
+         embed_shape=list(got.shape), device=str(got.device),
+         card_vs_cpu_rel_l2=rel, txt2img_seconds=txt_s,
+         image_shape=list(img.shape), conditioned_by_clip=same)
+    check(got.shape == (2, 77, 64) and got.device.type == "cuda"
+          and rel <= FORWARD_RTOL, f"CLIP on the card {rel}")
+    check(same and img.shape == (1, 64, 64, 3)
+          and bool(np.isfinite(img).all()), "txt2img through CLIP")
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, with a line giving the phase's seconds."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        emit("seconds", name=name, seconds=time.perf_counter() - t0)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2292,38 +2889,63 @@ def main() -> int:
     from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     counters = [se_block, coord_attn]
-    env = phase_env()
-    phase_build()
-    counts = fresh_kernel_counts()
-    rows = phase_kernels(counts)
-    bf16_rows = phase_kernels_bf16(counts)
-    flash_rows = phase_flash()
-    cfg, model = phase_forward(counters, counts)
-    launches = phase_serve(cfg, model, counters, env)
+    env = timed("env", phase_env)
+    timed("build", phase_build)
+    counts = timed("counts", fresh_kernel_counts)
+    rows = timed("kernels", phase_kernels, counts)
+    bf16_rows = timed("kernels_bf16", phase_kernels_bf16, counts)
+    flash_rows = timed("flash", phase_flash)
+    cfg, model = timed("forward", phase_forward, counters, counts)
+    launches = timed("serve", phase_serve, cfg, model, counters, env)
     del model
     torch.cuda.empty_cache()
-    phase_forward_bf16(counters)
-    bf16_launches = phase_serve_bf16(counters, env)
-    phase_ldm_forward(flash_attention)
-    flash_launches = phase_ldm(flash_attention, env)
+    timed("forward_bf16", phase_forward_bf16, counters)
+    bf16_launches = timed("serve_bf16", phase_serve_bf16, counters, env)
+    timed("ldm_forward", phase_ldm_forward, flash_attention)
+    flash_launches = timed("ldm", phase_ldm, flash_attention, env)
     flash_counters = [flash_attention, flash_attention_dq, flash_attention_dkv]
-    bwd_rows = phase_flash_bwd()
-    phase_ldm_grad(flash_counters)
-    train_launches = phase_train_ldm(flash_counters)
+    bwd_rows = timed("flash_bwd", phase_flash_bwd)
+    timed("ldm_grad", phase_ldm_grad, flash_counters)
+    train_launches = timed("train_ldm", phase_train_ldm, flash_counters)
+    import importlib.util
     import os
     import shutil
 
-    flagship_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "output", "chip_smoke_flagship")
-    flag_cfg, flag_ckpt, fit_launches, dataset = phase_train(counters,
-                                                             flagship_dir)
-    gen_launches, gen_images = phase_generate(counters, flag_cfg, flag_ckpt,
-                                              flagship_dir, dataset)
-    phase_eval(gen_images, dataset, flagship_dir)
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "output")
+    flagship_dir = os.path.join(out_root, "chip_smoke_flagship")
+    flag_cfg, flag_ckpt, fit_launches, dataset = timed(
+        "train", phase_train, counters, flagship_dir)
+    gen_launches, gen_images = timed("generate", phase_generate, counters,
+                                     flag_cfg, flag_ckpt, flagship_dir,
+                                     dataset)
+    timed("eval", phase_eval, gen_images, dataset, flagship_dir)
+    # the best checkpoint holds no optimizer state: half the bytes to load
+    best = os.path.join(os.path.dirname(flag_ckpt), "best_model")
+    edit_launches = timed("edit", phase_edit, counters, flag_cfg, best,
+                          flagship_dir, dataset)
+    timed("edit_cli", phase_edit_cli, best, flagship_dir, dataset)
+    timed("pt_checkpoint", phase_pt_checkpoint, flag_cfg, best,
+          flagship_dir)
     shutil.rmtree(flagship_dir, ignore_errors=True)  # multi-GB checkpoints
     bf16_dir = flagship_dir + "_bf16"
-    bf16_fit_launches = phase_train_bf16(counters, bf16_dir, dataset)
+    bf16_fit_launches = timed("train_bf16", phase_train_bf16, counters,
+                              bf16_dir, dataset)
+    base = _flagship_train_cfg(bf16_dir)
+    cfg16 = base.replace(model=dataclasses.replace(
+        base.model, dtype="bfloat16", fused_upsample=True))
+    edit16_launches = timed(
+        "edit_bf16", phase_edit, counters, cfg16,
+        os.path.join(bf16_dir, "run", "best_model"), bf16_dir, dataset,
+        tag="edit_bf16")
     shutil.rmtree(bf16_dir, ignore_errors=True)
+    side_dir = os.path.join(out_root, "chip_smoke_side")
+    timed("side_families", phase_side_families, side_dir)
+    if importlib.util.find_spec("transformers") is not None:
+        timed("clip", phase_clip, side_dir)
+    else:
+        emit("clip", transformers=None, ran=False)
+    shutil.rmtree(side_dir, ignore_errors=True)
 
     def entry(name, key, launched, replaces, table=rows):
         sites = table[key]
@@ -2406,6 +3028,7 @@ def main() -> int:
     for row, i in ((se, 0), (ca, 1)):
         row["train_launches"] = fit_launches[i]
         row["generate_launches"] = gen_launches[i]
+        row["edit_launches"] = edit_launches[i]
     # the bf16 forms: launches on the bf16 serving path (and bf16 fit)
     se16 = entry("se_block_bf16", "se_block", bf16_launches[0],
                  "diffusionmodel_tpu/kernels/se_block.py:202", bf16_rows)
@@ -2413,6 +3036,7 @@ def main() -> int:
                  "diffusionmodel_tpu/kernels/coord_attn.py:296", bf16_rows)
     for row, i in ((se16, 0), (ca16, 1)):
         row["train_launches"] = bf16_fit_launches[i]
+        row["edit_launches"] = edit16_launches[i]
         row["dtype"] = "bfloat16"
         row["rel_l2"] = max(s["rel_l2"] for s in bf16_rows[
             "se_block" if i == 0 else "coord_attn"])

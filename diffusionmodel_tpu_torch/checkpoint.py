@@ -17,6 +17,14 @@ Turn the parameters into the port's weights with
 ``compat.flax_bridge.state_dict_from_flax``; ``flax_from_state_dict`` goes
 the other way, and ``save_checkpoint`` writes the payload, so the JAX
 package's ``load_checkpoint`` reads what the port writes.
+
+A PyTorch ``.pt`` / ``.pth`` file (the reference's layouts: a training
+dict with ``model_state_dict``, or a bare state dict, keys possibly under
+``nn_model.`` beside the DDPM wrapper's schedule buffers) is read with
+``torch.load(weights_only=True)``, or ``weights_only=False`` for a pickle
+that needs it; its state dict is the port's own naming for the arches the
+JAX package converts (context_unet_v2 / v1, cbam_unet, mnist_unet) and is
+returned as flax trees, like every other checkpoint.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import glob
 import os
 import pickle
 import shutil
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -130,12 +138,95 @@ def save_checkpoint(path: str, payload: Dict[str, Any],
     return path
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """A ``.pkl`` file or a checkpoint directory with ``payload.pkl``.
-    Like the JAX loader, a directory lost between the two renames of an
-    interrupted save is recovered from its ``<path>.old-<pid>`` copy."""
+_SCHEDULE_BUFFERS = {"alpha_t", "oneover_sqrta", "sqrt_beta_t", "alphabar_t",
+                     "sqrtab", "sqrtmab", "mab_over_sqrtmab"}
+# scripy_old.py's v1 names -> the port's ContextUnet names (v2's)
+_V1_NAMES = (("channel_compressor", "channel_compress"),
+             ("channel_adjust", "ch_adjust"), ("timeembed", "time_emb"),
+             ("contextembed", "ctx_emb"))
+TORCH_ARCHS = ("context_unet_v2", "context_unet_v1", "cbam_unet",
+               "mnist_unet")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """A ``.pt`` / ``.pth`` file -> ``{"model_state_dict": {name: tensor},
+    **extras, "weights_only": bool}``: the training dict's
+    ``model_state_dict`` or the bare state dict, with the extras that are
+    not tensors (epoch, loss, ...), as the JAX package's
+    ``torch_convert.load_torch_checkpoint``. ``torch.load`` runs with
+    ``weights_only=True`` first and falls back to ``weights_only=False``
+    (which runs the pickle's code: load only files you trust) when the
+    file needs it; ``weights_only`` says which was used."""
+    import torch
+
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        weights_only = True
+    except pickle.UnpicklingError:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        weights_only = False
+    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+        sd = ckpt["model_state_dict"]
+        extras = {k: v for k, v in ckpt.items() if k != "model_state_dict"
+                  and not hasattr(v, "numpy")}
+    else:
+        sd, extras = ckpt, {}
+    sd = {k: v.detach().cpu() for k, v in sd.items() if hasattr(v, "detach")}
+    return {"model_state_dict": sd, **extras, "weights_only": weights_only}
+
+
+def _strip_prefix(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Drop the DDPM wrapper's ``nn_model.`` prefix and schedule buffers."""
+    return {k[len("nn_model."):] if k.startswith("nn_model.") else k: v
+            for k, v in sd.items() if k not in _SCHEDULE_BUFFERS}
+
+
+def torch_state_dict(sd: Dict[str, Any], arch: str) -> Dict[str, Any]:
+    """A reference state dict in the port's names for ``arch`` (prefix and
+    buffers dropped; v1's attribute names renamed to v2's). Raises for an
+    arch the JAX package has no converter for (``ddpm_unet``)."""
+    if arch not in TORCH_ARCHS:
+        raise ValueError(f"no converter for arch {arch!r}")
+    sd = _strip_prefix(sd)
+    if arch == "context_unet_v1":
+        def rename(k):
+            for old, new in _V1_NAMES:
+                k = k.replace(old, new)
+            return k
+
+        sd = {rename(k): v for k, v in sd.items()}
+    return sd
+
+
+def load_checkpoint(path: str, arch: Optional[str] = None,
+                    norm: str = "batch") -> Dict[str, Any]:
+    """A ``.pkl`` file, a checkpoint directory with ``payload.pkl``, or a
+    PyTorch ``.pt`` / ``.pth`` file. Like the JAX loader, a directory lost
+    between the two renames of an interrupted save is recovered from its
+    ``<path>.old-<pid>`` copy.
+
+    A ``.pt`` file needs ``arch`` (the ModelConfig's): its state dict goes
+    through ``torch_state_dict`` and the arch's flax walk into ``params``
+    / ``batch_stats`` (so ``load_state_dict`` of the port's model takes it
+    as it is); without ``arch`` the state dict is returned under
+    ``torch_state_dict`` and ``extract_params`` refuses it, as in the JAX
+    package. ``norm`` is accepted for the JAX signature: the walk reads
+    BatchNorm from the running statistics the file holds. Orbax
+    directories are refused: the port cannot import orbax."""
     if path.endswith(".pkl"):
         return _unpickle(path)
+    if path.endswith((".pt", ".pth")):
+        from diffusionmodel_tpu_torch.compat.flax_bridge import (
+            flax_from_state_dict,
+        )
+
+        raw = load_torch_checkpoint(path)
+        sd = raw.pop("model_state_dict")
+        if arch is None:
+            return {"torch_state_dict": sd, **raw}
+        params, batch_stats = flax_from_state_dict(
+            torch_state_dict(sd, arch), arch=arch)
+        return {"params": params, "batch_stats": batch_stats, **raw}
     if not os.path.isdir(path):
         stranded = sorted(glob.glob(f"{path}.old-*"), key=os.path.getmtime)
         if stranded:
@@ -143,17 +234,28 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     payload = os.path.join(path, _PICKLE_NAME)
     if os.path.isdir(path) and os.path.exists(payload):
         return _unpickle(payload)
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path!r} holds no {_PICKLE_NAME}: orbax checkpoint "
+            "directories are not read by the port (it cannot import "
+            "orbax); re-save it with the JAX package's default pickle "
+            "layout")
     raise ValueError(
-        f"{path!r} is neither a .pkl checkpoint nor a directory holding "
-        f"{_PICKLE_NAME}; orbax and torch .pt checkpoints are not read by "
-        "the port yet (ROADMAP A7)")
+        f"{path!r} is neither a .pkl checkpoint, a directory holding "
+        f"{_PICKLE_NAME} nor a .pt/.pth file")
 
 
 def extract_params(ckpt: Dict[str, Any], prefer_ema: bool = True) -> Any:
     """The parameter tree of a checkpoint: ``ema_params`` when present and
     ``prefer_ema`` (EMA exists to be sampled from), else ``params``; a bare
-    tree is returned as it is."""
+    tree is returned as it is. A ``.pt`` file read without an arch is
+    refused."""
     if isinstance(ckpt, dict):
+        if "torch_state_dict" in ckpt:
+            raise ValueError(
+                "torch .pt checkpoint was loaded without an arch — pass "
+                "arch/norm (from the ModelConfig) to load_checkpoint so the "
+                "state dict is converted to flax params")
         if prefer_ema and ckpt.get("ema_params") is not None:
             return ckpt["ema_params"]
         if "params" in ckpt:

@@ -11,6 +11,9 @@
         [--ldm_arch sd] [--ldm_sampler ddim] [--steps 50] [--batch_size 1]
     python -m diffusionmodel_tpu_torch.cli --mode img2img|inpaint \
         --orig_img FILE [--strength 0.75]
+    python -m diffusionmodel_tpu_torch.cli --mode img2img|inpaint \
+        --family main --ckpt PATH --orig_img FILE [--mask_img FILE] \
+        [--class_id 0] [--scale 2.0] [--steps 50] [--strength 0.75]
     python -m diffusionmodel_tpu_torch.cli --mode train_ldm --data_root DIR \
         [--img_size 256] [--epochs 10] [--batch_size 4] [--remat] \
         [--train_ae_epochs 0] [--ldm_native OUT.pkl]
@@ -23,11 +26,13 @@
         --anno_dir DIR [--anno_format voc|datasetninja] [--crop_out DIR] \
         [--crop_size 512]
 
-Every mode of the JAX CLI is ported for the ContextUnet presets ``full``,
-``old`` and ``generation`` and the latent-diffusion stack; the ``mnist`` /
-``custom`` / ``labml`` presets of train and generate (ROADMAP A10) and
-``--family main`` editing (A11) print that they are not ported yet and
-return 1. ``--inception_weights`` (a torchvision inception_v3 state dict,
+Every mode of the JAX CLI is ported, for every preset (``full``, ``old``,
+``generation``, ``mnist``, ``custom``, ``labml``) and both editing
+families; only multi-device training (mesh axes, ZeRO-1: ROADMAP A12)
+prints that it is not ported and returns 1. ``--preset mnist`` trains on
+the MNIST IDX files under ``--data_root`` or a synthetic set, ``labml`` on
+an image folder or a synthetic one, as the JAX CLI does.
+``--inception_weights`` (a torchvision inception_v3 state dict,
 ``.npz`` or ``.pt``) scores true FID in train, generate and eval;
 without it the score is ``fid_proxy``. Flags keep the JAX CLI's
 spellings and defaults; ``--device`` (default cuda) is the port's own.
@@ -138,8 +143,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "mid = ~1/10 of sd")
     p.add_argument("--family", type=str, default="ldm",
                    choices=["ldm", "main"],
-                   help="img2img/inpaint: ldm (ported) or main (the "
-                        "flagship's editing, not ported yet)")
+                   help="img2img/inpaint: ldm (the latent-diffusion stack) "
+                        "or main (the trained flagship, --ckpt, over DDIM)")
+    p.add_argument("--mask_img", type=str, default=None,
+                   help="main-family inpaint: keep-mask image (white = "
+                        "preserve); default the bottom half")
+    p.add_argument("--class_id", type=int, default=0,
+                   help="main-family img2img/inpaint: the class label")
     p.add_argument("--ldm_sampler", type=str, default="ddim",
                    choices=["ddim", "ddpm", "dpmpp"],
                    help="txt2img sampler (img2img/inpaint use DDIM)")
@@ -243,19 +253,53 @@ def _metrics(args):
                         device=args.device)
 
 
+def _train_dataset(args, cfg):
+    """The side presets' datasets, with the JAX CLI's fallbacks: MNIST IDX
+    files under ``data_root`` or a synthetic set (``mnist``), an image
+    folder or a synthetic one (``labml``); None elsewhere (``fit`` reads
+    the crack dataset at ``data_root``)."""
+    if args.preset == "mnist":
+        from diffusionmodel_tpu_torch.data import MnistDataset
+
+        try:
+            return MnistDataset(cfg.data_root)
+        except FileNotFoundError:
+            print("MNIST IDX files not found; using synthetic fallback")
+            return MnistDataset(synthetic=True, n_synthetic=2048)
+    if args.preset == "labml":
+        # CelebA-style image folder (reference/ddpm/experiment.py:151-186)
+        from diffusionmodel_tpu_torch.data import (
+            ImageFolderDataset,
+            SyntheticImageDataset,
+        )
+
+        mc = cfg.model
+        try:
+            return ImageFolderDataset(cfg.data_root, img_size=mc.img_size,
+                                      channels=mc.in_ch,
+                                      hflip_prob=cfg.train.hflip_prob)
+        except (FileNotFoundError, NotADirectoryError):
+            print(f"No image folder at {cfg.data_root}; "
+                  "using synthetic fallback")
+            return SyntheticImageDataset(n=512, img_size=mc.img_size,
+                                         channels=mc.in_ch)
+    return None
+
+
 def _train_or_generate(args) -> int:
-    """--mode train | generate: the ContextUnet family."""
-    if args.preset in ("mnist", "custom", "labml"):
-        print(f"--mode {args.mode} --preset {args.preset} is not ported to "
-              "the PyTorch package yet (ROADMAP A10, side families)")
-        return 1
+    """--mode train | generate, every preset."""
     cfg = _config(args)
     metrics_impl = _metrics(args)
     if args.mode == "train":
-        from diffusionmodel_tpu_torch.trainer import fit
+        from diffusionmodel_tpu_torch.trainer import _check_single_device, fit
 
-        fit(cfg, metrics_impl=metrics_impl, resume=args.resume,
-            device=args.device)
+        try:
+            _check_single_device(cfg.train)
+        except NotImplementedError as e:
+            print(e)
+            return 1
+        fit(cfg, dataset=_train_dataset(args, cfg), metrics_impl=metrics_impl,
+            resume=args.resume, device=args.device)
         return 0
     if args.ckpt is None:
         print("Error: Checkpoint path required for generation mode")
@@ -335,6 +379,27 @@ def _crop(args) -> int:
     n = cropper.process_all(verbose=True)
     print(f"Cropped {n} objects into {args.crop_out}; "
           f"classes: {cropper.class_map}")
+    return 0
+
+
+def _edit_main(args) -> int:
+    """--mode img2img | inpaint --family main: the trained flagship's
+    editing over DDIM (``sample.edit_samples``)."""
+    if args.ckpt is None or not args.orig_img:
+        print("Error: --ckpt and --orig_img required for main-family "
+              f"{args.mode}")
+        return 1
+    from diffusionmodel_tpu_torch.sample import edit_samples
+
+    edit_samples(
+        _config(args), args.ckpt, args.orig_img, mode=args.mode,
+        class_id=args.class_id,
+        guide_w=2.0 if args.scale is None else args.scale,
+        strength=args.strength, n_steps=args.steps or 50,
+        mask_path=args.mask_img, batch=args.batch_size,
+        seed=args.seed if args.seed is not None else 0,
+        out_dir=None if args.out_dir == "./output/ldm/" else args.out_dir,
+        device=args.device)
     return 0
 
 
@@ -438,8 +503,9 @@ _OTHER_MODES = {"eval": _eval, "visualize": _visualize, "crop": _crop}
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode in ("txt2img", "img2img", "inpaint") \
-            and not (args.family == "main" and args.mode != "txt2img"):
+    if args.mode in ("img2img", "inpaint") and args.family == "main":
+        return _edit_main(args)
+    if args.mode in ("txt2img", "img2img", "inpaint"):
         return _ldm(args)
     if args.mode == "train_ldm":
         return _train_ldm(args)
@@ -447,11 +513,6 @@ def main(argv=None) -> int:
         return _train_or_generate(args)
     if args.mode in _OTHER_MODES:
         return _OTHER_MODES[args.mode](args)
-    if args.mode != "serve":
-        print(f"--mode {args.mode} --family main is not ported to the "
-              "PyTorch package yet (ROADMAP A11); use python -m "
-              "diffusionmodel_tpu.cli")
-        return 1
     if args.ckpt is None:
         print("Error: Checkpoint path required for serve mode")
         return 1
@@ -460,9 +521,7 @@ def main(argv=None) -> int:
         extract_params,
         load_checkpoint,
     )
-    from diffusionmodel_tpu_torch.compat.flax_bridge import (
-        state_dict_from_flax,
-    )
+    from diffusionmodel_tpu_torch.compat.flax_bridge import load_flax
     from diffusionmodel_tpu_torch.device_check import resolve_device
     from diffusionmodel_tpu_torch.diffusion import Schedule
     from diffusionmodel_tpu_torch.nn import build_model
@@ -482,10 +541,10 @@ def main(argv=None) -> int:
             cfg = cfg.replace(model=dataclasses.replace(
                 mc, n_classes=len(found)))
             mc = cfg.model
-    ckpt = load_checkpoint(args.ckpt)
+    ckpt = load_checkpoint(args.ckpt, arch=mc.arch, norm=mc.norm)
     bs = ckpt.get("batch_stats", {}) if isinstance(ckpt, dict) else {}
     model = build_model(mc, dc.high_thresh, device=device)
-    model.load_state_dict(state_dict_from_flax(extract_params(ckpt), bs))
+    load_flax(model, extract_params(ckpt), bs)
     sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, device)
     service = SamplerService(model, cfg, sched, max_batch=args.max_batch)
     httpd = make_http_server(service, port=args.port,

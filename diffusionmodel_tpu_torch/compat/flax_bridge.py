@@ -1,11 +1,15 @@
 """JAX package parameter trees <-> the port's ``state_dict``.
 
-The inverse of ``diffusionmodel_tpu/compat/torch_convert.py::
-convert_context_unet_v2``: the port's modules carry the reference's
-``state_dict`` names, so that converter reads ``ContextUnet.state_dict()``
-as it is, and this module maps the JAX package's flax trees (as numpy
-arrays: a JAX checkpoint's ``params`` / ``batch_stats``) back onto those
-names. Transforms:
+The inverse of ``diffusionmodel_tpu/compat/torch_convert.py``'s
+converters (``convert_context_unet_v2``, ``convert_mnist_unet``,
+``convert_cbam_unet``): the port's modules carry the reference's
+``state_dict`` names, so those converters read the port's
+``state_dict()`` as it is, and this module maps the JAX package's flax
+trees (as numpy arrays: a JAX checkpoint's ``params`` / ``batch_stats``)
+back onto those names, one walk per arch. The labml U-Net
+(``ddpm_unet``), which has no converter there, goes through rules
+(``ddpm_unet_rules``) in both directions, as the LDM modules do.
+Transforms:
 
 - Conv kernel [kh,kw,I,O] -> Conv2d weight [O,I,kh,kw];
 - Dense kernel [I,O] -> Linear weight [O,I];
@@ -209,31 +213,181 @@ def _walk_context_unet(m: _Unmapper) -> None:
     m.conv(("out_conv2",), "out.3")
 
 
+def _walk_mnist_unet(m: _Unmapper) -> None:
+    """MNIST_script.py's names (torch_convert.convert_mnist_unet)."""
+    m.resconv(("init_conv",), "init_conv")
+    m.resconv(("down1_res",), "down1.model.0")
+    m.resconv(("down2_res",), "down2.model.0")
+    for name in ("timeembed1", "timeembed2", "contextembed1",
+                 "contextembed2"):
+        m.embed_fc((name,), name)
+    m.conv(("up0_convt",), "up0.0", transposed=True)
+    m.gn(("up0_gn",), "up0.1")
+    for i in (1, 2):
+        m.conv((f"up{i}_convt",), f"up{i}.model.0", transposed=True)
+        m.resconv((f"up{i}_res1",), f"up{i}.model.1")
+        m.resconv((f"up{i}_res2",), f"up{i}.model.2")
+    m.conv(("out_conv1",), "out.0")
+    m.gn(("out_gn",), "out.1")
+    m.conv(("out_conv2",), "out.3")
+
+
+def _walk_cbam_unet(m: _Unmapper) -> None:
+    """custom_dataset.py's names (torch_convert.convert_cbam_unet)."""
+    m.resconv(("init_conv",), "init_conv")
+    for i in range(1, 5):
+        m.resconv((f"down{i}", "ResConvBlock_0"), f"down{i}.model.0")
+        m.conv((f"down{i}", "Conv_0"), f"down{i}.model.1")
+        m.gn((f"down{i}", "GroupNorm_0"), f"down{i}.model.2")
+        ca, tk = (f"cbam{i}", "channel_attention"), f"cbam{i}.channel_attention"
+        m.conv(ca + ("mlp1",), f"{tk}.shared_MLP.0")
+        m.conv(ca + ("mlp2",), f"{tk}.shared_MLP.2")
+        m.conv((f"cbam{i}", "spatial_attention", "conv7"),
+               f"cbam{i}.spatial_attention.conv2d")
+    for name in ("contextembed1", "contextembed2", "timeembed1",
+                 "timeembed2"):
+        m.embed_fc((name,), name)
+    m.conv(("up0_convt",), "up0.0", transposed=True)
+    m.gn(("up0_gn",), "up0.1")
+    for i in range(1, 5):
+        m.conv((f"up{i}", "ConvTranspose_0"), f"up{i}.model.0",
+               transposed=True)
+        m.resconv((f"up{i}", "ResConvBlock_0"), f"up{i}.model.1")
+        m.resconv((f"up{i}", "ResConvBlock_1"), f"up{i}.model.2")
+    m.conv(("local_enhance", "Conv_0"), "local_enhance.conv.0")
+    m.gn(("local_enhance", "GroupNorm_0"), "local_enhance.conv.1")
+    m.conv(("local_enhance", "Conv_1"), "local_enhance.conv.3")
+    m.conv(("out_conv1",), "out.0")
+    m.gn(("out_gn",), "out.1")
+    m.conv(("out_conv2",), "out.3")
+
+
+_WALKS = {"context_unet_v2": _walk_context_unet,
+          "context_unet_v1": _walk_context_unet,
+          "mnist_unet": _walk_mnist_unet,
+          "cbam_unet": _walk_cbam_unet}
+
+
 def state_dict_from_flax(params: Dict[str, Any],
-                         batch_stats: Optional[Dict[str, Any]] = None
+                         batch_stats: Optional[Dict[str, Any]] = None,
+                         arch: str = "context_unet_v2", **layout
                          ) -> Dict[str, torch.Tensor]:
-    """A JAX ContextUnet (v2 or v1) parameter tree -> the port's
-    ``state_dict``. ``batch_stats`` is required for ``norm="batch"``."""
+    """A JAX parameter tree of ``arch`` -> the port's ``state_dict``.
+    ``batch_stats`` is required for ``norm="batch"``; ``ddpm_unet`` also
+    takes its layout (``ch_mults``, ``is_attn``, ``n_blocks``: a port
+    model's ``layout`` holds the arch and these)."""
+    if arch == "ddpm_unet":
+        return _from_rules(params, ddpm_unet_rules(**layout))
+    if arch not in _WALKS:
+        raise ValueError(f"no flax mapping for arch {arch!r}")
     m = _Unmapper(params, batch_stats)
-    _walk_context_unet(m)
+    _WALKS[arch](m)
     return {k: torch.from_numpy(np.copy(v, order="C"))
             for k, v in m.sd.items()}
 
 
-def flax_from_state_dict(sd: Dict[str, torch.Tensor]
+def flax_from_state_dict(sd: Dict[str, torch.Tensor],
+                         arch: str = "context_unet_v2", **layout
                          ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The port's ContextUnet (v2 or v1) ``state_dict`` -> the JAX
-    package's ``(params, batch_stats)`` trees of numpy arrays (float32;
-    ``batch_stats`` is empty under GroupNorm): the inverse of
+    """The port's ``state_dict`` of ``arch`` -> the JAX package's
+    ``(params, batch_stats)`` trees of numpy arrays (float32;
+    ``batch_stats`` is empty without BatchNorm): the inverse of
     :func:`state_dict_from_flax`. The arrays are copies.
     ``num_batches_tracked`` has no flax counterpart and is dropped."""
+    if arch == "ddpm_unet":
+        return _to_rules(sd, ddpm_unet_rules(**layout)), {}
+    if arch not in _WALKS:
+        raise ValueError(f"no flax mapping for arch {arch!r}")
     # copies: a CPU tensor's .numpy() shares its memory, and the trees
     # must not follow the live parameters (snapshots, checkpoints)
     m = _Mapper({k: v.detach().to("cpu").numpy().copy()
                  for k, v in sd.items()
                  if not k.endswith("num_batches_tracked")})
-    _walk_context_unet(m)
+    _WALKS[arch](m)
     return m.params, m.stats
+
+
+def load_flax(model: torch.nn.Module, params: Dict[str, Any],
+              batch_stats: Optional[Dict[str, Any]] = None) -> None:
+    """``model.load_state_dict`` from a JAX parameter tree, through the
+    walk or rules of the model's ``layout``."""
+    model.load_state_dict(state_dict_from_flax(params, batch_stats,
+                                               **model.layout))
+
+
+def flax_trees(model: torch.nn.Module) -> Tuple[Dict[str, Any],
+                                                Dict[str, Any]]:
+    """``(params, batch_stats)`` of ``model`` as the JAX package's numpy
+    trees."""
+    return flax_from_state_dict(model.state_dict(), **model.layout)
+
+
+def ddpm_unet_rules(ch_mults=(1, 2, 2, 4), is_attn=(False, False, True, True),
+                    n_blocks: int = 2):
+    """(flax path, state_dict key, kind) for every parameterised layer of
+    the labml U-Net behind ``DdpmUNetAdapter``: flax names its layers by
+    type and creation order (``ResidualBlock_3``, ``Conv_2`` ...), so the
+    counters run through the network as the JAX module builds it. Kinds:
+    conv, conv_t, dense, norm. A block that keeps its width has no
+    shortcut conv; the rule for it is skipped both ways."""
+    top = ("DdpmUNet_0",)
+    rules = []
+    count = {"ResidualBlock": 0, "AttentionBlock": 0, "Conv": 0,
+             "ConvTranspose": 0}
+
+    def name(kind):
+        n = f"{kind}_{count[kind]}"
+        count[kind] += 1
+        return top + (n,)
+
+    def res(tk):
+        fp = name("ResidualBlock")
+        rules.extend([
+            (fp + ("GroupNorm_0",), f"{tk}.norm1", "norm"),
+            (fp + ("Conv_0",), f"{tk}.conv1", "conv"),
+            (fp + ("Dense_0",), f"{tk}.time_emb", "dense"),
+            (fp + ("GroupNorm_1",), f"{tk}.norm2", "norm"),
+            (fp + ("Conv_1",), f"{tk}.conv2", "conv"),
+            (fp + ("Conv_2",), f"{tk}.shortcut", "conv")])
+
+    def attn(tk):
+        fp = name("AttentionBlock")
+        rules.extend([(fp + ("Dense_0",), f"{tk}.projection", "dense"),
+                      (fp + ("Dense_1",), f"{tk}.output", "dense")])
+
+    rules.append((top + ("TimeEmbedding_0", "Dense_0"), "time_emb.lin1",
+                  "dense"))
+    rules.append((top + ("TimeEmbedding_0", "Dense_1"), "time_emb.lin2",
+                  "dense"))
+    rules.append((name("Conv"), "image_proj", "conv"))
+    k = 0
+    for i in range(len(ch_mults)):
+        for _ in range(n_blocks):
+            res(f"down.{k}.res")
+            if is_attn[i]:
+                attn(f"down.{k}.attn")
+            k += 1
+        if i < len(ch_mults) - 1:
+            rules.append((name("Conv"), f"down.{k}.conv", "conv"))
+            k += 1
+    res("middle.res1")
+    attn("middle.attn")
+    res("middle.res2")
+    k = 0
+    for i in reversed(range(len(ch_mults))):
+        for _ in range(n_blocks):
+            res(f"up.{k}.res")
+            if is_attn[i]:
+                attn(f"up.{k}.attn")
+            k += 1
+        res(f"up.{k}.res")
+        k += 1
+        if i > 0:
+            rules.append((name("ConvTranspose"), f"up.{k}.conv", "conv_t"))
+            k += 1
+    rules.append((top + ("GroupNorm_0",), "norm", "norm"))
+    rules.append((name("Conv"), "final", "conv"))
+    return rules
 
 
 # --- latent diffusion: flax trees <-> SD-v1 names --------------------------
@@ -250,7 +404,8 @@ def ldm_unet_rules(channel_multipliers=(1, 2, 4, 4),
                    attention_levels=(0, 1, 2), n_res_blocks: int = 2,
                    tf_layers: int = 1):
     """(flax path, SD key, kind) for every parameterised layer of the LDM
-    UNet; kind is conv, dense, dense_nobias or norm."""
+    UNet; kind is conv, dense, dense_nobias or norm (``_from_rules`` and
+    ``_to_rules`` also take conv_t, a transposed conv)."""
     rules = []
 
     def resblock(fp, tk):
@@ -378,7 +533,8 @@ def _from_rules(tree: Dict[str, Any], rules) -> Dict[str, torch.Tensor]:
             sd[f"{tkey}.bias"] = np.asarray(node["bias"])
             continue
         k = np.asarray(node["kernel"])
-        sd[f"{tkey}.weight"] = _conv(k) if kind == "conv" else _lin(k)
+        sd[f"{tkey}.weight"] = {"conv": _conv, "conv_t": _conv_t}.get(
+            kind, _lin)(k)
         if kind != "dense_nobias" and "bias" in node:
             sd[f"{tkey}.bias"] = np.asarray(node["bias"])
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
@@ -410,8 +566,11 @@ def _to_rules(sd: Dict[str, torch.Tensor], rules) -> Dict[str, Any]:
         if kind == "norm":
             node["scale"], node["bias"] = w, arr(f"{tkey}.bias")
             continue
-        node["kernel"] = np.ascontiguousarray(
-            _conv_inv(w) if kind == "conv" else _lin(w))
+        if kind == "conv_t":  # inverse of _conv_t (transpose and flip)
+            k = np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
+        else:
+            k = _conv_inv(w) if kind == "conv" else _lin(w)
+        node["kernel"] = np.ascontiguousarray(k)
         if kind != "dense_nobias" and f"{tkey}.bias" in sd:
             node["bias"] = arr(f"{tkey}.bias")
     return tree

@@ -6,4 +6,9 @@ from diffusionmodel_tpu_torch.data.crack_dataset import (  # noqa: F401
     build_attn_mask,
     stratified_split,
 )
+from diffusionmodel_tpu_torch.data.image_folder import (  # noqa: F401
+    ImageFolderDataset,
+    SyntheticImageDataset,
+)
 from diffusionmodel_tpu_torch.data.loader import BatchLoader  # noqa: F401
+from diffusionmodel_tpu_torch.data.mnist import MnistDataset  # noqa: F401

@@ -28,34 +28,43 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 @contextlib.contextmanager
-def fp32_compute(device: torch.device, autotune: bool = True):
+def fp32_compute(device: torch.device, autotune: bool = True,
+                 deterministic: bool = False):
     """The port's fp32 settings inside the block on a CUDA device,
     restored after it: TF32 off in cuDNN and cuBLAS (PyTorch's default
-    leaves it on for cuDNN convolutions), and cuDNN autotuning on unless
-    ``autotune`` is false. With the default heuristics, cuDNN takes an FFT
-    algorithm for some of the flagship's fp32 shapes (the 192-channel 3x3
-    convolutions at 128 px, batch 4 or 20) that is ~60x slower than the
-    one it takes at batch 16; the search costs about two minutes of the
-    first train step (NVIDIA H100; tools/flagship_train_probe.py).
+    leaves it on for cuDNN convolutions), cuDNN autotuning on unless
+    ``autotune`` is false, and cuDNN held to its deterministic algorithms
+    when ``deterministic`` is true. With the default heuristics, cuDNN
+    takes an FFT algorithm for some of the flagship's fp32 shapes (the
+    192-channel 3x3 convolutions at 128 px, batch 4 or 20) that is ~60x
+    slower than the one it takes at batch 16; the search costs about two
+    minutes of the first train step (NVIDIA H100;
+    tools/flagship_train_probe.py).
 
     ``trainer.fit`` and ``sample.gen_samples`` (``--mode train|generate``)
     run under it for the call, ``SamplerService``'s worker thread for the
     service's lifetime; ``LdmRunner``'s txt2img / img2img / inpaint and
     ``ImageMetrics``' feature extraction run under it without autotuning
-    (the search costs more than it saves there). The flags are process
+    (the search costs more than it saves there). A textbook-family
+    service asks for ``deterministic``: cuDNN's default choice for the
+    labml net gave an eval output that did not repeat bit for bit on the
+    card, and a pinned request must. The flags are process
     settings: another thread's CUDA work in the block runs under them
     too."""
     if device.type != "cuda":
         yield
         return
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    before = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark)
+    before = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+              cudnn.deterministic)
     cudnn.allow_tf32, matmul.allow_tf32 = False, False
     cudnn.benchmark = autotune
+    cudnn.deterministic = deterministic or cudnn.deterministic
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = before
+        (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+         cudnn.deterministic) = before
 
 
 def main() -> None:

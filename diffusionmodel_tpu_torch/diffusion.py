@@ -1,6 +1,8 @@
 """The main family's diffusion process (counterpart of
-``diffusionmodel_tpu/diffusion.py``): ``q_sample``, the training loss, and
-the classifier-free-guided samplers (ancestral, DDIM, DPM-Solver++(2M)).
+``diffusionmodel_tpu/diffusion.py``): ``q_sample``, the training loss
+(with the textbook family's branch), the classifier-free-guided samplers
+(ancestral, DDIM, DPM-Solver++(2M)) and image editing (img2img / inpaint
+over DDIM, ``sample_cfg_edit``).
 
 The loss (``train_loss``) is fp32 whatever the network computes in. Its
 draws (t, eps, the context mask) come from a ``torch.Generator`` in that
@@ -168,13 +170,28 @@ def train_loss(apply_fn: Callable, x: torch.Tensor, c: torch.Tensor,
       network-side mnist_style_ctx_flip).
 
     ``ts`` [B] int, ``noise`` like x and ``ctx_mask`` [B] are drawn from
-    ``generator`` on x's device unless given (arrays or tensors)."""
-    if dc.schedule_family == "textbook":
-        raise NotImplementedError(
-            "the textbook schedule family's loss needs ddpm_unet, which is "
-            "not ported yet: ROADMAP A10")
+    ``generator`` on x's device unless given (arrays or tensors).
+
+    ``schedule_family="textbook"`` is the labml formulation
+    (reference/ddpm/__init__.py:257-287): t ~ U[0, n_T), ``sched`` a
+    ``TextbookSchedule`` (abar = cumprod(1 - linspace beta)), plain MSE,
+    the raw timestep to the network and a zero context mask (the family
+    is unconditional); ``ctx_mask`` is not drawn."""
     b, dev = x.shape[0], x.device
     x = x.to(torch.float32)
+    if dc.schedule_family == "textbook":
+        if ts is None:
+            ts = torch.randint(0, dc.n_T, (b,), generator=generator,
+                               device=dev)
+        ts = torch.as_tensor(ts, device=dev).to(torch.int64)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=dev)
+        noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+        ab = sched.alpha_bar[ts][:, None, None, None]
+        x_t = torch.sqrt(ab) * x + torch.sqrt(1.0 - ab) * noise
+        eps_pred = apply_fn(x_t, c, ts.to(torch.float32),
+                            torch.zeros(b, device=dev), None).float()
+        return torch.mean((noise - eps_pred) ** 2)
     if ts is None:
         ts = torch.randint(1, dc.n_T + 1, (b,), generator=generator,
                            device=dev)
@@ -212,25 +229,33 @@ def sample_cfg(eps_fn: EpsFn, generator: Optional[torch.Generator],
                sched: Schedule, dc: DiffusionConfig, guide_w=0.0,
                classes=None, steps: Optional[Sequence[int]] = None,
                x_init=None, slot_seeds=None,
-               noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+               noise_fn: Optional[NoiseFn] = None,
+               return_history: bool = False):
     """Ancestral CFG sampling (new_scripy.py:441-477) over the descending
     ``steps`` (default n_T..1; entries < 1 are no-op padding, as in the
-    JAX package's chunked runs). Returns x_0 [n_sample, H, W, C]."""
+    JAX package's chunked runs). Returns x_0 [n_sample, H, W, C], and with
+    ``return_history`` also the trajectory [len(steps), n_sample, H, W, C]
+    (x after each step, padding steps included)."""
     dev = sched.device
     x = _start_noise(x_init, n_sample, img_shape, generator, dev)
     c2, mask2 = _cfg_inputs(n_sample, n_classes, dc, classes, dev)
     gw = _guide_arr(guide_w, n_sample, dev)
     if steps is None:
         steps = range(dc.n_T, 0, -1)
+    hist = []
     for i in (int(s) for s in steps):
-        if i < 1:
-            continue
-        e = _cfg_eps(eps_fn, x, c2, mask2, i, dc.n_T, gw)
-        x_new = sched.oneover_sqrta[i] * (x - e * sched.mab_over_sqrtmab[i])
-        if i > 1:
-            z = _step_noise(i, x, noise_fn, slot_seeds, generator)
-            x_new = x_new + sched.sqrt_beta_t[i] * z
-        x = x_new
+        if i >= 1:
+            e = _cfg_eps(eps_fn, x, c2, mask2, i, dc.n_T, gw)
+            x_new = sched.oneover_sqrta[i] * (x - e
+                                              * sched.mab_over_sqrtmab[i])
+            if i > 1:
+                z = _step_noise(i, x, noise_fn, slot_seeds, generator)
+                x_new = x_new + sched.sqrt_beta_t[i] * z
+            x = x_new
+        if return_history:
+            hist.append(x)
+    if return_history:
+        return x, torch.stack(hist)
     return x
 
 
@@ -276,8 +301,10 @@ def sample_cfg_ddim(eps_fn: EpsFn, generator: Optional[torch.Generator],
 
 
 def _ddim_scan(eps_fn, generator, x, taus, taus_prev, c2, mask2, gw, ab, dc,
-               eta, slot_seeds=None, noise_fn=None):
-    """The DDIM update loop (the JAX package's ``lax.scan`` body)."""
+               eta, slot_seeds=None, noise_fn=None, blend=None):
+    """The DDIM update loop (the JAX package's ``lax.scan`` body);
+    :func:`sample_cfg_edit` passes ``blend(x, tau_prev)``, applied after
+    each update (the inpaint keep-region re-projection)."""
     for tau, tau_p in zip(taus, taus_prev):
         e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
         a, a_prev = ab[tau], ab[tau_p]
@@ -288,7 +315,70 @@ def _ddim_scan(eps_fn, generator, x, taus, taus_prev, c2, mask2, gw, ab, dc,
         if eta > 0 and tau_p > 0:
             x = x + sigma * _step_noise(tau, x, noise_fn, slot_seeds,
                                         generator)
+        if blend is not None:
+            x = blend(x, tau_p)
     return x
+
+
+@torch.inference_mode()
+def sample_cfg_edit(eps_fn: EpsFn, generator: Optional[torch.Generator],
+                    x0, n_classes: int, sched: Schedule, dc: DiffusionConfig,
+                    guide_w=0.0, n_steps: int = 50, strength: float = 0.75,
+                    inpaint_mask=None, classes=None, eta: float = 0.0,
+                    discretize: str = "uniform", noise=None,
+                    noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+    """img2img / inpaint for the main family over DDIM (the reference's
+    LDM recipes, image_to_image.py:95-149 and in_paint.py:100-166, on the
+    flagship's discrete schedule).
+
+    ``x0``: [n, h, w, c] source images in [-1, 1]. ``strength``: the share
+    of the DDIM trajectory run; x0 is noised to the tau at index
+    ``k = max(1, min(n_steps, round(strength * n_steps)))`` from the end
+    (1.0: pure generation, x0 entering only through the inpaint blend).
+    ``inpaint_mask``: None for img2img, else [h, w], [n, h, w] or
+    [n, h, w, c] with 1 = preserve the source pixel; after every update
+    the kept region is put back to ``to_tau(tau_prev) = sqrt(abar) x0 +
+    sqrt(1 - abar) noise`` with the start point's noise (abar_0 = 1, so
+    the last blend leaves the kept pixels equal to x0 exactly).
+
+    ``noise`` (like x0) is that one draw, from ``generator`` on the
+    schedule's device unless given; ``noise_fn(tau)`` gives the per-step
+    noise when ``eta > 0`` (tests hand in the JAX package's draws through
+    both). Same CFG arithmetic and per-sample ``guide_w`` as
+    :func:`sample_cfg`."""
+    dev = sched.device
+    x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
+    n_sample = x0.shape[0]
+    taus_all = ddim_taus(dc.n_T, n_steps, discretize)[::-1]
+    k = max(1, min(n_steps, int(round(strength * n_steps))))
+    taus = [int(t) for t in taus_all[n_steps - k:]]
+    taus_prev = taus[1:] + [0]
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=dev)
+    noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+    ab = torch.cat([torch.ones(1, device=dev), sched.alphabar_t[1:]])
+
+    def to_tau(tau: int) -> torch.Tensor:
+        a = ab[tau]
+        return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
+
+    x = to_tau(taus[0])
+    c2, mask2 = _cfg_inputs(n_sample, n_classes, dc, classes, dev)
+    gw = _guide_arr(guide_w, n_sample, dev)
+    blend = None
+    if inpaint_mask is not None:
+        m = torch.as_tensor(inpaint_mask, dtype=torch.float32).to(dev)
+        if m.dim() == 2:
+            m = m[None, :, :, None]
+        elif m.dim() == 3:
+            m = m[..., None]
+
+        def blend(xc, tau_p):
+            return to_tau(tau_p) * m + xc * (1.0 - m)
+
+        x = blend(x, taus[0])
+    return _ddim_scan(eps_fn, generator, x, taus, taus_prev, c2, mask2, gw,
+                      ab, dc, eta, noise_fn=noise_fn, blend=blend)
 
 
 def dpmpp_terms(a_cur, a_nxt):

@@ -10,6 +10,7 @@ from diffusionmodel_tpu_torch.models.latent_diffusion.autoencoder import (  # no
     GaussianDistribution,
 )
 from diffusionmodel_tpu_torch.models.latent_diffusion.latent_diffusion import (  # noqa: F401
+    CLIPTextEmbedder,
     LatentDiffusion,
     ldm_schedule,
 )

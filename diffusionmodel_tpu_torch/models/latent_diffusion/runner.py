@@ -3,9 +3,11 @@
 stable-diffusion stack once and exposes txt2img / img2img / inpaint, as
 ``--mode txt2img|img2img|inpaint`` of the CLI does.
 
-- Conditioning: the JAX package's documented fallback, a prompt-hashed
-  Gaussian embedding of shape [B, 77, d_cond] (bit-identical to the JAX
-  package's). The CLIP text encoder is not ported.
+- Conditioning: the CLIP text encoder (``CLIPTextEmbedder``) when one is
+  given, or for the SD-sized ``d_cond`` (768) when transformers and local
+  CLIP weights load; otherwise, as in the JAX package, its documented
+  fallback, a prompt-hashed Gaussian embedding of shape [B, 77, d_cond]
+  (bit-identical to the JAX package's).
 - Weights: a real SD-v1 checkpoint through ``compat.sd_checkpoint`` when
   given (non-strict), or a ``--mode train_ldm`` pickle of either package
   (``{arch, unet, ae}`` flax trees) through ``compat.flax_bridge``; else
@@ -34,6 +36,7 @@ from diffusionmodel_tpu_torch.models.latent_diffusion.autoencoder import (
     Autoencoder,
 )
 from diffusionmodel_tpu_torch.models.latent_diffusion.latent_diffusion import (
+    CLIPTextEmbedder,
     LatentDiffusion,
 )
 from diffusionmodel_tpu_torch.models.latent_diffusion.pipelines import (
@@ -70,6 +73,18 @@ def _hash_embedding(prompts, d_cond: int, max_length: int = 77) -> np.ndarray:
     return np.stack(out)
 
 
+def _clip_or_none(device: torch.device, log):
+    """CLIP-L from the local cache on ``device``, or None when it does not
+    load (no transformers, no weights): the runner then conditions through
+    the prompt hash."""
+    try:
+        return CLIPTextEmbedder(local_files_only=True, device=device)
+    except Exception as e:
+        log(f"CLIP unavailable ({type(e).__name__}); falling back to "
+            "deterministic prompt-hash conditioning")
+        return None
+
+
 class LdmRunner:
     """The LDM stack on one device (default CUDA; raises without it unless
     ``device="cpu"``). ``sampler_name`` and ``steps`` may be changed
@@ -77,13 +92,19 @@ class LdmRunner:
     (``device_check.fp32_compute``) for the call, with cuDNN's heuristics:
     autotuning saves 0.6 s of a 6.6 s txt2img DDIM-50 at 512 px but its
     search costs the first call 23 s, and each CLI call is a process of
-    its own (NVIDIA H100; tools/fp32_autotune_probe.py)."""
+    its own (NVIDIA H100; tools/fp32_autotune_probe.py).
+
+    ``embedder`` (prompts -> [B, 77, d_cond]) conditions every call when
+    given; else, with ``use_clip`` and d_cond 768 (CLIP-L's width, so the
+    ``sd`` arch only), CLIP-L is loaded from the local cache, and the
+    prompt hash serves when it does not load."""
 
     def __init__(self, sd_ckpt: Optional[str] = None, arch: str = "sd",
                  use_flash: bool = True, sampler: str = "ddim",
                  steps: int = 50, ddim_eta: float = 0.0, seed: int = 42,
                  verbose: bool = True, native_ckpt: Optional[str] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 use_clip: bool = True, embedder=None):
         self.device = resolve_device(device)
         payload = _unpickle(native_ckpt) if native_ckpt else None
         if payload is not None and payload.get("arch") not in (None, arch):
@@ -128,12 +149,18 @@ class LdmRunner:
         self.ae.to(memory_format=torch.channels_last).eval()
         self.model = LatentDiffusion(self.unet, self.ae.encode,
                                      self.ae.decode, device=self.device)
+        self.embedder = embedder
+        if embedder is None and use_clip and self.d_cond == 768:
+            self.embedder = _clip_or_none(self.device, self._log)
 
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(msg)
 
     def cond(self, prompts) -> torch.Tensor:
+        if self.embedder is not None:
+            return self.embedder(list(prompts)).to(self.device,
+                                                   torch.float32)
         return torch.from_numpy(_hash_embedding(list(prompts), self.d_cond)
                                 ).to(self.device)
 

@@ -50,6 +50,9 @@ from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
 
 
 class ContextUnet(nn.Module):
+    # the flax-tree walk of compat.flax_bridge (v1 and v2 share it)
+    layout = {"arch": "context_unet_v2"}
+
     def __init__(self, in_ch: int = 3, n_feat: int = 192, n_classes: int = 10,
                  img_size: int = 256, norm: str = "group",
                  attn_reduction: int = 16, use_coord_attn: bool = True,

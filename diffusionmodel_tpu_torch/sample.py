@@ -1,4 +1,5 @@
-"""Generation sweep — the ``gen_samples`` equivalent (new_scripy.py:945-1108),
+"""Generation sweep — the ``gen_samples`` equivalent (new_scripy.py:945-1108)
+— and main-family image editing (``edit_samples``: img2img / inpaint),
 counterpart of ``diffusionmodel_tpu/sample.py``.
 
 Loads a checkpoint of either package (the EMA shadow when it has one),
@@ -10,8 +11,11 @@ given), and dumps ``quality_metrics.json``.
 
 Noise comes from a ``torch.Generator`` seeded with ``seed`` (Philox), so
 images differ from the JAX package's (threefry) for the same seed; pass
-``x_init`` to pin the start noise. ``sample_cfg_edit`` / ``edit_samples``
-(main-family img2img and inpaint) are ROADMAP A11.
+``x_init`` (``gen_samples``) or ``noise`` (``edit_samples``) to pin it.
+Both build the model from ``cfg.model`` (so ``model.dtype``,
+``model.fused_upsample`` and ``model.use_pallas`` apply), read a
+checkpoint of either package (a ``.pt`` through ``cfg.model``'s arch) and
+run under ``device_check.fp32_compute``.
 """
 
 from __future__ import annotations
@@ -26,15 +30,26 @@ import numpy as np
 import torch
 
 from diffusionmodel_tpu_torch.checkpoint import extract_params, load_checkpoint
-from diffusionmodel_tpu_torch.compat.flax_bridge import state_dict_from_flax
+from diffusionmodel_tpu_torch.compat.flax_bridge import load_flax
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.data import CrackDataset
 from diffusionmodel_tpu_torch.device_check import fp32_compute, resolve_device
-from diffusionmodel_tpu_torch.diffusion import Schedule
+from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg_edit
 from diffusionmodel_tpu_torch.metrics import ImageMetrics
 from diffusionmodel_tpu_torch.nn import build_model
 from diffusionmodel_tpu_torch.trainer import _sanitize, make_sampler
 from diffusionmodel_tpu_torch.utils.grid import save_image, save_samples
+
+
+def _load_model(cfg: Config, ckpt_path: str, dev: torch.device):
+    """The model of ``cfg.model`` with the checkpoint's sampling weights
+    (the EMA shadow when it has one), and the main family's schedule."""
+    mc, dc = cfg.model, cfg.diffusion
+    ckpt = load_checkpoint(ckpt_path, arch=mc.arch, norm=mc.norm)
+    batch_stats = ckpt.get("batch_stats", {}) if isinstance(ckpt, dict) else {}
+    model = build_model(mc, dc.high_thresh, device=dev)
+    load_flax(model, extract_params(ckpt), batch_stats)
+    return model, Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
 
 
 def gen_samples(cfg: Config, ckpt_path: str,
@@ -80,12 +95,7 @@ def gen_samples(cfg: Config, ckpt_path: str,
 
     if verbose:
         print(f"Loading checkpoint: {ckpt_path}")
-    ckpt = load_checkpoint(ckpt_path)
-    batch_stats = ckpt.get("batch_stats", {}) if isinstance(ckpt, dict) else {}
-    model = build_model(mc, dc.high_thresh, device=dev)
-    model.load_state_dict(state_dict_from_flax(extract_params(ckpt),
-                                               batch_stats))
-    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+    model, sched = _load_model(cfg, ckpt_path, dev)
     n_sample = n_per * n_classes
     # Block-ordered classes (the reference's gen_samples regenerates them
     # cyclically while its file names assume block order,
@@ -174,3 +184,93 @@ def gen_samples(cfg: Config, ckpt_path: str,
     results["out_dir"] = out_dir
     results["quality"] = quality
     return results
+
+
+def _load_edit_image(path: str, img_size: int, channels: int) -> np.ndarray:
+    """Image file -> float32 [1, H, W, C] in [-1, 1] at the model's
+    resolution (LANCZOS resize)."""
+    from PIL import Image
+
+    im = Image.open(path).convert("RGB" if channels == 3 else "L")
+    if im.size != (img_size, img_size):
+        im = im.resize((img_size, img_size), resample=Image.LANCZOS)
+    arr = np.asarray(im).astype(np.float32) * (2.0 / 255.0) - 1.0
+    if channels == 1:
+        arr = arr[..., None]
+    return arr[None]
+
+
+def _load_keep_mask(path: Optional[str], img_size: int) -> np.ndarray:
+    """Inpaint keep-mask [H, W]: luminance > 0.5 of ``path`` = preserve
+    the source pixel (the reference's orientation, in_paint.py:80-84,
+    NEAREST resize); without a file, the bottom half (its default)."""
+    if path is None:
+        m = np.zeros((img_size, img_size), np.float32)
+        m[img_size // 2:] = 1.0
+        return m
+    from PIL import Image
+
+    im = Image.open(path).convert("L")
+    if im.size != (img_size, img_size):
+        im = im.resize((img_size, img_size), resample=Image.NEAREST)
+    return (np.asarray(im).astype(np.float32) / 255.0 > 0.5).astype(
+        np.float32)
+
+
+def edit_samples(cfg: Config, ckpt_path: str, img_path: str,
+                 mode: str = "img2img", class_id: int = 0,
+                 guide_w: float = 2.0, strength: float = 0.75,
+                 n_steps: int = 50, mask_path: Optional[str] = None,
+                 batch: int = 1, seed: int = 0, eta: float = 0.0,
+                 out_dir: Optional[str] = None, verbose: bool = True,
+                 device=None, noise=None, noise_fn=None) -> Dict:
+    """Main-family img2img / inpaint (``diffusion.sample_cfg_edit``) on
+    ``device`` (default CUDA; raises without it unless ``device="cpu"``):
+    the reference's two LDM editing recipes (image_to_image.py:95-149,
+    in_paint.py:100-166) on a trained flagship model. ``batch`` copies of
+    the source image, class ``class_id``, DDIM with ``n_steps`` over the
+    schedule, ``strength`` of it run; ``mask_path`` (inpaint) as
+    :func:`_load_keep_mask`. ``noise`` / ``noise_fn`` pin the draws
+    (else a generator seeded with ``seed``).
+
+    Saves ``{mode}_s{i}.png`` and ``{mode}_grid.png`` (sources over edits)
+    under ``out_dir`` (default ``sample.sample_dir/edit_<time>``) and
+    returns ``{"paths", "grid_path", "seconds", "out_dir"}`` as the JAX
+    package does, plus the edited ``images`` [batch, H, W, C]."""
+    dev = resolve_device(device)
+    sc, mc, dc = cfg.sample, cfg.model, cfg.diffusion
+    model, sched = _load_model(cfg, ckpt_path, dev)
+    x0 = np.repeat(_load_edit_image(img_path, mc.img_size, mc.in_ch),
+                   batch, axis=0)
+    mask = (_load_keep_mask(mask_path, mc.img_size) if mode == "inpaint"
+            else None)
+    classes = torch.full((batch,), int(class_id), dtype=torch.int64,
+                         device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    if verbose:
+        print(f"{mode} on {img_path} (class {class_id}, guide {guide_w}, "
+              f"strength {strength}, {n_steps}-step DDIM)")
+    t0 = time.time()
+    with fp32_compute(dev):
+        out = sample_cfg_edit(
+            model, generator, x0, mc.n_classes, sched, dc, guide_w=guide_w,
+            n_steps=n_steps, strength=strength, inpaint_mask=mask,
+            classes=classes, eta=eta, discretize=sc.ddim_discretize,
+            noise=noise, noise_fn=noise_fn).cpu().numpy()
+    dt = time.time() - t0
+
+    out_dir = out_dir or os.path.join(sc.sample_dir,
+                                      f"edit_{int(time.time())}")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in range(len(out)):
+        p = os.path.join(out_dir, f"{mode}_s{i}.png")
+        save_image(out[i], p, denorm=sc.denorm)
+        paths.append(p)
+    grid_path = os.path.join(out_dir, f"{mode}_grid.png")
+    save_samples(np.concatenate([x0, out]), grid_path, nrow=batch,
+                 denorm=sc.denorm)
+    if verbose:
+        print(f"Wrote {len(paths)} image(s) + {grid_path} in {dt:.1f}s")
+    return {"paths": paths, "grid_path": grid_path, "seconds": dt,
+            "out_dir": out_dir, "images": out}

@@ -23,8 +23,13 @@ Seeds are validated and normalised to [0, 2**63) at ``submit`` time.
 Unpinned requests draw seeds from the service RNG (OS entropy unless
 ``service_seed`` is given).
 
-The "textbook" schedule family (annotated-DDPM presets) and mesh fan-out
-are not ported yet (ROADMAP A10, A12).
+A "textbook" schedule family checkpoint (the ``labml`` preset's
+``ddpm_unet``) is served by the textbook ancestral sampler (t = n_T-1..0,
+per-slot noise streams): classes set the slot count only and the guidance
+scale is ignored, as in ``trainer.make_sampler``. Its worker holds cuDNN
+to deterministic algorithms (``fp32_compute(deterministic=True)``): under
+cuDNN's default choice the labml net's eval output did not repeat bit for
+bit on the card. Mesh fan-out is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -48,6 +53,10 @@ from diffusionmodel_tpu_torch.diffusion import (
     sample_cfg_ddim,
     sample_cfg_dpmpp,
 )
+from diffusionmodel_tpu_torch.models.annotated_ddpm.diffusion import (
+    make_textbook_chunk_fn,
+    textbook_chunk_steps,
+)
 from diffusionmodel_tpu_torch.utils.grid import png_bytes
 
 
@@ -64,18 +73,17 @@ class SamplerService:
     schedule's device, put in eval mode here).
 
     ``sampler``: "ddim" (default of the serve CLI), "dpmpp", or
-    "ancestral" (the reference's full-T loop)."""
+    "ancestral" (the reference's full-T loop); a textbook-family config
+    takes the textbook sampler whatever ``sampler`` says."""
 
     def __init__(self, model, cfg: Config, sched: Schedule,
                  max_batch: int = 8, sampler: Optional[str] = None,
                  max_wait_ms: float = 20.0,
                  service_seed: Optional[int] = None):
         mc, dc, sc = cfg.model, cfg.diffusion, cfg.sample
-        if dc.schedule_family == "textbook":
-            raise NotImplementedError(
-                "the textbook schedule family is not ported yet: ROADMAP A10")
-        kind = sampler or sc.sampler
-        if kind not in ("ddim", "dpmpp", "ancestral"):
+        kind = ("textbook" if dc.schedule_family == "textbook"
+                else sampler or sc.sampler)
+        if kind not in ("ddim", "dpmpp", "ancestral", "textbook"):
             raise ValueError(f"unknown sampler kind: {kind}")
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
@@ -88,8 +96,15 @@ class SamplerService:
         shape = (mc.img_size, mc.img_size, mc.in_ch)
         self._shape = shape
         model.eval()
+        if kind == "textbook":
+            chunk = make_textbook_chunk_fn(model, dc, max_batch, shape)
+            steps = textbook_chunk_steps(dc.n_T)
 
         def run(classes, guide_w, x_init=None, slot_seeds=None):
+            if kind == "textbook":
+                x = torch.as_tensor(x_init, dtype=torch.float32).to(
+                    self.device)
+                return chunk(x, self._gen, steps, slot_seeds=slot_seeds)
             common = dict(classes=classes, x_init=x_init)
             if kind == "dpmpp":
                 return sample_cfg_dpmpp(
@@ -107,6 +122,7 @@ class SamplerService:
                               slot_seeds=slot_seeds, **common)
 
         self._run = run
+        self._textbook = kind == "textbook"
         self._deterministic = (kind == "dpmpp"
                                or (kind == "ddim" and sc.ddim_eta == 0.0))
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
@@ -241,8 +257,9 @@ class SamplerService:
         # keeps its choices per thread, so each service searches once, in
         # its first batch (~50 s), and saves 12.7% of every batch after it
         # (DDIM-50 at max_batch 8: 34.7 -> 30.3 s; NVIDIA H100,
-        # tools/fp32_autotune_probe.py)
-        with fp32_compute(self.device):
+        # tools/fp32_autotune_probe.py). The textbook kind also holds cuDNN
+        # to its deterministic algorithms (module docstring).
+        with fp32_compute(self.device, deterministic=self._textbook):
             self._serve_loop()
 
     def _serve_loop(self) -> None:

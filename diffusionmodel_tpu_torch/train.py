@@ -48,7 +48,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from diffusionmodel_tpu_torch.compat.flax_bridge import flax_from_state_dict
+from diffusionmodel_tpu_torch.compat.flax_bridge import flax_trees
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.diffusion import Schedule, train_loss
 from diffusionmodel_tpu_torch.lr_schedules import build_schedule
@@ -216,8 +216,9 @@ def create_train_state(model: nn.Module, cfg: Config, steps_per_epoch: int
 
 
 def host_trees(model: nn.Module) -> tuple:
-    """(params, batch_stats) of ``model`` as the JAX package's numpy trees."""
-    return flax_from_state_dict(model.state_dict())
+    """(params, batch_stats) of ``model`` as the JAX package's numpy trees
+    (the walk of its arch, ``model.layout``)."""
+    return flax_trees(model)
 
 
 def opt_state_to_host(model: nn.Module, st: OptState) -> Dict:

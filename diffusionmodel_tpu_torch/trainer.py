@@ -18,8 +18,10 @@ thread (``_CkptWriter``) from host copies taken on the training thread.
 Each sampling epoch scores the samples against the collected real images
 (``metrics.ImageMetrics`` on the run's device unless ``metrics_impl`` is
 given: fid or fid_proxy from 10 images per side, SSIM and PSNR when the
-counts match). Mesh axes and ZeRO-1 are ROADMAP A12; the textbook family
-is A10.
+counts match). The textbook schedule family (the ``labml`` preset's
+``ddpm_unet``) trains on its own schedule (t in [0, n_T), plain MSE) and
+samples with the textbook ancestral sampler. Mesh axes and ZeRO-1 are
+ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from diffusionmodel_tpu_torch.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from diffusionmodel_tpu_torch.compat.flax_bridge import state_dict_from_flax
+from diffusionmodel_tpu_torch.compat.flax_bridge import load_flax
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.data import (
     BatchLoader,
@@ -49,12 +51,18 @@ from diffusionmodel_tpu_torch.data import (
 from diffusionmodel_tpu_torch.device_check import fp32_compute, resolve_device
 from diffusionmodel_tpu_torch.diffusion import (
     Schedule,
+    _start_noise,
     sample_cfg,
     sample_cfg_ddim,
     sample_cfg_dpmpp,
 )
 from diffusionmodel_tpu_torch.lr_schedules import build_schedule
 from diffusionmodel_tpu_torch.metrics import ImageMetrics
+from diffusionmodel_tpu_torch.models.annotated_ddpm.diffusion import (
+    make_textbook_chunk_fn,
+    textbook_chunk_steps,
+    textbook_schedule,
+)
 from diffusionmodel_tpu_torch.nn import build_model
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
@@ -89,12 +97,21 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None):
     configured sampler (``sample.sampler``: ancestral over all n_T steps,
     ddim, or dpmpp). ``guide_w`` is a scalar or one scale per sample.
     ``fit`` and ``gen_samples`` call it under ``device_check.fp32_compute``;
-    another caller sets the precision flags it wants."""
+    another caller sets the precision flags it wants.
+
+    The textbook family samples unconditionally with the textbook
+    ancestral sampler over t = n_T-1..0 (reference/ddpm/__init__.py:
+    230-255; ``classes`` and ``guide_w`` are ignored), through the adapter
+    it shares with the service (``make_textbook_chunk_fn``)."""
     dc, mc, sc = cfg.diffusion, cfg.model, cfg.sample
-    if dc.schedule_family == "textbook":
-        raise NotImplementedError(
-            "sampling the textbook family is not ported yet: ROADMAP A10")
     shape = (mc.img_size, mc.img_size, mc.in_ch)
+    if dc.schedule_family == "textbook":
+        def textbook(model, generator, guide_w, x_init=None) -> torch.Tensor:
+            x = _start_noise(x_init, n_sample, shape, generator, sched.device)
+            chunk = make_textbook_chunk_fn(model.eval(), dc, n_sample, shape)
+            return chunk(x, generator, textbook_chunk_steps(dc.n_T))
+
+        return textbook
     if sc.sampler not in ("ancestral", "ddim", "dpmpp"):
         raise ValueError(f"unknown sample.sampler {sc.sampler!r} "
                          "(expected ancestral | ddim | dpmpp)")
@@ -193,7 +210,7 @@ def _load_params(model, params, batch_stats=None) -> None:
     ``batch_stats``, else the model's own."""
     if not batch_stats:
         batch_stats = host_trees(model)[1]
-    model.load_state_dict(state_dict_from_flax(params, batch_stats))
+    load_flax(model, params, batch_stats)
 
 
 def _check_single_device(tc) -> None:
@@ -217,9 +234,6 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     dev = resolve_device(device)
     tc, mc, dc = cfg.train, cfg.model, cfg.diffusion
     _check_single_device(tc)
-    if dc.schedule_family == "textbook":
-        raise NotImplementedError(
-            "training the textbook family is not ported yet: ROADMAP A10")
     if tc.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
@@ -255,14 +269,17 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
 
     torch.manual_seed(tc.seed)
     model = build_model(mc, dc.high_thresh, device=dev)
-    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+    if dc.schedule_family == "textbook":
+        sched = textbook_schedule(dc.n_T, dc.beta1, dc.beta2, dev)
+    else:
+        sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
     steps_per_epoch = max(1, len(train_loader))
     generator = torch.Generator(device=dev).manual_seed(tc.seed)
     state, opt = create_train_state(model, cfg, steps_per_epoch)
 
     start_epoch = 0
     if resume:
-        ckpt = load_checkpoint(resume)
+        ckpt = load_checkpoint(resume, arch=mc.arch, norm=mc.norm)
         bs = ckpt.get("batch_stats") if isinstance(ckpt, dict) else None
         # the LIVE weights: optimization continues from them; the EMA
         # shadow is restored separately

@@ -809,3 +809,129 @@ def test_serving_and_ldm_entry_points_run_fp32(dev):
         assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = False, False
+
+
+# --- the seventh slice: main-family editing and the side families ----------
+
+@pytest.mark.parametrize("mode", ["img2img", "inpaint"])
+def test_edit_launches_the_kernels_each_forward(dev, mode):
+    """``sample_cfg_edit`` on a narrow ContextUnet with ``use_pallas``:
+    5 SE and 4 CoordAttn launches per DDIM step's forward (k = round(0.75
+    * 8) = 6 forwards), finite images, an inpaint's kept pixels equal to
+    the source bit for bit, and the kernel path within relative L2 1e-4
+    of the plain path on the same weights and noise (chip_smoke's edit
+    tolerance: six steps carry one forward's ~1e-6 differences on)."""
+    from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg_edit
+
+    cfg, model, _ = _flagship_small(True, dev)
+    _, plain, _ = _flagship_small(False, dev)
+    dc = cfg.diffusion
+    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x0 = torch.tanh(torch.randn((2, 64, 64, 3), generator=g, device=dev))
+    noise = torch.randn((2, 64, 64, 3), generator=g, device=dev)
+    mask = None
+    if mode == "inpaint":
+        mask = torch.zeros((64, 64), device=dev)
+        mask[32:] = 1.0
+    kw = dict(guide_w=2.0, n_steps=8, strength=0.75, inpaint_mask=mask,
+              classes=torch.tensor([1, 3], device=dev), noise=noise)
+    n = (se_block.launches, coord_attn.launches)
+    got = sample_cfg_edit(model, None, x0, 5, sched, dc, **kw)
+    torch.cuda.synchronize()
+    assert (se_block.launches - n[0], coord_attn.launches - n[1]) == (30, 24)
+    assert got.shape == x0.shape and torch.isfinite(got).all()
+    if mask is not None:
+        assert torch.equal(got[:, 32:], x0[:, 32:])
+    want = sample_cfg_edit(plain, None, x0, 5, sched, dc, **kw)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("name", ["mnist", "custom", "labml"])
+def test_side_nets_forward_and_train_step_on_the_card(dev, name):
+    """Each side family's net at a narrow width: an eval forward on the
+    card equal (1e-4 relative L2) to the same weights' forward on the CPU,
+    and one optimizer step with a finite loss that moves the weights."""
+    from diffusionmodel_tpu_torch.config import preset
+    from diffusionmodel_tpu_torch.nn import build_model
+
+    size = 28 if name == "mnist" else 32
+    cfg = preset(name, **{"model.n_feat": 16, "model.img_size": size,
+                          "diffusion.n_T": 20, "train.batch_size": 2,
+                          "train.accum_steps": 1})
+    torch.manual_seed(0)
+    model = build_model(cfg.model, cfg.diffusion.high_thresh, device=dev)
+    cpu = build_model(cfg.model, cfg.diffusion.high_thresh, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    mc = cfg.model
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, size, size, mc.in_ch), generator=g)
+    c = torch.tensor([0, mc.n_classes - 1])
+    t = (torch.tensor([3.0, 11.0]) if name == "labml"
+         else torch.tensor([0.2, 0.7]))
+    ctx = torch.ones(2)
+    with torch.no_grad():
+        got = model.eval()(x.to(dev), c.to(dev), t.to(dev), ctx.to(dev))
+        want = cpu.eval()(x, c, t, ctx)
+    assert got.shape == (2, size, size, mc.in_ch)
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel
+
+    from diffusionmodel_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    dc = cfg.diffusion
+    if dc.schedule_family == "textbook":
+        from diffusionmodel_tpu_torch.models.annotated_ddpm.diffusion import (
+            textbook_schedule,
+        )
+
+        sched = textbook_schedule(dc.n_T, dc.beta1, dc.beta2, dev)
+    else:
+        from diffusionmodel_tpu_torch.diffusion import Schedule
+
+        sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+    state, opt = create_train_state(model, cfg, 1)
+    step = make_train_step(model, sched, cfg, opt)
+    before = [p.detach().clone() for p in model.parameters()]
+    batch = {"x": x[None], "c": c[None],
+             "mask": torch.ones((1, 2, size, size))}
+    loss = step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    assert torch.isfinite(loss)
+    assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+
+
+def test_labml_service_pinned_request_repeats_on_the_card(dev):
+    """A labml (textbook) ``SamplerService`` on the card: a pinned request
+    alone and then batched with another gives the same images bit for bit
+    (the worker holds cuDNN to its deterministic algorithms), and cuDNN's
+    flag is the caller's again after the service closes."""
+    import numpy as np
+
+    from diffusionmodel_tpu_torch.config import preset
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.serving import SamplerService
+
+    cfg = preset("labml", **{"model.n_feat": 16, "model.img_size": 32,
+                             "diffusion.n_T": 20})
+    torch.manual_seed(0)
+    model = build_model(cfg.model, cfg.diffusion.high_thresh, device=dev)
+    dc = cfg.diffusion
+    sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+    saved = torch.backends.cudnn.deterministic
+    with SamplerService(model, cfg, sched, max_batch=2,
+                        service_seed=0) as svc:
+        alone = svc.generate([0], guide_w=0.0, seed=3)
+        futs = [svc.submit([0], guide_w=4.0),
+                svc.submit([0], guide_w=0.0, seed=3)]
+        outs = [f.result() for f in futs]
+        batches = svc.stats["batches"]
+    assert torch.backends.cudnn.deterministic == saved
+    assert batches == 2
+    assert alone.shape == (1, 32, 32, 3) and np.isfinite(alone).all()
+    np.testing.assert_array_equal(outs[1], alone)

@@ -159,10 +159,37 @@ def test_fp32_compute_sets_and_restores_flags():
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark = saved
 
 
+def test_fp32_compute_deterministic_sets_and_restores_the_flag():
+    """``deterministic=True`` holds cuDNN to its deterministic algorithms
+    inside the block and restores the caller's setting after it, also when
+    it raises; the default leaves a caller's ``True`` in place."""
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic = False
+        with fp32_compute(torch.device("cpu"), deterministic=True):
+            assert not cudnn.deterministic
+        with pytest.raises(KeyError):
+            with fp32_compute(torch.device("cuda"), deterministic=True):
+                assert cudnn.deterministic
+                raise KeyError
+        assert not cudnn.deterministic
+        with fp32_compute(torch.device("cuda")):
+            assert not cudnn.deterministic
+        cudnn.deterministic = True
+        with fp32_compute(torch.device("cuda")):
+            assert cudnn.deterministic
+        assert cudnn.deterministic
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 @pytest.mark.parametrize("override, exc", [
     ({"model.fused_upsample": True}, None),  # ported: builds
     ({"model.dtype": "bfloat16"}, None),  # ported: builds
-    ({"model.arch": "mnist_unet"}, NotImplementedError),
+    ({"model.arch": "mnist_unet"}, None),  # ported: builds (side family)
     ({"model.arch": "nope"}, ValueError),
 ])
 def test_build_model_refuses_unported_options(override, exc):
@@ -172,9 +199,12 @@ def test_build_model_refuses_unported_options(override, exc):
         with pytest.raises(exc):
             build_model(cfg.model, device="cpu")
         return
+    model = build_model(cfg.model, device="cpu")
+    if "model.arch" in override:  # another network, with its own layout
+        assert model.layout["arch"] == override["model.arch"]
+        return
     # what earlier slices refused now builds, computing in the configured
     # type on float32 parameters with the default model's state_dict keys
-    model = build_model(cfg.model, device="cpu")
     plain = build_model(preset("full", **{"model.n_feat": 8,
                                           "model.img_size": 32}).model,
                         device="cpu")
@@ -267,19 +297,23 @@ def test_checkpoint_loader_stubs_unknown_classes(tmp_path):
         load_checkpoint(str(tmp_path / "missing"))
 
 
-# train and generate are ported for the ContextUnet presets; their side
-# family presets (ROADMAP A10) are not, nor is the flagship's editing (A11)
-_UNPORTED_ARGS = {"train": ["--preset", "mnist"],
-                  "generate": ["--preset", "labml", "--ckpt", "x.pkl"],
-                  "img2img": ["--family", "main"]}
+# Every mode is ported, for every preset and both editing families: what
+# stays unported is multi-device training (ROADMAP A12), which the CLI
+# refuses before it starts; the invocations earlier slices refused (the
+# side presets, --family main) reach their own argument checks.
+_UNPORTED_ARGS = {
+    "train": (["--preset", "mnist", "-o", "train.zero1=true"], "not ported"),
+    "generate": (["--preset", "labml"], "Checkpoint path required"),
+    "img2img": (["--family", "main"], "--ckpt and --orig_img required")}
 
 
 @pytest.mark.parametrize("mode", ["train", "generate", "img2img"])
 def test_cli_unported_modes_return_1(mode, capsys):
     from diffusionmodel_tpu_torch.cli import main
 
-    assert main(["--mode", mode] + _UNPORTED_ARGS.get(mode, [])) == 1
-    assert "not ported" in capsys.readouterr().out
+    args, said = _UNPORTED_ARGS[mode]
+    assert main(["--mode", mode] + args) == 1
+    assert said in capsys.readouterr().out
 
 
 def test_cli_serve_needs_ckpt(capsys):

@@ -170,10 +170,34 @@ def test_train_loss_and_gradients_match_jax(tiny, batch, weighted):
 
 
 def test_textbook_loss_is_not_ported(batch):
+    """The textbook family's branch, ported since: the network gets x_t on
+    the textbook schedule's abar at the given t in [0, n_T), the raw
+    timesteps, a zero context mask and no spatial mask; plain MSE. (Held
+    to the JAX package in tests/test_torch_side_families.py.)"""
+    from diffusionmodel_tpu_torch.models.annotated_ddpm.diffusion import (
+        textbook_schedule,
+    )
+
     dc = dataclasses.replace(_cfg().diffusion, schedule_family="textbook")
-    with pytest.raises(NotImplementedError, match="A10"):
-        train_loss(None, torch.zeros(1, 4, 4, 3), torch.zeros(1), None,
-                   None, dc)
+    sched = textbook_schedule(dc.n_T, dc.beta1, dc.beta2, "cpu")
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((2, 4, 4, 3), generator=g)
+    noise = torch.randn((2, 4, 4, 3), generator=g)
+    ts = [0, dc.n_T - 1]
+    seen = {}
+
+    def apply(x_t, c, t, ctx, attn):
+        seen.update(x_t=x_t, t=t, ctx=ctx, attn=attn)
+        return torch.full_like(x_t, 0.5)
+
+    loss = train_loss(apply, x, torch.zeros(2), None, sched, dc, ts=ts,
+                      noise=noise)
+    ab = sched.alpha_bar[torch.tensor(ts)][:, None, None, None]
+    torch.testing.assert_close(seen["x_t"], torch.sqrt(ab) * x
+                               + torch.sqrt(1.0 - ab) * noise)
+    assert seen["t"].tolist() == [float(t) for t in ts]
+    assert seen["ctx"].tolist() == [0.0, 0.0] and seen["attn"] is None
+    torch.testing.assert_close(loss, torch.mean((noise - 0.5) ** 2))
 
 
 @pytest.mark.parametrize("kind", ["cosine_warm_restarts", "linear", "none"])
