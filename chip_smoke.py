@@ -719,16 +719,39 @@ def ca_site_weights(i: int, c: int, kind: str):
         return CoordAttnWeights.from_module(mod, kind), gn_groups(r, 8)
 
 
+def ca_timing(fn, x, wts, kind: str, groups: int, design_bytes: float,
+              iters: int = 20) -> dict:
+    """A CoordAttn kernel ``fn`` (the wrapper's signature) at one site: its
+    CUDA-event ms over rotating copies of x, the bytes bound (x read once,
+    out written once, the weights once; the operations at the fp32 rate)
+    and the design's bound (``design_bytes`` at the HBM rate), with the
+    shares of both."""
+    b, h, _, c = x.shape
+    r = wts.w1h.shape[-1]
+    wbytes = sum(getattr(wts, f.name).numel() * 4
+                 for f in dataclasses.fields(wts))
+    mlp = b * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
+    b_ms, b_by = bound(2 * x.numel() * x.element_size() + wbytes,
+                       4 * x.numel() + mlp)
+    with torch.no_grad():
+        ms, copies = rotating_ms(lambda a: fn(a, wts, kind, groups), x, iters)
+    d_ms = design_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[-1],
+                ms=ms, copies=copies,
+                timed_over=f">= {ROTATE_BYTES / 1e6:.0f} MB of rotating "
+                           "copies of x",
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                design_bound_ms=d_ms, design_bound_share=d_ms / ms)
+
+
 def ca_site_row(x, wts, kind: str, groups: int, iters: int = 20) -> dict:
-    """The CoordAttn kernel at one site: max |kernel - twin|, the CUDA-event
-    ms of back-to-back wrapper calls, the profiler's device ms per kernel,
-    their sum and the union of their intervals (the passes overlap: each
-    may start while the one before it ends, and waits for its output), the
-    host's ms per call (the wrapper's enqueue; where it nears ``ms`` the
-    host sets the pace), the CoordAttn kernels launched per call, the
-    bound (x
-    read once, out written once, the operations at the fp32 rate) and the
-    floor of a design that reads x twice, and the shares of both."""
+    """The CoordAttn kernel at one site against its twin: max |diff| (and
+    relative L2 and max |y|, which the bf16 check reads), ``ca_timing``
+    (the design's bound: x read twice and written once, the floor of the
+    three launches), the twin's ms, the profiler's device ms per kernel and
+    the host's ms per call (the wrapper's enqueue; where it nears ``ms`` the
+    host sets the pace). The kernels one call launches come from
+    ``fresh_kernel_counts``."""
     from diffusionmodel_tpu_torch.kernels.coord_attn import (
         coord_attn,
         coord_attn_plain,
@@ -738,47 +761,40 @@ def ca_site_row(x, wts, kind: str, groups: int, iters: int = 20) -> dict:
         return coord_attn(x, wts, kind, groups)
 
     with torch.no_grad():
-        err = (call() - coord_attn_plain(x, wts, kind, groups)
-               ).abs().max().item()
-        b, h, _, c = x.shape
-        r = wts.w1h.shape[-1]
-        xb = x.numel() * 4
-        wbytes = sum(getattr(wts, f.name).numel() * 4
-                     for f in dataclasses.fields(wts))
-        mlp = b * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
-        b_ms, b_by = bound(2 * xb + wbytes, 4 * x.numel() + mlp)
-        ms = cuda_ms(call, iters)
+        y = call().float()
+        want = coord_attn_plain(x, wts, kind, groups).float()
+        row = dict(norm_kind=kind, max_abs_err=(y - want).abs().max().item(),
+                   max_abs_out=want.abs().max().item(),
+                   rel_l2=((y - want).norm() / want.norm()).item())
+        del y, want
+        row.update(ca_timing(coord_attn, x, wts, kind, groups,
+                             3 * x.numel() * x.element_size(), iters))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             call()
-        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        row["host_ms"] = (time.perf_counter() - t0) * 1e3 / iters
         torch.cuda.synchronize()
-        by_kernel, busy_ms, _ = kernel_breakdown(call)
-        per_kernel = {k: v for k, v in by_kernel.items() if k.startswith("ca_")}
-        launched = sum(n for k, n in kernel_launches(call).items()
-                       if k.startswith("ca_"))
-    floor_ms = 3 * xb / HBM_BYTES_PER_S * 1e3
-    return dict(shape=list(x.shape), norm_kind=kind, max_abs_err=err, ms=ms,
-                device_ms=per_kernel, device_sum_ms=sum(per_kernel.values()),
-                device_busy_ms=busy_ms, host_ms=host_ms,
-                kernels_per_call=launched,
-                bound_ms=b_ms, bound_by=b_by, design_bound_ms=floor_ms,
-                bound_share=b_ms / ms, design_bound_share=floor_ms / ms)
+        row["plain_ms"] = cuda_ms(
+            lambda: coord_attn_plain(x, wts, kind, groups), 10)
+        row["device_ms"] = {k: v for k, v in device_times(call).items()
+                            if k.startswith("ca_")}
+    return row
 
 
 def check_ca_row(row: dict) -> None:
-    check(row["max_abs_err"] <= KERNEL_ATOL,
-          f"coord_attn {row['norm_kind']} {row['shape']}: "
-          f"|diff| {row['max_abs_err']}")
+    if row["dtype"] == "float32":
+        check(row["max_abs_err"] <= KERNEL_ATOL,
+              f"coord_attn {row['norm_kind']} {row['shape']}: "
+              f"|diff| {row['max_abs_err']}")
+    else:
+        _check_bf16_row("coord_attn", row)
     check(row["kernels_per_call"] == CA_KERNELS_PER_CALL,
           f"coord_attn {row['shape']}: {row['kernels_per_call']} kernels "
           f"per call, the design launches {CA_KERNELS_PER_CALL}")
 
 
 def phase_kernels(counts: dict) -> list:
-    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn_plain
-
     rows = {"se_block": [], "coord_attn": [], "coord_attn_affine": []}
     with torch.no_grad():
         dram = se_dram_bytes("float32")
@@ -803,8 +819,6 @@ def phase_kernels(counts: dict) -> list:
                 rows[key].append(ca_site_row(x, wts, kind, groups))
                 rows[key][-1]["kernels_per_call"] = counts[
                     f"ca {kind} float32 {h} {c}"]
-                rows[key][-1]["plain_ms"] = cuda_ms(
-                    lambda: coord_attn_plain(x, wts, kind, groups), 10)
                 emit("kernels", kernel="coord_attn", **rows[key][-1])
                 check_ca_row(rows[key][-1])
                 del x
@@ -1984,23 +1998,6 @@ BF16_MAX_REL = 2.0 ** -7
 FUSED_RTOL_F32 = 1e-5  # fused vs unfused upsample head at fp32 (rel L2)
 
 
-def _bf16_row(kernel, twin, x, wbytes: int, flops: float) -> dict:
-    """A bf16 kernel at one site against its bf16 twin: relative L2 and
-    max |diff| over max |y|, kernel and twin ms (CUDA events), the
-    profiler's device ms, the bound (x read once and out written once in
-    bf16, the weights once in fp32, the operations at the fp32 rate)."""
-    y, want = kernel().float(), twin().float()
-    rel = ((y - want).norm() / want.norm()).item()
-    max_abs = (y - want).abs().max().item()
-    top = want.abs().max().item()
-    b_ms, b_by = bound(2 * x.numel() * x.element_size() + wbytes, flops)
-    ms = cuda_ms(kernel, 20)
-    return dict(shape=list(x.shape), dtype="bfloat16", rel_l2=rel,
-                max_abs_err=max_abs, max_abs_out=top, ms=ms,
-                plain_ms=cuda_ms(twin, 10), device_ms=device_times(kernel),
-                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
-
-
 def _check_bf16_row(name: str, row: dict) -> None:
     check(row["rel_l2"] <= BF16_REL_L2
           and row["max_abs_err"] <= BF16_MAX_REL * row["max_abs_out"],
@@ -2012,10 +2009,7 @@ def phase_kernels_bf16(counts: dict) -> dict:
     """The bf16 forms of the SE and CoordAttn kernels at every site of a
     batch-16 flagship forward (bf16 x, fp32 weights drawn as in
     ``phase_kernels``) against their bf16 twins."""
-    from diffusionmodel_tpu_torch.kernels.coord_attn import (
-        coord_attn,
-        coord_attn_plain,
-    )
+    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn
     from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     rows = {"se_block": [], "coord_attn": []}
@@ -2035,17 +2029,13 @@ def phase_kernels_bf16(counts: dict) -> dict:
         for i, (h, c) in enumerate(CA_SITES):
             wts, groups = ca_site_weights(i, c, "group")
             x = _site_x(BATCH, h, c, 10 + i).bfloat16()
-            r = wts.w1h.shape[-1]
-            wbytes = sum(getattr(wts, f.name).numel() * 4
-                         for f in dataclasses.fields(wts))
-            mlp = BATCH * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
-            row = _bf16_row(lambda: coord_attn(x, wts, "group", groups),
-                            lambda: coord_attn_plain(x, wts, "group", groups),
-                            x, wbytes, 4 * x.numel() + mlp)
+            row = ca_site_row(x, wts, "group", groups)
+            row["kernels_per_call"] = counts[f"ca group bfloat16 {h} {c}"]
             rows["coord_attn"].append(row)
             emit("kernels_bf16", kernel="coord_attn", **row)
-            _check_bf16_row("coord_attn", row)
+            check_ca_row(row)
             del x
+            torch.cuda.empty_cache()
         # a float16 x is refused, as is a bf16 x the 16-byte loads cannot
         # take (C % 8 != 0)
         wts, groups = ca_site_weights(0, 192, "group")
@@ -2962,14 +2952,15 @@ def main() -> int:
             "library_ms": None,
             "device_ms": sum(sum(s["device_ms"].values()) for s in sites),
             "per": f"one batch-{BATCH} forward ({len(sites)} sites)",
-            **({"kernels_per_call": max(s["kernels_per_call"] for s in sites),
-                "design_bound_ms": sum(s["design_bound_ms"] for s in sites),
-                "bytes_reread": sum(s["bytes_reread"] for s in sites),
-                "bound_share": sum(s["bound_ms"] for s in sites)
-                / sum(s["ms"] for s in sites),
-                "dram_bytes_read": [s["dram_bytes_read"] for s in sites],
-                "timed_over": f">= {ROTATE_BYTES / 1e6:.0f} MB of rotating "
-                              "copies of x"}
+            "kernels_per_call": max(s["kernels_per_call"] for s in sites),
+            "design_bound_ms": sum(s["design_bound_ms"] for s in sites),
+            "bound_share": sum(s["bound_ms"] for s in sites)
+            / sum(s["ms"] for s in sites),
+            "site_ms": [s["ms"] for s in sites],
+            "timed_over": f">= {ROTATE_BYTES / 1e6:.0f} MB of rotating "
+                          "copies of x",
+            **({"bytes_reread": sum(s["bytes_reread"] for s in sites),
+                "dram_bytes_read": [s["dram_bytes_read"] for s in sites]}
                if key == "se_block" else {}),
         }
 
