@@ -111,7 +111,7 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             512 px. Seconds per step, images/s and peak memory.
 12. train   ``trainer.fit`` on ``preset("full")`` at full width and depth
             (``use_pallas``, EMA 0.9995, batch 4 x 4 micro-batches, full
-            remat, bf16 Adam moment, fp32) for 2 epochs on 25 in-memory
+            remat, bf16 Adam moment, fp32) for 1 epoch on 25 in-memory
             synthetic crack images (5 classes; 20 train, 5 val), with
             validation and DPM++-10 sampling every epoch: finite losses,
             5 SE and 4 CoordAttn launches per eval-mode forward and none in
@@ -211,8 +211,8 @@ side_families  the ``mnist`` (28 px, n_feat 128, BatchNorm), ``custom``
             peak GiB), the checkpoint reloaded into a fresh model (the
             same weights, and under cuDNN's deterministic algorithms the
             same output bit for bit), a ``gen_samples`` call (DDIM-50 for
-            mnist and custom; the 1000-step textbook sampler for 4 slots
-            for labml), mnist's ancestral ``return_history`` written as a
+            mnist and custom; the textbook sampler, cut to 250 steps,
+            for 4 slots for labml), mnist's ancestral ``return_history`` written as a
             GIF, a pinned labml ``SamplerService`` request alone and then
             batched with another, bit-identical; mnist again at
             bf16, and custom's float32 checkpoint sampled and reloaded at
@@ -719,13 +719,14 @@ def ca_site_weights(i: int, c: int, kind: str):
         return CoordAttnWeights.from_module(mod, kind), gn_groups(r, 8)
 
 
-def ca_timing(fn, x, wts, kind: str, groups: int, design_bytes: float,
-              iters: int = 20) -> dict:
-    """A CoordAttn kernel ``fn`` (the wrapper's signature) at one site: its
-    CUDA-event ms over rotating copies of x, the bytes bound (x read once,
+def ca_timing(x, wts, kind: str, groups: int, iters: int = 20) -> dict:
+    """The CoordAttn kernel at one site: its CUDA-event ms over rotating
+    copies of x, the bytes bound (x read once,
     out written once, the weights once; the operations at the fp32 rate)
-    and the design's bound (``design_bytes`` at the HBM rate), with the
-    shares of both."""
+    and the three launches' floor (x read twice and written once, at the
+    HBM rate), with the shares of both."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn
+
     b, h, _, c = x.shape
     r = wts.w1h.shape[-1]
     wbytes = sum(getattr(wts, f.name).numel() * 4
@@ -734,8 +735,9 @@ def ca_timing(fn, x, wts, kind: str, groups: int, design_bytes: float,
     b_ms, b_by = bound(2 * x.numel() * x.element_size() + wbytes,
                        4 * x.numel() + mlp)
     with torch.no_grad():
-        ms, copies = rotating_ms(lambda a: fn(a, wts, kind, groups), x, iters)
-    d_ms = design_bytes / HBM_BYTES_PER_S * 1e3
+        ms, copies = rotating_ms(lambda a: coord_attn(a, wts, kind, groups),
+                                 x, iters)
+    d_ms = 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
     return dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[-1],
                 ms=ms, copies=copies,
                 timed_over=f">= {ROTATE_BYTES / 1e6:.0f} MB of rotating "
@@ -767,8 +769,7 @@ def ca_site_row(x, wts, kind: str, groups: int, iters: int = 20) -> dict:
                    max_abs_out=want.abs().max().item(),
                    rel_l2=((y - want).norm() / want.norm()).item())
         del y, want
-        row.update(ca_timing(coord_attn, x, wts, kind, groups,
-                             3 * x.numel() * x.element_size(), iters))
+        row.update(ca_timing(x, wts, kind, groups, iters))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -1489,7 +1490,8 @@ def phase_train_ldm(counters) -> list:
 # --- flagship training and generation ------------------------------------
 FLAGSHIP_CLASSES = 5
 FLAGSHIP_PER_CLASS = 5  # 25 in-memory images: 20 train, 5 val
-FLAGSHIP_EPOCHS = 2
+# one epoch: the whole run must fit its time limit on a slower host too
+FLAGSHIP_EPOCHS = 1
 SE_PER_FORWARD, CA_PER_FORWARD = len(SE_SITES), len(CA_SITES)
 
 
@@ -2573,13 +2575,15 @@ def phase_pt_checkpoint(cfg, ckpt, out_dir) -> None:
     torch.cuda.empty_cache()
 
 
-# the side presets at their own widths; datasets, epochs and (mnist,
-# custom: DDIM-50 for their 400 / 500-step ancestral loop) sampler depth cut
+# the side presets at their own widths; datasets, epochs and sampler depth
+# cut (mnist, custom: DDIM-50 for their 400 / 500-step ancestral loop;
+# labml: a 250-step textbook chain for its 1000 steps, to fit the run's
+# time limit)
 SIDE = {
     "mnist": {"train.n_epoch": 1, "sample.sampler": "ddim"},
     "custom": {"train.n_epoch": 1, "sample.sampler": "ddim",
                "model.n_classes": FLAGSHIP_CLASSES, "train.val_split": 0.2},
-    "labml": {"train.n_epoch": 1},
+    "labml": {"train.n_epoch": 1, "diffusion.n_T": 250},
 }
 
 
@@ -2607,7 +2611,8 @@ def _side_forward(model, cfg, seed=5):
     s = mc.img_size
     x = torch.randn((4, s, s, mc.in_ch), generator=g, device="cuda")
     c = torch.arange(4, device="cuda") % mc.n_classes
-    t = (torch.tensor([1.0, 250.0, 600.0, 999.0], device="cuda")
+    n = cfg.diffusion.n_T
+    t = (torch.tensor([1.0, n // 4, 3 * n // 5, n - 1], device="cuda")
          if cfg.diffusion.schedule_family == "textbook"
          else torch.rand(4, generator=g, device="cuda"))
     with torch.no_grad():
@@ -2707,8 +2712,8 @@ def phase_side_families(out_dir) -> None:
     presets at their own widths on the card: one ``fit`` epoch of one or
     two steps on a synthetic dataset (finite losses; step seconds, peak
     GiB), the checkpoint reloaded bit-identically, a ``gen_samples`` call
-    (mnist and custom DDIM-50, labml the 1000-step textbook sampler for 4
-    slots); mnist's ancestral ``return_history`` trajectory written as a
+    (mnist and custom DDIM-50, labml the textbook sampler, 250 steps, for
+    4 slots); mnist's ancestral ``return_history`` trajectory written as a
     GIF; a pinned labml ``SamplerService`` request alone, then batched
     with another, bit-identical; mnist once more at bf16,
     and custom's checkpoint sampled at bf16 (no second fit)."""

@@ -2,9 +2,6 @@
 
 - ``se_block``: squeeze-excitation (replaces the Pallas ``se_block_fused``);
 - ``coord_attn``: coordinate attention (replaces ``coord_attn_fused``);
-- ``coord_attn_resident``: a second coordinate-attention kernel that reads
-  x once (one cooperative launch); slower on an H100, so off the model's
-  path and timed beside ``coord_attn`` by ``tools/coord_attn_probe.py``;
 - ``flash_attn``: the flash-attention forward (replaces ``_flash_forward``);
 - ``flash_attn_bwd``: its two backward passes (replace ``_flash_dq_kernel``
   and ``_flash_dkv_kernel``), behind ``flash_attn.FlashAttentionFunction``.

@@ -13,8 +13,6 @@ twin.
 The kernel runs in three launches (pool, bottleneck, apply);
 :func:`launch_plan` sizes them, and :func:`coord_attn_staged` follows
 their stages and tiles in plain torch, for the tests and as documentation.
-``kernels.coord_attn_resident`` computes the same function in one launch
-that reads x once; it is slower on an H100, so the model calls this one.
 
 x is float32 or bfloat16; the packed weights are float32 either way, and
 both the kernel and the twin compute in float32 inside and round the
@@ -404,48 +402,6 @@ def _weight_ptrs(wts: CoordAttnWeights, device: torch.device,
     return ptrs
 
 
-def check_kernel_input(x: torch.Tensor, wts: CoordAttnWeights,
-                       norm_kind: str, gn_groups: int,
-                       what: str = "coord_attn") -> tuple:
-    """What both CoordAttn kernels (this module's and
-    ``kernels.coord_attn_resident``'s) take: a CUDA x [B,L,L,C], contiguous
-    NHWC (square maps, side <= MAX_SIDE), float32 or bfloat16, 16-byte
-    aligned with C % 4 (float32) or C % 8 (bfloat16), and R divisible into
-    the groups. Returns (b, l, c, r, groups); raises ValueError or
-    TypeError, naming ``what``, for anything else."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dim() != 4:
-        raise ValueError(
-            f"{what}: x must be [B,H,W,C], got {tuple(x.shape)}")
-    b, h, w, c = x.shape
-    r = wts.w1h.shape[-1]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what}: the kernel takes float32 or bfloat16,"
-                        f" got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: x must be contiguous NHWC "
-                         "(a channels_last NCHW tensor, permuted)")
-    if h != w or h > MAX_SIDE:
-        raise ValueError(f"{what}: the kernel takes square maps with "
-                         f"side <= {MAX_SIDE}, got {h}x{w}")
-    vec = 16 // x.element_size()  # channels per 16-byte access
-    if x.data_ptr() % 16 or c % vec or b * h == 0:
-        raise ValueError(f"{what}: needs a 16-byte aligned x with "
-                         f"C % {vec} == 0 and no empty axis, got "
-                         f"{tuple(x.shape)}")
-    if norm_kind == "group":
-        groups = gn_groups
-        if groups < 1 or r % groups:
-            raise ValueError(f"{what}: R={r} not divisible into "
-                             f"{groups} groups")
-    elif norm_kind == "affine":
-        groups = 1
-    else:
-        raise ValueError(f"unknown norm_kind {norm_kind!r}")
-    return b, h, c, r, groups
-
-
 def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
                norm_kind: str = "group", gn_groups: int = 4) -> torch.Tensor:
     """x: [B,L,L,C] contiguous NHWC (square maps), float32 or bfloat16.
@@ -454,7 +410,36 @@ def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
     kernel's three passes (``coord_attn.launches`` counts those calls)."""
     if x.device.type == "cpu":
         return coord_attn_plain(x, wts, norm_kind, gn_groups)
-    b, h, c, r, groups = check_kernel_input(x, wts, norm_kind, gn_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"coord_attn: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(
+            f"coord_attn: x must be [B,H,W,C], got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    r = wts.w1h.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"coord_attn: the kernel takes float32 or bfloat16,"
+                        f" got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("coord_attn: x must be contiguous NHWC "
+                         "(a channels_last NCHW tensor, permuted)")
+    if h != w or h > MAX_SIDE:
+        raise ValueError(f"coord_attn: the kernel takes square maps with "
+                         f"side <= {MAX_SIDE}, got {h}x{w}")
+    vec = 16 // x.element_size()  # channels per 16-byte access
+    if x.data_ptr() % 16 or c % vec or b * h == 0:
+        raise ValueError(f"coord_attn: needs a 16-byte aligned x with "
+                         f"C % {vec} == 0 and no empty axis, got "
+                         f"{tuple(x.shape)}")
+    if norm_kind == "group":
+        kind, groups = 0, gn_groups
+        if groups < 1 or r % groups:
+            raise ValueError(f"coord_attn: R={r} not divisible into "
+                             f"{groups} groups")
+    elif norm_kind == "affine":
+        kind, groups = 1, 1
+    else:
+        raise ValueError(f"unknown norm_kind {norm_kind!r}")
     plan = launch_plan(b, h, c, r, norm_kind, groups, x.element_size())
     if max(plan.bottleneck.smem, plan.apply.smem) > MAX_DYNAMIC_SMEM:
         raise ValueError(f"coord_attn: L={h}, R={r} exceed a block's "

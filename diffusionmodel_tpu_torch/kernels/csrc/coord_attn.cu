@@ -20,10 +20,11 @@
 // whole sample: the gates need the pooled means of all of x before any
 // output can be written. So x is read twice, once to pool and once to
 // apply, and this design's floor is 3 x-sized transfers against the bound's
-// 2 (67% of the bound). (A sample does fit across a group of blocks:
-// coord_attn_resident.cu keeps it there and reads x once in one cooperative
-// launch, but its per-sample exchanges make it slower on an H100; PERF.md,
-// section 6, PR 13.) Three launches:
+// 2 (67% of the bound). A sample does fit in the shared memory of a group
+// of blocks: a one-launch design that keeps it there and reads x once was
+// built and measured slower on an H100, because the group's blocks must
+// exchange partial projections twice per sample (commit 986160d holds it;
+// PERF.md, section 6, has its times). Three launches:
 //
 //   ca_pool        first read of x. Block (32-channel chunk, tile of 16
 //                  rows, sample); a warp reads 4 columns x 128 contiguous

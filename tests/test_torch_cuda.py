@@ -24,7 +24,6 @@ reference value instead.
 import pytest
 import torch
 
-from diffusionmodel_tpu_torch.kernels import coord_attn_resident as res
 from diffusionmodel_tpu_torch.kernels.coord_attn import (
     CoordAttnWeights,
     coord_attn,
@@ -253,22 +252,22 @@ def test_coord_attn_calls_of_other_shapes_in_turn(dev):
 
 
 _KERNELS_PER_CALL = """
-import importlib, json, sys, torch
-from diffusionmodel_tpu_torch.kernels.coord_attn import CoordAttnWeights
+import json, torch
+from diffusionmodel_tpu_torch.kernels.coord_attn import (
+    CoordAttnWeights, coord_attn)
 from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
-fn = getattr(importlib.import_module(sys.argv[1]), sys.argv[2])
 torch.manual_seed(0)
 wts = CoordAttnWeights.from_module(CoordAttn(192, 16).cuda().eval())
 names = {}
 for dtype in (torch.float32, torch.bfloat16):
     x = torch.randn((2, 32, 32, 192), device="cuda").to(dtype)
     with torch.no_grad():
-        fn(x, wts, "group", 6)
+        coord_attn(x, wts, "group", 6)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(x, wts, "group", 6)
+            coord_attn(x, wts, "group", 6)
             torch.cuda.synchronize()
     names[str(dtype)] = sorted({(e.name, e.time_range.start)
                                 for e in prof.events()
@@ -278,20 +277,20 @@ print("NAMES " + json.dumps(names))
 """
 
 
-def _kernels_per_call(module: str, fn: str) -> dict:
-    """The CUDA kernels one call of ``module.fn`` (a CoordAttn wrapper)
-    launches, for fp32 and bf16 x, by torch.profiler in a process of its
-    own: on the card the profiler drops device events once a process has
-    run for a while (chip_smoke.fresh_kernel_counts), so in a whole-file
-    run an in-process count read short."""
+def _kernels_per_call() -> dict:
+    """The CUDA kernels one ``coord_attn`` call launches, for fp32 and bf16
+    x, by torch.profiler in a process of its own: on the card the profiler
+    drops device events once a process has run for a while
+    (chip_smoke.fresh_kernel_counts), so in a whole-file run an in-process
+    count read short."""
     import json
     import os
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", _KERNELS_PER_CALL, module,
-                           fn], capture_output=True, text=True, timeout=600,
+    proc = subprocess.run([sys.executable, "-c", _KERNELS_PER_CALL],
+                          capture_output=True, text=True, timeout=600,
                           cwd=root)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("NAMES ")]
     assert proc.returncode == 0 and len(lines) == 1, proc.stderr[-3000:]
@@ -304,23 +303,11 @@ def test_coord_attn_launches_three_kernels_per_call(dev):
     x (pool and apply are templated on x's type)."""
     import re
 
-    for dtype, names in _kernels_per_call(
-            "diffusionmodel_tpu_torch.kernels.coord_attn",
-            "coord_attn").items():
+    for dtype, names in _kernels_per_call().items():
         assert len(names) == 3, (dtype, names)
         short = sorted(re.search(r"\bca_[a-z_]+(?=[(<])", n).group(0)
                        for n, _ in names)
         assert short == ["ca_apply", "ca_bottleneck", "ca_pool"], names
-
-
-def test_coord_attn_resident_launches_one_kernel_per_call(dev):
-    """The resident kernel: one cooperative launch, nothing else, per call,
-    for fp32 and bf16 x."""
-    for dtype, names in _kernels_per_call(
-            "diffusionmodel_tpu_torch.kernels.coord_attn_resident",
-            "coord_attn_resident").items():
-        assert len(names) == 1 and "ca_resident" in names[0][0], (
-            dtype, names)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -979,108 +966,3 @@ def test_labml_service_pinned_request_repeats_on_the_card(dev):
     assert batches == 2
     assert alone.shape == (1, 32, 32, 3) and np.isfinite(alone).all()
     np.testing.assert_array_equal(outs[1], alone)
-
-
-# The resident kernel (kernels.coord_attn_resident, off the model's path):
-# the flagship sites at batch 2, ragged shapes (tools/coord_attn_probe.py's
-# RAGGED: 256 px, L off the row tiles, C off the slices, L = 1), a sample
-# the ring does not hold (re-read, fp32) and one whose partials, y and z
-# spill to device memory.
-RES_SHAPES = [(2, 128, 128, 192), (2, 64, 64, 384), (2, 32, 32, 768),
-              (2, 16, 16, 1536), (3, 20, 20, 96), (2, 9, 9, 80),
-              (2, 1, 1, 64), (1, 256, 256, 64), (2, 33, 33, 40),
-              (2, 20, 20, 400), (1, 256, 256, 128), (1, 64, 64, 2560)]
-
-
-def _res_close(got, want):
-    if want.dtype == torch.bfloat16:
-        _bf16_close(got, want)
-    else:
-        assert (got - want).abs().max().item() <= ATOL
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["group", "affine"])
-@pytest.mark.parametrize("shape", RES_SHAPES)
-def test_coord_attn_resident_matches_twin(dev, shape, kind, dtype):
-    c = shape[-1]
-    mod = _ca_module(c, "group" if kind == "group" else "batch", dev)
-    wts = CoordAttnWeights.from_module(mod, kind)
-    groups = gn_groups(max(1, c // 16), 8)
-    x = torch.randn(shape, generator=torch.Generator(device=dev)
-                    .manual_seed(2), device=dev).to(dtype)
-    n = res.coord_attn_resident.launches
-    with torch.no_grad():
-        got = res.coord_attn_resident(x, wts, kind, groups)
-        torch.cuda.synchronize()
-        assert res.coord_attn_resident.launches == n + 1
-        _res_close(got, coord_attn_plain(x, wts, kind, groups))
-        # fixed summation order: bit-identical reruns, and a sample's output
-        # does not depend on what else is in its batch
-        assert torch.equal(res.coord_attn_resident(x, wts, kind, groups), got)
-        assert torch.equal(res.coord_attn_resident(
-            x[-1:].contiguous(), wts, kind, groups), got[-1:])
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_coord_attn_resident_rows_alone_match_the_batch(dev, dtype):
-    """The partition depends on (L, C, R, dtype) only: row k of a batch of
-    16 is bit-identical to x[k:k+1] alone (the serving contract)."""
-    wts = CoordAttnWeights.from_module(_ca_module(1536, "group", dev))
-    x = torch.randn((16, 16, 16, 1536), generator=torch.Generator(
-        device=dev).manual_seed(4), device=dev).to(dtype)
-    with torch.no_grad():
-        got = res.coord_attn_resident(x, wts, "group", 8)
-        for k in range(16):
-            assert torch.equal(res.coord_attn_resident(
-                x[k:k + 1].contiguous(), wts, "group", 8), got[k:k + 1])
-
-
-def test_coord_attn_resident_calls_of_other_shapes_in_turn(dev):
-    """Calls on one stream share one workspace (the published words) across
-    plans and types: a word left with a live epoch would give a wrong gate
-    or a hang; a call on a second stream takes its own workspace."""
-    cases = []
-    for i, (shape, dtype, kind) in enumerate((
-            ((2, 16, 16, 1536), torch.bfloat16, "group"),
-            ((5, 64, 64, 384), torch.float32, "affine"),
-            ((3, 20, 20, 96), torch.bfloat16, "group"),
-            ((16, 32, 32, 768), torch.float32, "group"))):
-        c = shape[-1]
-        mod = _ca_module(c, "group" if kind == "group" else "batch", dev, i)
-        wts = CoordAttnWeights.from_module(mod, kind)
-        groups = gn_groups(c // 16, 8)
-        x = torch.randn(shape, device=dev).to(dtype)
-        cases.append((x, wts, kind, groups,
-                      coord_attn_plain(x, wts, kind, groups)))
-    with torch.no_grad():
-        for _ in range(3):
-            for x, wts, kind, groups, want in cases:
-                _res_close(res.coord_attn_resident(x, wts, kind, groups), want)
-        side = torch.cuda.Stream()
-        with torch.cuda.stream(side):
-            for x, wts, kind, groups, want in cases:
-                _res_close(res.coord_attn_resident(x, wts, kind, groups), want)
-        torch.cuda.synchronize()
-    here = torch.cuda.current_device()
-    streams = {key[1] for key in res._workspaces if key[0] == here}
-    assert side.cuda_stream in streams and len(streams) >= 2
-
-
-def test_coord_attn_resident_refuses_what_it_does_not_take(dev):
-    x = torch.randn((2, 8, 8, 64), device=dev)
-    wts = CoordAttnWeights.from_module(_ca_module(64, "group", dev))
-    n = res.coord_attn_resident.launches
-    with pytest.raises(ValueError, match="square"):
-        res.coord_attn_resident(x[:, :4].contiguous(), wts, "group", 4)
-    with pytest.raises(ValueError, match="contiguous"):
-        res.coord_attn_resident(x.transpose(1, 2), wts, "group", 4)
-    with pytest.raises(ValueError, match="side"):
-        res.coord_attn_resident(torch.zeros((1, 264, 264, 64), device=dev),
-                                wts, "group", 4)
-    with pytest.raises(TypeError, match="bfloat16"):
-        res.coord_attn_resident(x.half(), wts, "group", 4)
-    with pytest.raises(ValueError, match="C % 8"):
-        res.coord_attn_resident(x.bfloat16()[..., :60].contiguous(), wts,
-                                "group", 4)
-    assert res.coord_attn_resident.launches == n

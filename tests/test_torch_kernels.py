@@ -1,8 +1,7 @@
 """The port's SE and CoordAttn kernels on the CPU: their plain twins
 against the JAX package's XLA twins (``se_block_xla``, ``coord_attn_xla``)
-and modules, the wrappers' dispatch, the kernels' launch plans (the SE
-kernel, both CoordAttn kernels) and their stages in plain torch, and the
-module's cache of packed weights. The CUDA kernels themselves are
+and modules, the wrappers' dispatch, both kernels' launch plans and their
+stages in plain torch, and the module's cache of packed weights. The CUDA kernels themselves are
 held to these twins on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance atol 1e-5: the same fp32 arithmetic, summed in another order."""
@@ -29,7 +28,6 @@ from diffusionmodel_tpu_torch.kernels.coord_attn import (
     coord_attn_staged,
     launch_plan,
 )
-from diffusionmodel_tpu_torch.kernels import coord_attn_resident as res
 from diffusionmodel_tpu_torch.kernels import se_block as se_mod
 from diffusionmodel_tpu_torch.kernels.se_block import (
     se_block,
@@ -372,148 +370,43 @@ def test_se_staged_bf16_matches_twin_and_is_batch_invariant(shape):
                            got[k:k + 1])
 
 
-# The resident kernel (kernels.coord_attn_resident): one cooperative launch
-# that keeps each sample's x on chip. Its plan at the flagship sites and at
-# ragged shapes, in both types.
-RES_RAGGED = [(3, 20, 20, 96), (2, 9, 9, 80), (1, 1, 1, 64),
-              (1, 256, 256, 64), (2, 20, 20, 400), (1, 256, 256, 128),
-              (1, 64, 64, 2560)]
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CA_FLAGSHIP + RES_RAGGED)
-def test_coord_attn_resident_launch_plan(shape, dtype):
+@pytest.mark.parametrize("shape", CA_FLAGSHIP + CA_RAGGED)
+def test_coord_attn_launch_plan_bf16(shape):
+    """For bf16 x only the pooling pass's chunks change (64 channels, the
+    same 128 bytes a warp row reads as 32 fp32 channels): its row tiles,
+    its blocks, the bottleneck and apply passes and the scratch stay
+    fp32's, so bf16 sums in the same tile order."""
     b, l, _, c = shape
     r = max(1, c // 16)
-    groups = gn_groups(r, 8)
-    plan = res.launch_plan(b, l, c, r, "group", groups, dtype)
-    cv = c // (16 // dtype.itemsize)
-    # slices of 1-32 16-byte vectors tile C, a thread owns one pair of a
-    # row; tiles are whole rows of a slice, at most 32 KB
-    assert plan.row_vectors in (1, 2, 4, 8, 16, 32)
-    assert plan.slices * plan.row_vectors == cv and l * plan.row_vectors <= 512
-    assert plan.tile_rows * l * plan.row_vectors * 16 <= 32 * 1024
-    assert (plan.row_blocks - 1) * plan.tile_rows < l <= \
-        plan.row_blocks * plan.tile_rows
-    assert plan.tiles == plan.slices * plan.row_blocks
-    # parts: runs of base or base + 1 tiles covering the sample once; the
-    # grid is whole groups of parts blocks on an H100
-    assert plan.base_tiles >= 1 and 0 <= plan.extra_parts < plan.parts
-    assert plan.parts * plan.base_tiles + plan.extra_parts == plan.tiles
-    assert plan.parts <= res.NOMINAL_BLOCKS
-    assert plan.grid % plan.parts == 0 and plan.parts <= plan.grid <= 132
-    assert 1 <= plan.slots <= res.MAX_SLOTS
-    assert plan.smem <= MAX_SHARED_BYTES - 1024
-    x_bytes = b * l * l * c * dtype.itemsize
-    assert plan.bytes_written == x_bytes and plan.bytes_read > x_bytes
-    assert 0 <= plan.bytes_reread < x_bytes
-    # the partition does not depend on the batch or the card; the bytes
-    # per sample neither
-    key = ("row_vectors", "tile_rows", "parts", "base_tiles", "extra_parts",
-           "slots", "smem", "spill")
-    for other, sms in ((1, 132), (5, 132), (16, 132), (b, 200)):
-        o = res.launch_plan(other, l, c, r, "group", groups, dtype, sms)
-        assert [getattr(o, k) for k in key] == [getattr(plan, k) for k in key]
-        assert o.bytes_reread * b == plan.bytes_reread * other
-        assert o.exchange_bytes * b == plan.exchange_bytes * other
-    if shape in CA_FLAGSHIP:
-        # every flagship sample stays on chip, in shared memory, on at least
-        # 96 of the 132 SMs; both exchanges move less than x
-        assert plan.bytes_reread == 0 and not plan.spill
-        assert plan.grid >= 96 and plan.exchange_bytes < x_bytes
+    f32 = launch_plan(b, l, c, r, "group", gn_groups(r, 8))
+    bf = launch_plan(b, l, c, r, "group", gn_groups(r, 8), 2)
+    assert bf.pool.grid[0] == -(-c // (2 * CHUNK_CHANNELS))
+    assert bf.pool.grid[1:] == f32.pool.grid[1:]
+    assert bf.pool.block == f32.pool.block
+    assert bf.pool.smem <= MAX_SHARED_BYTES
+    assert (bf.bottleneck, bf.apply) == (f32.bottleneck, f32.apply)
+    assert (bf.pool_rows, bf.n_tiles, bf.apply_rows, bf.scratch_bytes) == (
+        f32.pool_rows, f32.n_tiles, f32.apply_rows, f32.scratch_bytes)
 
 
-def test_coord_attn_resident_launch_plan_refusals():
-    with pytest.raises(ValueError, match="C % 8"):
-        res.launch_plan(2, 8, 60, 4, "group", 1, torch.bfloat16)
-    with pytest.raises(TypeError, match="bfloat16"):
-        res.launch_plan(2, 8, 64, 4, "group", 1, torch.float16)
-    with pytest.raises(ValueError, match="groups"):
-        res.launch_plan(2, 8, 64, 6, "group", 4)
-    with pytest.raises(ValueError, match="L <= 256"):
-        res.launch_plan(1, 264, 64, 4)
-    with pytest.raises(ValueError, match="resident blocks"):
-        res.launch_plan(16, 128, 192, 12, "group", 4, torch.float32, 64)
-
-
-def test_coord_attn_resident_takes_what_the_three_launches_take():
-    """Every (L, R) the three-launch kernel's shared memory takes, the
-    resident kernel's plan takes too (where x, y and z leave too little
-    room for the ring, through the spill slab), in both types."""
-    taken = 0
-    for l in (1, 16, 33, 64, 128, 256):
-        for r in (1, 4, 12, 48, 95, 160, 233):
-            c = 16 * r + (-16 * r) % 8
-            old = launch_plan(1, l, c, r, "group", 1)
-            if max(old.bottleneck.smem,
-                   old.apply.smem) > MAX_SHARED_BYTES - 1024:
-                continue
-            for dtype in (torch.float32, torch.bfloat16):
-                plan = res.launch_plan(2, l, c, r, "group", 1, dtype)
-                assert plan.smem <= MAX_SHARED_BYTES - 1024
-            taken += 1
-    assert taken >= 30
-
-
-@pytest.mark.parametrize("shape", SHAPES + [(3, 20, 20, 400),
-                                            (2, 9, 9, 80)])
-@pytest.mark.parametrize("kind", ["group", "affine"])
-def test_coord_attn_resident_staged_matches_xla_twin(shape, kind):
-    """The resident kernel's tiles, parts and order of summation, in plain
-    torch, against the JAX package's XLA twin; (3, 20, 20, 400) takes parts
-    that cross slices, (2, 9, 9, 80) a ragged last row block."""
+@pytest.mark.parametrize("shape", [(5, 16, 16, 192), (16, 9, 9, 80)])
+def test_coord_attn_staged_bf16_matches_twin_and_is_batch_invariant(shape):
+    """In bf16, the staged kernel against the bf16 twin within the card
+    tests' bounds (relative L2 <= 4e-3, max |diff| <= 2**-7 max |y|), and
+    each sample bit-identical alone and inside its batch."""
     c = shape[-1]
-    mod, params, stats = _coord_attn(c, "group" if kind == "group"
-                                     else "batch", 8)
-    groups = gn_groups(c // 16, 8)
-    jw = JWeights(params, stats, norm_kind=kind)
-    x = np.random.RandomState(9).randn(*shape).astype(np.float32)
-    want = np.asarray(coord_attn_xla(jnp.asarray(x), jw, kind, groups))
-    with torch.no_grad():
-        got = res.coord_attn_resident_staged(
-            torch.from_numpy(x), CoordAttnWeights.from_module(mod, kind),
-            kind, groups).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-
-
-@pytest.mark.parametrize("shape", [(5, 16, 16, 192), (16, 9, 9, 64)])
-def test_coord_attn_resident_staged_bf16_matches_twin_and_is_batch_invariant(
-        shape):
-    """In bf16, the staged resident kernel against the bf16 twin within the
-    card tests' bounds (relative L2 <= 4e-3, max |diff| <= 2**-7 max |y|),
-    and each sample bit-identical alone and inside its batch."""
-    c = shape[-1]
-    mod, _, _ = _coord_attn(c, "group", 13)
+    mod, _, _ = _coord_attn(c, "group", 5)
     wts = CoordAttnWeights.from_module(mod, "group")
     groups = gn_groups(c // 16, 8)
-    tx = torch.from_numpy(
-        np.random.RandomState(14).randn(*shape).astype(np.float32)).bfloat16()
+    x = np.random.RandomState(6).randn(*shape).astype(np.float32)
+    tx = torch.from_numpy(x).bfloat16()
     with torch.no_grad():
-        got = res.coord_attn_resident_staged(tx, wts, "group", groups)
+        got = coord_attn_staged(tx, wts, "group", groups)
         want = coord_attn_plain(tx, wts, "group", groups)
         assert got.dtype == want.dtype == torch.bfloat16
         g, wf = got.float(), want.float()
         assert ((g - wf).norm() / wf.norm()).item() <= 4e-3
         assert (g - wf).abs().max().item() <= 2 ** -7 * wf.abs().max().item()
         for k in (0, shape[0] // 2, shape[0] - 1):
-            assert torch.equal(res.coord_attn_resident_staged(
-                tx[k:k + 1], wts, "group", groups), got[k:k + 1])
-
-
-def test_coord_attn_resident_dispatch():
-    """A CPU tensor takes the plain twin (no launch counted); another
-    device raises; a CUDA x the kernel does not take raises before any
-    launch, with coord_attn's messages."""
-    mod, _, _ = _coord_attn(64, "group", 15)
-    wts = CoordAttnWeights.from_module(mod)
-    x = torch.from_numpy(np.random.RandomState(16).randn(
-        2, 8, 8, 64).astype(np.float32))
-    n = res.coord_attn_resident.launches
-    with torch.no_grad():
-        np.testing.assert_array_equal(
-            res.coord_attn_resident(x, wts, "group", 4).numpy(),
-            coord_attn_plain(x, wts, "group", 4).numpy())
-    assert res.coord_attn_resident.launches == n
-    with pytest.raises(ValueError, match="device"):
-        res.coord_attn_resident(torch.empty((1, 8, 8, 64), device="meta"),
-                                wts, "group", 4)
+            assert torch.equal(coord_attn_staged(tx[k:k + 1], wts, "group",
+                                                 groups), got[k:k + 1])

@@ -1,51 +1,38 @@
 #!/usr/bin/env python3
-"""Time the CoordAttn kernels at ``chip_smoke.py``'s four flagship sites,
-in fp32 (both norm kinds) and bf16, and hold them against the plain twin,
+"""Time the CoordAttn kernel at ``chip_smoke.py``'s four flagship sites,
+in fp32 (both norm kinds) and bf16, and hold it against the plain twin,
 on one card.
 
-    python3 tools/coord_attn_probe.py [--repo PATH] [--check] [--trace]
-                                      [--forward] [--iters N]
-                                      [--rotate-mb MB] [--out FILE]
+    python3 tools/coord_attn_probe.py [--repo PATH] [--check] [--forward]
+                                      [--out FILE]
 
-Two designs compute the function: the model's three launches
-(``kernels.coord_attn``) and the one cooperative launch that keeps each
-sample's x on chip (``kernels.coord_attn_resident``). At each site the
-probe times them in turns (three launches, resident, resident, three
-launches) and prints one JSON line per design with both runs. ``--repo
-PATH`` imports the port from another checkout (an earlier design unpacked
-with ``git archive``), which builds its own kernel sources in its own
-``kernels/build/``, and times what it has: run the probe once per
-checkout, in turns (earlier, new, new, earlier), to compare two checkouts
-on one card.
+At each site the probe times the kernel twice back to back and prints one
+JSON line with both runs. ``--repo PATH`` imports the port
+from another checkout (an earlier design unpacked with ``git archive``),
+which builds its own kernel sources in its own ``kernels/build/``, and
+times that: run the probe once per checkout, in turns (earlier, new, new,
+earlier), to compare two checkouts on one card.
 
 Each call is timed over rotating copies of x whose total is at least
-``--rotate-mb`` (200 MB): a call never finds its x in the 50 MB L2 from the
+``chip_smoke.ROTATE_BYTES`` (200 MB): a call never finds its x in the 50 MB L2 from the
 call before. A line gives max |kernel - twin| (fp32) or relative L2 and
 max |diff| (bf16), the CUDA-event ms per call (``chip_smoke.ca_timing``),
 the CUDA kernels one call launches (torch.profiler), the bytes bound (x
-read once, out written once, the weights once), the design's bound (x
-twice for the three launches; for the resident kernel its plan's bytes: x
-once plus any re-read, plus both exchanges' words), and the shares of
-both. ``--check`` first runs, for each design, ragged shapes in fp32 and
-bf16 against the twin (a 256 px one, and one whose sample the resident
-kernel re-reads), bit-identical reruns, ``x[k:k+1]`` against row k of a
-batch of 16, and shapes alternated on one stream; it exits 1 if any fails.
-``--trace`` builds a copy of the resident kernel that stamps
-``%globaltimer`` at each phase of each block's parts and prints, per site,
-its span, the median and slowest part's phases (pool, reduce, mix, first
-gates, scale) and, per exchange, the spread of a group's arrivals and the
-time from the last arrival to a block's leaving. ``--forward`` then times
-the flagship ContextUnet forward (batch 16, through the model's kernels) by
-CUDA events, three calls. Prints the card's name and power limit first.
+read once, out written once, the weights once), the three launches' floor
+(x read twice, out written once), and the shares of both. ``--check``
+first runs ragged shapes in fp32 and bf16 against the twin (a 256 px one
+among them), bit-identical reruns, ``x[k:k+1]`` against row k of a batch
+of 16, and shapes alternated on one stream; it exits 1 if any fails.
+``--forward`` then times the flagship ContextUnet forward (batch 16,
+through the model's kernels) by CUDA events, three calls. Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -53,12 +40,9 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# ragged: L off the row tiles, C off the slices, L = 1, 256 px, and a
-# sample that does not fit on chip in fp32 (its tiles re-read)
+# ragged: L off the row tiles, C off the 32-channel chunks, L = 1, 256 px
 RAGGED = [(3, 20, 20, 96), (2, 9, 9, 80), (2, 1, 1, 64), (1, 256, 256, 64),
           (2, 33, 33, 40), (2, 20, 20, 400), (1, 256, 256, 128)]
-PHASES = ("pool", "reduce", "mix", "first_gates", "scale")
-TRACE_SHAPE = (132, 12, 6)  # blocks, parts, stamps (csrc/coord_attn.cu)
 
 
 def _chip_smoke():
@@ -69,84 +53,11 @@ def _chip_smoke():
     return mod
 
 
-def _traced_lib():
-    """A copy of the resident kernel built with -DCA_TRACE, put in the
-    place of its wrapper's library."""
-    from diffusionmodel_tpu_torch.kernels import _build
-
-    out = _build.BUILD_DIR / "libcoord_attn_resident-trace.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DCA_TRACE", "-o",
-                    str(out), str(_build.CSRC / "coord_attn_resident.cu")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.error_string.argtypes = [ctypes.c_int]
-    lib.error_string.restype = ctypes.c_char_p
-    lib.ca_trace.argtypes = [ctypes.c_void_p]
-    lib.ca_trace.restype = ctypes.c_int
-    _build._libs["coord_attn_resident"] = lib
-    return lib
-
-
-def trace_row(lib, call, parts: int) -> dict:
-    """One traced call: the span from the first block's start to the last
-    part's end, per phase the median and the largest over parts (us), and
-    per exchange the median over (group, part) of the spread of the group's
-    arrivals and of the time from the group's last arrival to a block's
-    leaving (the exchange's own latency, its work included)."""
-    call()
-    n = TRACE_SHAPE[0] * TRACE_SHAPE[1] * TRACE_SHAPE[2]
-    buf = (ctypes.c_ulonglong * n)()
-    ctypes.memset(buf, 0, ctypes.sizeof(buf))
-    call()
-    if lib.ca_trace(buf) != 0:
-        raise RuntimeError("coord_attn_probe: ca_trace failed")
-    t = torch.tensor(list(buf), dtype=torch.float64).reshape(TRACE_SHAPE)
-    done = (t > 0).all(dim=2)
-    stamps = t[done]  # [traced parts, 6]
-    if stamps.numel() == 0:
-        return {}
-    steps = (stamps[:, 1:] - stamps[:, :-1]) / 1e3
-    out = {"parts_traced": int(stamps.shape[0]),
-           "span_us": (stamps.max() - stamps.min()).item() / 1e3,
-           "parts_per_block_max": int(done.sum(dim=1).max())}
-    for i, name in enumerate(PHASES):
-        col = steps[:, i].tolist()
-        out[f"{name}_us"] = [statistics.median(col), max(col)]
-    groups = TRACE_SHAPE[0] // parts
-    for name, arrive, leave in (("exchange1", 1, 2), ("exchange2", 2, 3)):
-        spread, latency = [], []
-        for gi in range(groups):
-            blk = t[gi * parts:(gi + 1) * parts]
-            for lp in range(TRACE_SHAPE[1]):
-                rows = blk[:, lp]
-                if not bool((rows > 0).all()):
-                    continue
-                last = rows[:, arrive].max()
-                spread.append((last - rows[:, arrive].min()).item() / 1e3)
-                latency += ((rows[:, leave] - last) / 1e3).tolist()
-        if spread:
-            out[f"{name}_spread_us"] = statistics.median(spread)
-            out[f"{name}_latency_us"] = [statistics.median(latency),
-                                         max(latency)]
-    # a block's idle time between its parts (end of one, start of the next)
-    gaps = []
-    for blk in t:
-        rows = blk[(blk > 0).all(dim=1)]
-        gaps += ((rows[1:, 0] - rows[:-1, 5]) / 1e3).tolist()
-    if gaps:
-        out["between_parts_us"] = [statistics.median(gaps), max(gaps)]
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", type=Path, default=ROOT)
     ap.add_argument("--check", action="store_true")
-    ap.add_argument("--trace", action="store_true")
     ap.add_argument("--forward", action="store_true")
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--rotate-mb", type=float, default=200.0)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -154,18 +65,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(args.repo.resolve()))
     cs = _chip_smoke()
-    cs.ROTATE_BYTES = args.rotate_mb * 1e6
     from diffusionmodel_tpu_torch.kernels import _build
-    from diffusionmodel_tpu_torch.kernels import coord_attn as three
-
-    designs = {"three_launch": three.coord_attn}
-    resident = None
-    if importlib.util.find_spec(
-            "diffusionmodel_tpu_torch.kernels.coord_attn_resident"):
-        from diffusionmodel_tpu_torch.kernels import \
-            coord_attn_resident as resident
-        designs["resident"] = resident.coord_attn_resident
-    twin = three.coord_attn_plain
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn as run,
+        coord_attn_plain as twin,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,12 +85,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
-    names = [n for n in ("coord_attn", "coord_attn_resident")
-             if n in _build.SOURCES]
-    report = _build.build(names)
-    emit(build_seconds={n: report[n]["seconds"] for n in names}, ptxas={
-        n: [line.strip() for line in report[n]["log"].splitlines()
-            if "registers" in line or "spill" in line] for n in names})
+    report = _build.build(["coord_attn"])["coord_attn"]
+    emit(build_seconds=report["seconds"],
+         ptxas=[line.strip() for line in report["log"].splitlines()
+                if "registers" in line or "spill" in line])
     failed = []
 
     def close(got, want) -> dict:
@@ -204,127 +106,91 @@ def main() -> int:
 
     if args.check:
         with torch.no_grad():
-            for design, run in designs.items():
-                for dtype in (torch.float32, torch.bfloat16):
-                    for shape in RAGGED:
-                        for kind in ("group", "affine"):
-                            c = shape[-1]
-                            if c % (16 // dtype.itemsize):
-                                continue
-                            wts, groups = cs.ca_site_weights(0, c, kind)
-                            x = torch.randn(shape, device="cuda").to(dtype)
-                            got = run(x, wts, kind, groups)
-                            row = close(got, twin(x, wts, kind, groups))
-                            row["rerun_identical"] = torch.equal(
-                                run(x, wts, kind, groups), got)
-                            row["alone_identical"] = torch.equal(run(
-                                x[-1:].contiguous(), wts, kind, groups),
-                                got[-1:])
-                            emit(check=list(shape), design=design,
-                                 dtype=str(dtype), norm_kind=kind, **row)
-                            if not (ok(row, dtype) and row["rerun_identical"]
-                                    and row["alone_identical"]):
-                                failed.append((design, shape, str(dtype),
-                                               kind))
-                # a batch of 16 at the deepest and the widest site: each
-                # row alone
-                for i in (3, 0):
-                    h, c = cs.CA_SITES[i]
-                    wts, groups = cs.ca_site_weights(i, c, "group")
-                    x = cs._site_x(16, h, c, 10 + i).bfloat16()
-                    got = run(x, wts, "group", groups)
-                    same = all(torch.equal(run(x[k:k + 1].contiguous(), wts,
-                                               "group", groups), got[k:k + 1])
-                               for k in range(16))
-                    emit(check=[16, h, h, c], design=design,
-                         dtype="torch.bfloat16", rows_alone_identical=same)
-                    if not same:
-                        failed.append((design, (16, h, h, c), "rows"))
-                # shapes of other plans in turn on one stream (a word or
-                # counter left behind would show as a wrong gate or a hang)
-                cases = []
-                for i, (shape, dtype, kind) in enumerate((
-                        ((2, 16, 16, 1536), torch.bfloat16, "group"),
-                        ((5, 64, 64, 384), torch.float32, "affine"),
-                        ((3, 20, 20, 96), torch.bfloat16, "group"),
-                        ((16, 32, 32, 768), torch.float32, "group"))):
-                    wts, groups = cs.ca_site_weights(i, shape[-1], kind)
-                    x = torch.randn(shape, device="cuda").to(dtype)
-                    cases.append((x, wts, kind, groups,
-                                  twin(x, wts, kind, groups)))
-                for _ in range(3):
-                    for x, wts, kind, groups, want in cases:
-                        if not ok(close(run(x, wts, kind, groups), want),
-                                  x.dtype):
-                            failed.append((design, tuple(x.shape),
-                                           "in turn"))
-                torch.cuda.synchronize()
-                emit(check="shapes in turn", design=design,
-                     failed=len(failed))
+            for dtype in (torch.float32, torch.bfloat16):
+                for shape in RAGGED:
+                    for kind in ("group", "affine"):
+                        c = shape[-1]
+                        if c % (16 // dtype.itemsize):
+                            continue
+                        wts, groups = cs.ca_site_weights(0, c, kind)
+                        x = torch.randn(shape, device="cuda").to(dtype)
+                        got = run(x, wts, kind, groups)
+                        row = close(got, twin(x, wts, kind, groups))
+                        row["rerun_identical"] = torch.equal(
+                            run(x, wts, kind, groups), got)
+                        row["alone_identical"] = torch.equal(run(
+                            x[-1:].contiguous(), wts, kind, groups), got[-1:])
+                        emit(check=list(shape), dtype=str(dtype),
+                             norm_kind=kind, **row)
+                        if not (ok(row, dtype) and row["rerun_identical"]
+                                and row["alone_identical"]):
+                            failed.append((shape, str(dtype), kind))
+            # a batch of 16 at the deepest and the widest site: each row alone
+            for i in (3, 0):
+                h, c = cs.CA_SITES[i]
+                wts, groups = cs.ca_site_weights(i, c, "group")
+                x = cs._site_x(16, h, c, 10 + i).bfloat16()
+                got = run(x, wts, "group", groups)
+                same = all(torch.equal(run(x[k:k + 1].contiguous(), wts,
+                                           "group", groups), got[k:k + 1])
+                           for k in range(16))
+                emit(check=[16, h, h, c], dtype="torch.bfloat16",
+                     rows_alone_identical=same)
+                if not same:
+                    failed.append(((16, h, h, c), "rows"))
+            # shapes of other plans in turn on one stream (a counter left
+            # behind would show as a wrong gate or a hang)
+            cases = []
+            for i, (shape, dtype, kind) in enumerate((
+                    ((2, 16, 16, 1536), torch.bfloat16, "group"),
+                    ((5, 64, 64, 384), torch.float32, "affine"),
+                    ((3, 20, 20, 96), torch.bfloat16, "group"),
+                    ((16, 32, 32, 768), torch.float32, "group"))):
+                wts, groups = cs.ca_site_weights(i, shape[-1], kind)
+                x = torch.randn(shape, device="cuda").to(dtype)
+                cases.append((x, wts, kind, groups,
+                              twin(x, wts, kind, groups)))
+            for _ in range(3):
+                for x, wts, kind, groups, want in cases:
+                    if not ok(close(run(x, wts, kind, groups), want),
+                              x.dtype):
+                        failed.append((tuple(x.shape), "in turn"))
+            torch.cuda.synchronize()
+            emit(check="shapes in turn", failed=len(failed))
 
-    lib = _traced_lib() if args.trace and resident is not None else None
-    order = list(designs) + list(designs)[::-1]  # in turns: a, b, b, a
     with torch.no_grad():
         for dtype, kinds in ((torch.float32, ("group", "affine")),
                              (torch.bfloat16, ("group",))):
             for kind in kinds:
-                totals = {d: 0.0 for d in designs}
-                bound_total = 0.0
+                total = bound_total = 0.0
                 for i, (h, c) in enumerate(cs.CA_SITES):
                     wts, groups = cs.ca_site_weights(i, c, kind)
                     x = cs._site_x(cs.BATCH, h, c, 10 + i).to(dtype)
-                    want = twin(x, wts, kind, groups)
-                    runs = {d: [] for d in designs}
-                    for d in order:
-                        if d == "resident":
-                            plan = resident.launch_plan(
-                                *x.shape[:2], c, wts.w1h.shape[-1], kind,
-                                groups if kind == "group" else 1, dtype)
-                            dbytes = (plan.bytes_read + plan.bytes_reread
-                                      + plan.bytes_written
-                                      + plan.exchange_bytes)
-                        else:
-                            dbytes = 3 * x.numel() * x.element_size()
-                        runs[d].append(cs.ca_timing(
-                            designs[d], x, wts, kind, groups, dbytes,
-                            args.iters))
-                    for d, run in designs.items():
-                        row = close(run(x, wts, kind, groups), want)
-                        row.update(runs[d][0])
-                        ms = [r["ms"] for r in runs[d]]
-                        row.update(ms=sum(ms) / len(ms), ms_runs=ms)
-                        row["bound_share"] = row["bound_ms"] / row["ms"]
-                        row["design_bound_share"] = (row["design_bound_ms"]
-                                                     / row["ms"])
-                        kernels = cs.kernel_launches(
-                            lambda: run(x, wts, kind, groups))
-                        row.update(site=i + 1, design=d,
-                                   norm_kind=kind, kernels=kernels,
-                                   kernels_per_call=sum(
-                                       n for k, n in kernels.items()
-                                       if k.startswith("ca_")))
-                        if d == "resident":
-                            plan = resident.launch_plan(
-                                *x.shape[:2], c, wts.w1h.shape[-1], kind,
-                                groups if kind == "group" else 1, dtype)
-                            row.update(parts=plan.parts,
-                                       exchange_bytes=plan.exchange_bytes,
-                                       bytes_reread=plan.bytes_reread)
-                            if lib is not None:
-                                row["trace"] = trace_row(
-                                    lib, lambda: run(x, wts, kind, groups),
-                                    plan.parts)
-                        totals[d] += row["ms"]
-                        emit(**row)
-                        if not ok(row, dtype):
-                            failed.append((d, row["shape"], str(dtype), kind))
+                    runs = [cs.ca_timing(x, wts, kind, groups)
+                            for _ in range(2)]
+                    row = close(run(x, wts, kind, groups),
+                                twin(x, wts, kind, groups))
+                    row.update(runs[0])
+                    ms = [r["ms"] for r in runs]
+                    row.update(ms=sum(ms) / len(ms), ms_runs=ms)
+                    row["bound_share"] = row["bound_ms"] / row["ms"]
+                    row["design_bound_share"] = (row["design_bound_ms"]
+                                                 / row["ms"])
+                    kernels = cs.kernel_launches(
+                        lambda: run(x, wts, kind, groups))
+                    row.update(site=i + 1, norm_kind=kind, kernels=kernels,
+                               kernels_per_call=sum(
+                                   n for k, n in kernels.items()
+                                   if k.startswith("ca_")))
+                    total += row["ms"]
                     bound_total += row["bound_ms"]
-                    del x, want
+                    emit(**row)
+                    if not ok(row, dtype):
+                        failed.append((row["shape"], str(dtype), kind))
+                    del x
                     torch.cuda.empty_cache()
-                emit(dtype=str(dtype), norm_kind=kind, per_forward=totals,
-                     bound_ms=bound_total,
-                     bound_share={d: bound_total / v
-                                  for d, v in totals.items()})
+                emit(dtype=str(dtype), norm_kind=kind, per_forward=total,
+                     bound_ms=bound_total, bound_share=bound_total / total)
     if args.forward:
         cfg, model = cs._flagship(True)
         g = torch.Generator(device="cuda").manual_seed(1)
