@@ -182,6 +182,17 @@ train_bf16 (last)  ``trainer.fit`` with the README's training settings
             bit-identically; one more step, profiled: steady seconds per
             step, idle share, peak GiB, and the first step's search (the
             epoch's time less two steady steps).
+parallel (after train_bf16)  the data-parallel path (``parallel``) at
+            world size 1 over NCCL in this process, on the flagship as
+            train_bf16 runs it: two ZeRO-1 train steps through
+            ``make_train_step(mesh=)`` against the same two without a
+            mesh (loss and largest parameter difference within twice the
+            plain steps' own repeat difference), then
+            ``make_sampler(mesh=)`` at DDIM-10 on 8 slots bit-identical to
+            the plain sampler, with its SE and CoordAttn launches (the
+            bf16 entries' ``parallel_launches``); the NCCL version and the
+            world size. No second card exists here: agreement across
+            ranks is the CPU tests' (gloo).
 
 The flagship's editing, ``.pt`` checkpoints, the side families and CLIP:
 
@@ -2343,6 +2354,143 @@ def phase_train_bf16(counters, out_dir, dataset) -> list:
     return launches
 
 
+PARALLEL_SLOTS, PARALLEL_DDIM = 8, 10  # the mesh sampler's batch and depth
+
+
+def _flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+
+def phase_parallel(counters, out_dir, dataset) -> list:
+    """The data-parallel path (``parallel``) at world size 1 over NCCL, in
+    this process (a ``FileStore`` group of one rank), on the flagship at
+    full width as the README trains it (bf16, fused head,
+    ``use_pallas``): two train steps of ``fit``'s micro-batch shape (4 x 4
+    at 256 px) through ``make_train_step(mesh=)`` with ``train.zero1``
+    against the same two steps without a mesh, from one copy of the
+    weights and one set of draws; the plain steps run twice first, and
+    their difference is the noise floor that the mesh steps' loss and
+    largest parameter difference must stay within twice of (cuDNN's
+    weight-gradient sums are not bit-reproducible). Then
+    ``make_sampler(mesh=)`` at DDIM-10 on 8 slots against the same sampler
+    without a mesh: bit for bit, with 5 SE and 4 CoordAttn launches per
+    forward counted in the mesh run alone. Returns those launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from diffusionmodel_tpu_torch.data import BatchLoader
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.parallel import make_mesh
+    from diffusionmodel_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from diffusionmodel_tpu_torch.trainer import make_sampler
+
+    base = _flagship_train_cfg(out_dir)
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dtype="bfloat16",
+                                  fused_upsample=True),
+        train=dataclasses.replace(base.train, zero1=True),
+        sample=dataclasses.replace(base.sample, sampler="ddim",
+                                   ddim_steps=PARALLEL_DDIM))
+    tc, dc = cfg.train, cfg.diffusion
+    dev = torch.device("cuda")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.set_device(0)  # the rank's card, before NCCL starts
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(out_dir, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh(tc.mesh_data, tc.mesh_model, tc.mesh_spatial)
+        check(mesh.distributed and mesh.shape == {"data": 1, "model": 1,
+                                                  "spatial": 1},
+              f"mesh {mesh}")
+        torch.manual_seed(0)
+        model = build_model(cfg.model, dc.high_thresh, device=dev)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+        loader = BatchLoader(dataset, np.arange(len(dataset)),
+                             tc.batch_size, tc.accum_steps, seed=2,
+                             num_workers=0, mesh=mesh)
+        batches = list(loader)[:2]
+
+        def two_steps(on_mesh):
+            model.load_state_dict(start)
+            m = mesh if on_mesh else None
+            state, opt = create_train_state(model, cfg, 2, mesh=m)
+            step = make_train_step(model, sched, cfg, opt, mesh=m)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            losses, secs = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(state, b, gen)))
+                secs.append(time.perf_counter() - t0)
+            del state, step
+            return losses, _flat_params(model), secs
+
+        with fp32_compute(dev):
+            plain, plain_p, plain_s = two_steps(False)
+            again, again_p, _ = two_steps(False)
+            meshed, mesh_p, mesh_s = two_steps(True)
+            floor_loss = max(abs(a - b) for a, b in zip(plain, again))
+            floor_param = (plain_p - again_p).abs().max().item()
+            mesh_loss = max(abs(a - b) for a, b in zip(plain, meshed))
+            mesh_param = (plain_p - mesh_p).abs().max().item()
+            del plain_p, again_p, mesh_p
+            torch.cuda.empty_cache()
+
+            classes = torch.arange(PARALLEL_SLOTS, device=dev) \
+                % cfg.model.n_classes
+            model.load_state_dict(start)
+            del start
+            want = make_sampler(cfg, sched, PARALLEL_SLOTS, classes=classes)(
+                model, torch.Generator(device=dev).manual_seed(11), 2.0)
+            fan_out = make_sampler(cfg, sched, PARALLEL_SLOTS,
+                                   classes=classes, mesh=mesh)
+            for f in counters:
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fan_out(model, torch.Generator(device=dev).manual_seed(11),
+                          2.0)
+            torch.cuda.synchronize()
+            sample_s = time.perf_counter() - t0
+            launches = _counts(counters)
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        world = dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    same = torch.equal(got, want)
+    emit("parallel", backend="nccl", nccl=nccl, world_size=world,
+         mesh=mesh.shape, dtype=cfg.model.dtype, zero1=tc.zero1,
+         batch=[tc.accum_steps, tc.batch_size], steps=len(batches),
+         plain_losses=plain, plain_repeat_losses=again, mesh_losses=meshed,
+         floor_loss=floor_loss, floor_param_max_abs=floor_param,
+         mesh_loss_diff=mesh_loss, mesh_param_max_abs=mesh_param,
+         plain_step_s=plain_s, mesh_step_s=mesh_s,
+         sampler=f"ddim-{PARALLEL_DDIM}", slots=PARALLEL_SLOTS,
+         sampler_bit_identical=same, sample_s=sample_s,
+         se_launches=launches[0], ca_launches=launches[1],
+         finite=bool(torch.isfinite(got).all()))
+    check(len(batches) == 2, f"{len(batches)} batches")
+    check(all(np.isfinite(plain + again + meshed)), "finite losses")
+    check(mesh_loss <= 2 * floor_loss and mesh_param <= 2 * floor_param,
+          f"mesh step off the plain one: loss {mesh_loss} (floor "
+          f"{floor_loss}), params {mesh_param} (floor {floor_param})")
+    check(same, "the mesh sampler's images differ from the plain one's")
+    check(launches == [SE_PER_FORWARD * PARALLEL_DDIM,
+                       CA_PER_FORWARD * PARALLEL_DDIM],
+          f"mesh sampler launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 EDIT_STEPS, EDIT_STRENGTH, EDIT_GUIDE, EDIT_BATCH = 50, 0.75, 2.0, 2
 # the planted fault that shows the kernel-vs-plain comparison can fail:
 # every SE gate of the plain path 1% too large in one img2img run
@@ -2926,6 +3074,11 @@ def main() -> int:
     bf16_dir = flagship_dir + "_bf16"
     bf16_fit_launches = timed("train_bf16", phase_train_bf16, counters,
                               bf16_dir, dataset)
+    parallel_launches = timed("parallel", phase_parallel, counters,
+                              os.path.join(out_root, "chip_smoke_parallel"),
+                              dataset)
+    shutil.rmtree(os.path.join(out_root, "chip_smoke_parallel"),
+                  ignore_errors=True)
     base = _flagship_train_cfg(bf16_dir)
     cfg16 = base.replace(model=dataclasses.replace(
         base.model, dtype="bfloat16", fused_upsample=True))
@@ -3033,6 +3186,7 @@ def main() -> int:
     for row, i in ((se16, 0), (ca16, 1)):
         row["train_launches"] = bf16_fit_launches[i]
         row["edit_launches"] = edit16_launches[i]
+        row["parallel_launches"] = parallel_launches[i]
         row["dtype"] = "bfloat16"
         row["rel_l2"] = max(s["rel_l2"] for s in bf16_rows[
             "se_block" if i == 0 else "coord_attn"])

@@ -18,8 +18,11 @@ main``), the side families (``nn.mnist_unet``, ``nn.cbam_unet``,
 ``models.annotated_ddpm`` with the textbook schedule), the
 latent-diffusion inference and training paths with the CLIP text encoder
 (``models.latent_diffusion``, ``--mode txt2img|img2img|inpaint|
-train_ldm``), ``.pt`` checkpoints, and the quality metrics. Multi-device
-training (mesh axes, ZeRO-1) is not: see ROADMAP.md.
+train_ldm``), ``.pt`` checkpoints, the quality metrics, and data
+parallelism over ``torch.distributed`` for training and generation
+(``parallel``: the 'data' axis and ZeRO-1, one process per card under
+``torchrun``). The spatially sharded forward, serving's fan-out (ROADMAP
+A12b) and the 'model' axis (A12c) are not ported.
 """
 
 __version__ = "0.1.0"

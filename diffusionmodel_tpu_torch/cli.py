@@ -28,8 +28,17 @@
 
 Every mode of the JAX CLI is ported, for every preset (``full``, ``old``,
 ``generation``, ``mnist``, ``custom``, ``labml``) and both editing
-families; only multi-device training (mesh axes, ZeRO-1: ROADMAP A12)
-prints that it is not ported and returns 1. ``--preset mnist`` trains on
+families. ``--mode train|generate`` run data-parallel on N cards under
+``torchrun`` (one process per card, ``cuda:{LOCAL_RANK}``; NCCL, or gloo
+with ``--device cpu``)::
+
+    torchrun --nproc_per_node N -m diffusionmodel_tpu_torch.cli \
+        --mode train -o train.mesh_data=N -o train.zero1=true
+
+A 'model' or 'spatial' axis (``-o train.mesh_model=2``, ROADMAP A12c;
+``train.mesh_spatial``, A12b), a mesh larger than the process group, and
+any ``train.mesh_*`` > 1 or ``torchrun`` in the other modes print that
+they are not ported and return 1. ``--preset mnist`` trains on
 the MNIST IDX files under ``--data_root`` or a synthetic set, ``labml`` on
 an image folder or a synthetic one, as the JAX CLI does.
 ``--inception_weights`` (a torchvision inception_v3 state dict,
@@ -44,6 +53,7 @@ import argparse
 import dataclasses
 import os
 import sys
+from typing import Optional
 
 _MODES = ["train", "generate", "crop", "serve", "eval", "visualize",
           "txt2img", "img2img", "inpaint", "train_ldm"]
@@ -287,17 +297,33 @@ def _train_dataset(args, cfg):
 
 
 def _train_or_generate(args) -> int:
-    """--mode train | generate, every preset."""
+    """--mode train | generate, every preset; data-parallel under
+    torchrun (the process group is started here and destroyed at exit)."""
+    import torch.distributed as dist
+
+    from diffusionmodel_tpu_torch.parallel import init_from_env
+
+    started = init_from_env(args.device)
+    try:
+        return _run_train_or_generate(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run_train_or_generate(args) -> int:
+    from diffusionmodel_tpu_torch.trainer import train_mesh
+
     cfg = _config(args)
+    try:
+        train_mesh(cfg.train)
+    except (NotImplementedError, ValueError) as e:
+        print(e)
+        return 1
     metrics_impl = _metrics(args)
     if args.mode == "train":
-        from diffusionmodel_tpu_torch.trainer import _check_single_device, fit
+        from diffusionmodel_tpu_torch.trainer import fit
 
-        try:
-            _check_single_device(cfg.train)
-        except NotImplementedError as e:
-            print(e)
-            return 1
         fit(cfg, dataset=_train_dataset(args, cfg), metrics_impl=metrics_impl,
             resume=args.resume, device=args.device)
         return 0
@@ -312,6 +338,23 @@ def _train_or_generate(args) -> int:
                 seed=args.seed if args.seed is not None else 0,
                 device=args.device)
     return 0
+
+
+def _one_process_only(args) -> Optional[str]:
+    """Why a mode other than train / generate cannot run as asked: under
+    torchrun, or with a ``train.mesh_*`` override above 1 (serving's
+    fan-out is ROADMAP A12b)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return (f"--mode {args.mode} runs in one process: only --mode "
+                "train|generate are data-parallel (serving's fan-out is "
+                "not ported yet: ROADMAP A12b)")
+    for item in args.override:
+        k, _, v = item.partition("=")
+        if k in ("train.mesh_data", "train.mesh_model",
+                 "train.mesh_spatial") and _parse_value(v) not in (-1, 1):
+            return (f"{item}: --mode {args.mode} runs on one device; its "
+                    "mesh fan-out is not ported yet: ROADMAP A12b")
+    return None
 
 
 def _eval(args) -> int:
@@ -503,14 +546,18 @@ _OTHER_MODES = {"eval": _eval, "visualize": _visualize, "crop": _crop}
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.mode in ("train", "generate"):
+        return _train_or_generate(args)
+    refused = _one_process_only(args)
+    if refused:
+        print(refused)
+        return 1
     if args.mode in ("img2img", "inpaint") and args.family == "main":
         return _edit_main(args)
     if args.mode in ("txt2img", "img2img", "inpaint"):
         return _ldm(args)
     if args.mode == "train_ldm":
         return _train_ldm(args)
-    if args.mode in ("train", "generate"):
-        return _train_or_generate(args)
     if args.mode in _OTHER_MODES:
         return _OTHER_MODES[args.mode](args)
     if args.ckpt is None:

@@ -46,6 +46,25 @@ def _lin(k):
     return np.transpose(k, (1, 0))
 
 
+def flax_axes(model: torch.nn.Module, name: str, ndim: int) -> tuple:
+    """The port's dims of parameter ``name`` in the order of its flax
+    counterpart's dims (flax dim j is the port's dim ``axes[j]``): the
+    inverses of :func:`_conv`, :func:`_conv_t` and :func:`_lin` for conv,
+    transposed-conv and dense weights, the identity for everything else.
+    ``parallel.mesh`` reads shapes through it to apply the JAX package's
+    sharding rules to the port's parameters."""
+    owner = model.get_submodule(name.rpartition(".")[0])
+    if name.endswith(".weight") and ndim == 4:
+        if isinstance(owner, torch.nn.ConvTranspose2d):
+            return (2, 3, 0, 1)
+        if isinstance(owner, torch.nn.Conv2d):
+            return (2, 3, 1, 0)
+    if name.endswith(".weight") and ndim == 2 \
+            and isinstance(owner, torch.nn.Linear):
+        return (1, 0)
+    return tuple(range(ndim))
+
+
 class _Unmapper:
     """Walks the ContextUnet's layers (:func:`_walk_context_unet`) reading
     a flax tree into ``state_dict`` names. :class:`_Mapper` walks the same

@@ -8,6 +8,10 @@ accumulation ([accum, micro_batch, ...]). The tail batch is padded by
 wrapping around, and with ``wire_u8`` (default) images and masks travel as
 uint8 (``dataset.load_wire``), expanded on the device by
 ``train.decode_wire``: 16x fewer host-to-device bytes than float32.
+
+With a distributed ``mesh`` every process shuffles with the same seed and
+decodes only its contiguous block of the B axis of each [A, B, ...]
+batch: the JAX package's ``batch_sharding(mesh, 5, 1)``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ class BatchLoader:
     def __init__(self, dataset, indices: Sequence[int], batch_size: int,
                  accum_steps: int = 1, shuffle: bool = True, augment: bool = True,
                  seed: int = 0, num_workers: int = 4, prefetch: int = 2,
-                 drop_last: bool = False, wire_u8: bool = True):
+                 drop_last: bool = False, wire_u8: bool = True, mesh=None):
         self.dataset = dataset
         self.indices = np.asarray(indices)
         self.batch_size = batch_size
@@ -38,6 +42,12 @@ class BatchLoader:
         # uint8 wire format (image u8, mask class-index u8), expanded
         # on the device by train.decode_wire.
         self.wire_u8 = wire_u8 and hasattr(dataset, "load_wire")
+        # this process's rows of B (all of them without a mesh)
+        self.rows = slice(0, batch_size)
+        if mesh is not None and mesh.distributed:
+            from diffusionmodel_tpu_torch.parallel import batch_sharding
+
+            self.rows = batch_sharding(mesh, 2, 1).block(1, batch_size)
 
     def __len__(self) -> int:
         per_step = self.batch_size * self.accum_steps
@@ -59,16 +69,18 @@ class BatchLoader:
                 np.concatenate([idxs, np.resize(idxs, pad)])
         load = (self.dataset.load_wire if self.wire_u8
                 else self.dataset.load)
+        idxs = idxs.reshape(self.accum_steps, self.batch_size)[:, self.rows]
+        b = idxs.shape[1]
         xs, cs, ms = [], [], []
-        for i in idxs:
+        for i in idxs.reshape(-1):
             x, c, m = load(int(i), augment=self.augment)
             xs.append(x)
             cs.append(c)
             ms.append(m)
         s = self.dataset.img_size
-        x = np.stack(xs).reshape(self.accum_steps, self.batch_size, s, s, -1)
-        c = np.asarray(cs, np.int32).reshape(self.accum_steps, self.batch_size)
-        m = np.stack(ms).reshape(self.accum_steps, self.batch_size, s, s)
+        x = np.stack(xs).reshape(self.accum_steps, b, s, s, -1)
+        c = np.asarray(cs, np.int32).reshape(self.accum_steps, b)
+        m = np.stack(ms).reshape(self.accum_steps, b, s, s)
         return {"x": x, "c": c, "mask": m}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -10,20 +10,25 @@ GPU, and a missing GPU is an error unless the caller asked for the CPU.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means ``"cuda"``. Raises when CUDA is asked for (or
-    defaulted to) and absent: the port never falls back to the CPU on its
-    own."""
+    """``None`` means ``"cuda"``; under a process group (one process per
+    card, ``torchrun``) ``"cuda"`` means this process's card,
+    ``cuda:{LOCAL_RANK}``. Raises when CUDA is asked for (or defaulted to)
+    and absent: the port never falls back to the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     return dev
 
 

@@ -153,6 +153,34 @@ def loss_weights(attn_mask: torch.Tensor, dc: DiffusionConfig) -> torch.Tensor:
                        mid).float()
 
 
+def loss_draws(dc: DiffusionConfig, shape, generator: Optional[
+        torch.Generator], device, *, ts=None, noise=None,
+        ctx_mask=None) -> dict:
+    """The draws of :func:`train_loss` for a batch of ``shape`` [B,H,W,C]:
+    t, eps and (main family) the context mask, each drawn from
+    ``generator`` in that order unless given. The data-parallel train
+    step draws them for the global batch on every process and takes its
+    block, so every process, and a one-process run, sees the same numbers.
+
+    - main family: t ~ U[1, n_T]; ctx_mask ~ Bernoulli(1 - drop_prob)
+      (1 = keep context, new_scripy.py:413), or with the MNIST loss
+      (``use_weighted_loss=False``) Bernoulli(drop_prob), 1 = drop
+      (MNIST_script.py:249);
+    - textbook family: t ~ U[0, n_T), no context mask."""
+    b = shape[0]
+    textbook = dc.schedule_family == "textbook"
+    if ts is None:
+        ts = torch.randint(0 if textbook else 1,
+                           dc.n_T if textbook else dc.n_T + 1, (b,),
+                           generator=generator, device=device)
+    if noise is None:
+        noise = torch.randn(tuple(shape), generator=generator, device=device)
+    if ctx_mask is None and not textbook:
+        p_one = 1.0 - dc.drop_prob if dc.use_weighted_loss else dc.drop_prob
+        ctx_mask = torch.rand(b, generator=generator, device=device) < p_one
+    return {"ts": ts, "noise": noise, "ctx_mask": ctx_mask}
+
+
 def train_loss(apply_fn: Callable, x: torch.Tensor, c: torch.Tensor,
                attn_mask: Optional[torch.Tensor], sched: Schedule,
                dc: DiffusionConfig, *, ts=None, noise=None, ctx_mask=None,
@@ -179,33 +207,19 @@ def train_loss(apply_fn: Callable, x: torch.Tensor, c: torch.Tensor,
     is unconditional); ``ctx_mask`` is not drawn."""
     b, dev = x.shape[0], x.device
     x = x.to(torch.float32)
+    drawn = loss_draws(dc, x.shape, generator, dev, ts=ts, noise=noise,
+                       ctx_mask=ctx_mask)
+    ts = torch.as_tensor(drawn["ts"], device=dev).to(torch.int64)
+    noise = torch.as_tensor(drawn["noise"], dtype=torch.float32).to(dev)
     if dc.schedule_family == "textbook":
-        if ts is None:
-            ts = torch.randint(0, dc.n_T, (b,), generator=generator,
-                               device=dev)
-        ts = torch.as_tensor(ts, device=dev).to(torch.int64)
-        if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=dev)
-        noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
         ab = sched.alpha_bar[ts][:, None, None, None]
         x_t = torch.sqrt(ab) * x + torch.sqrt(1.0 - ab) * noise
         eps_pred = apply_fn(x_t, c, ts.to(torch.float32),
                             torch.zeros(b, device=dev), None).float()
         return torch.mean((noise - eps_pred) ** 2)
-    if ts is None:
-        ts = torch.randint(1, dc.n_T + 1, (b,), generator=generator,
-                           device=dev)
-    ts = torch.as_tensor(ts, device=dev).to(torch.int64)
-    if noise is None:
-        noise = torch.randn(x.shape, generator=generator, device=dev)
-    noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
     x_t = q_sample(sched, x, ts, noise)
-    if ctx_mask is None:
-        # v2: keep-mask, 1 = keep (new_scripy.py:413); MNIST: drop-mask,
-        # 1 = drop (MNIST_script.py:249).
-        p_one = 1.0 - dc.drop_prob if dc.use_weighted_loss else dc.drop_prob
-        ctx_mask = torch.rand(b, generator=generator, device=dev) < p_one
-    ctx_mask = torch.as_tensor(ctx_mask, device=dev).to(torch.float32)
+    ctx_mask = torch.as_tensor(drawn["ctx_mask"], device=dev).to(
+        torch.float32)
 
     t_norm = ts.to(torch.float32) / dc.n_T
     pass_mask = attn_mask if dc.local_enhancer_spatial_mask else None

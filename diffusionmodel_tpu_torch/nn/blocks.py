@@ -28,9 +28,11 @@ At float32 every layer is the PyTorch layer it extends.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -196,6 +198,53 @@ class GroupNorm(nn.GroupNorm):
         return y if dt == _F32 else y.to(dt)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation of x [N,C,H,W] (float32) with the
+    statistics of the whole batch across ``group``'s processes, as
+    ``SyncBatchNorm`` computes them: one ``all_reduce`` of (sum, sum of
+    squares, count) in the forward, one of (sum dy, sum dy*x_hat) in the
+    backward, so each process's input gradient holds every process's
+    share of the statistics' gradient. The weight and bias gradients are
+    this process's own (the train step averages them with the rest).
+    The sums are float64, so the variance (the mean of squares less the
+    squared mean) loses nothing to cancellation. Returns (y, mean, biased
+    var); the statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        xd = x.double()
+        stats = torch.cat([xd.sum(dim=(0, 2, 3)),
+                           (xd * xd).sum(dim=(0, 2, 3)),
+                           xd.new_full((1,), x.numel() // c)])
+        del xd
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0).float()
+        mean, n = mean.float(), n.float()
+        invstd = torch.rsqrt(var + eps)
+        x_hat = (x - mean[:, None, None]) * invstd[:, None, None]
+        y = x_hat * weight[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x_hat, weight, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, weight, invstd, n = ctx.saved_tensors
+        c = dy.shape[1]
+        local = torch.cat([dy.sum(dim=(0, 2, 3)),
+                           (dy * x_hat).sum(dim=(0, 2, 3))])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (dy - (sums[:c] / n)[:, None, None]
+              - x_hat * (sums[c:] / n)[:, None, None]) \
+            * (invstd * weight)[:, None, None]
+        return dx, local[c:], local[:c], None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm (eps 1e-5, torch momentum 0.1 = flax 0.9) whose output
     stays channels_last.
@@ -207,11 +256,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     backward pass (``torch.utils.checkpoint``'s recompute) leaves them
     alone, so a rematerialised step updates them once, as ``jax.checkpoint``
     does. Eval mode is PyTorch's. With a bf16 ``compute_dtype`` it
-    normalises in float32 and rounds the output, as flax does."""
+    normalises in float32 and rounds the output, as flax does.
+
+    Under :func:`global_batch_stats` (the data-parallel train step), train
+    mode normalises with the statistics of the global batch across the
+    data group (``_GlobalBatchNorm``), as flax's BatchNorm does over the
+    logical batch under GSPMD, and the running statistics follow them."""
 
     def __init__(self, num_features: int, compute_dtype: torch.dtype = _F32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = compute_dtype
+        self.group = None
 
     def forward(self, x):
         dt = self.compute_dtype
@@ -222,19 +277,38 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _forward_f32(self, x):
         if not self.training:
             return channels_last(super().forward(x))
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                           self.eps)
+        if self.group is not None:
+            out, mean, var = _GlobalBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, self.group)
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                               0.0, self.eps)
         if torch._C._current_graph_task_id() == -1:  # not in a backward
             with torch.no_grad():
-                xf = x.detach().float()
-                mean = xf.mean(dim=(0, 2, 3))
-                var = xf.var(dim=(0, 2, 3), unbiased=False)
+                if self.group is None:
+                    xf = x.detach().float()
+                    mean = xf.mean(dim=(0, 2, 3))
+                    var = xf.var(dim=(0, 2, 3), unbiased=False)
                 self.running_mean.mul_(1.0 - self.momentum).add_(
                     mean, alpha=self.momentum)
                 self.running_var.mul_(1.0 - self.momentum).add_(
                     var, alpha=self.momentum)
                 self.num_batches_tracked.add_(1)
         return channels_last(out)
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, group):
+    """Inside the block, every :class:`BatchNorm2d` of ``model`` takes its
+    train-mode statistics over ``group`` (None: this process's batch)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
 
 
 def norm_layer(kind: str, channels: int, groups: int = 8,

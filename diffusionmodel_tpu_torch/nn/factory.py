@@ -33,7 +33,7 @@ def build_model(mc: ModelConfig, high_thresh: float = 1.2,
         raise ValueError(f"unknown arch {mc.arch!r}")
     if spatial_shards > 0:
         raise NotImplementedError(
-            "spatial sharding is not ported yet: ROADMAP A12 (parallel)")
+            "the spatially sharded forward is not ported yet: ROADMAP A12b")
     dtype = compute_dtype(mc.dtype)
     with torch.device(dev):
         if mc.arch == "mnist_unet":

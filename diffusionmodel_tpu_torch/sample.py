@@ -16,6 +16,11 @@ Both build the model from ``cfg.model`` (so ``model.dtype``,
 ``model.fused_upsample`` and ``model.use_pallas`` apply), read a
 checkpoint of either package (a ``.pt`` through ``cfg.model``'s arch) and
 run under ``device_check.fp32_compute``.
+
+``gen_samples`` samples over ``parallel.make_mesh()``, as the JAX package
+does: under a process group (``torchrun``) each process denoises its
+block of the batch and rank 0 writes the files and scores them; one
+process alone samples the whole batch.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from diffusionmodel_tpu_torch.device_check import fp32_compute, resolve_device
 from diffusionmodel_tpu_torch.diffusion import Schedule, sample_cfg_edit
 from diffusionmodel_tpu_torch.metrics import ImageMetrics
 from diffusionmodel_tpu_torch.nn import build_model
+from diffusionmodel_tpu_torch.parallel import make_mesh
 from diffusionmodel_tpu_torch.trainer import _sanitize, make_sampler
 from diffusionmodel_tpu_torch.utils.grid import save_image, save_samples
 
@@ -72,8 +78,11 @@ def gen_samples(cfg: Config, ckpt_path: str,
     plus ``out_dir`` and ``quality``; a scale's seconds are the shared
     pass divided by the number of scales in a one-batch sweep. Sampling
     runs fp32 with TF32 off and cuDNN autotuned
-    (``device_check.fp32_compute``)."""
+    (``device_check.fp32_compute``). Under a process group every process
+    calls it and gets the results; rank 0 alone writes and scores."""
     dev = resolve_device(device)
+    mesh = make_mesh()
+    verbose = verbose and mesh.is_main
     sc, mc, dc = cfg.sample, cfg.model, cfg.diffusion
     n_per = n_samples_per_class or sc.samples_per_class
     scales = list(guide_scales or sc.guide_scales)
@@ -107,19 +116,23 @@ def gen_samples(cfg: Config, ckpt_path: str,
         x_init = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
     if sweep_one_batch:
         sampler = make_sampler(cfg, sched, n_sample * len(scales),
-                               classes=gen_classes.repeat(len(scales)))
+                               classes=gen_classes.repeat(len(scales)),
+                               mesh=mesh)
     else:
-        sampler = make_sampler(cfg, sched, n_sample, classes=gen_classes)
+        sampler = make_sampler(cfg, sched, n_sample, classes=gen_classes,
+                               mesh=mesh)
 
     out_dir = os.path.join(sc.sample_dir, f"samples_{int(time.time())}")
-    os.makedirs(out_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
     if verbose:
         print(f"Samples will be saved to: {out_dir}")
 
     real_images = None
     img_metrics = (metrics_impl if metrics_impl is not None
                    else ImageMetrics(device=dev))
-    if do_eval and dataset is not None and len(dataset) > 0:
+    if do_eval and dataset is not None and len(dataset) > 0 \
+            and mesh.is_main:
         needed = n_per * min(n_classes, 4)
         rng = np.random.RandomState(seed)
         order = rng.permutation(len(dataset))[:needed]
@@ -155,11 +168,13 @@ def gen_samples(cfg: Config, ckpt_path: str,
                                 x_init=x_init).cpu().numpy()
                 dt = time.time() - t0
             grid_path = os.path.join(out_dir, f"samples_g{w}.png")
-            save_samples(x_gen, grid_path, nrow=n_per, denorm=sc.denorm)
-            for i in range(len(x_gen)):
-                cls = classes[i // n_per]
-                save_image(x_gen[i], os.path.join(
-                    out_dir, f"{cls}_s{i % n_per}_g{w}.png"), denorm=sc.denorm)
+            if mesh.is_main:
+                save_samples(x_gen, grid_path, nrow=n_per, denorm=sc.denorm)
+                for i in range(len(x_gen)):
+                    cls = classes[i // n_per]
+                    save_image(x_gen[i], os.path.join(
+                        out_dir, f"{cls}_s{i % n_per}_g{w}.png"),
+                        denorm=sc.denorm)
             results[w] = {
                 "grid_path": grid_path,
                 "seconds": dt,

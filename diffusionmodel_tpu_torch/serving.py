@@ -29,7 +29,7 @@ per-slot noise streams): classes set the slot count only and the guidance
 scale is ignored, as in ``trainer.make_sampler``. Its worker holds cuDNN
 to deterministic algorithms (``fp32_compute(deterministic=True)``): under
 cuDNN's default choice the labml net's eval output did not repeat bit for
-bit on the card. Mesh fan-out is not ported yet (ROADMAP A12).
+bit on the card. Mesh fan-out is not ported yet (ROADMAP A12b).
 """
 
 from __future__ import annotations

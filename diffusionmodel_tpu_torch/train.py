@@ -31,6 +31,12 @@ early stopping (counterpart of ``diffusionmodel_tpu/train.py``).
 - **Draws.** Each micro-batch's (t, eps, context mask) come from the
   step's ``torch.Generator`` or are handed in (``draws``), which is how
   the tests replay the JAX package's ``jax.random`` draws.
+- **Data parallelism** (``mesh=``, ``parallel``): each process steps on
+  its block of the batch with the global batch's draws, BatchNorm takes
+  the global batch's statistics, and the gradients and the loss are
+  averaged over 'data' once a step, before the clip; with
+  ``train.zero1`` each process keeps, clips and updates only its block of
+  the moments the ZeRO-1 rule partitions (``_reduce_and_update_``).
 
 PyTorch updates the model and the optimizer state in place, so a step
 returns only its loss (a float32 scalar tensor on the device).
@@ -45,13 +51,25 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from diffusionmodel_tpu_torch.compat.flax_bridge import flax_trees
 from diffusionmodel_tpu_torch.config import Config
-from diffusionmodel_tpu_torch.diffusion import Schedule, train_loss
+from diffusionmodel_tpu_torch.diffusion import Schedule, loss_draws, train_loss
 from diffusionmodel_tpu_torch.lr_schedules import build_schedule
+from diffusionmodel_tpu_torch.nn.blocks import global_batch_stats
+from diffusionmodel_tpu_torch.parallel.mesh import (
+    Mesh,
+    Sharding,
+    all_gather_single,
+    all_reduce_mean_,
+    batch_sharding,
+    check_supported,
+    opt_state_shardings,
+    reduce_scatter_single,
+)
 
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -72,11 +90,15 @@ class Optimizer(NamedTuple):
 @dataclasses.dataclass
 class OptState:
     """Adam's state over the parameter list, in ``named_parameters`` order:
-    ``count`` steps taken, ``mu`` in the moment dtype, ``nu`` in float32."""
+    ``count`` steps taken, ``mu`` in the moment dtype, ``nu`` in float32.
+    Under ZeRO-1 ``shardings`` holds each moment's sharding
+    (``parallel.opt_state_shardings``) and a partitioned moment is only
+    this process's block of it; None: every moment whole."""
 
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    shardings: Optional[List[Sharding]] = None
 
 
 def build_optimizer(cfg: Config, steps_per_epoch: int) -> Optimizer:
@@ -94,11 +116,23 @@ def build_optimizer(cfg: Config, steps_per_epoch: int) -> Optimizer:
     return Optimizer(schedule, wd, float(tc.grad_clip or 0.0), mu_dtype)
 
 
-def init_opt_state(opt: Optimizer, params: Sequence[torch.Tensor]) -> OptState:
+def init_opt_state(opt: Optimizer, params: Sequence[torch.Tensor],
+                   shardings: Optional[Sequence[Sharding]] = None
+                   ) -> OptState:
+    """Zero moments, or with ``shardings`` (ZeRO-1) zero blocks of them."""
+    if shardings is None or all(s.is_replicated for s in shardings):
+        return OptState(
+            count=0,
+            mu=[torch.zeros_like(p, dtype=opt.mu_dtype) for p in params],
+            nu=[torch.zeros_like(p, dtype=_F32) for p in params])
+    blocks = [s.local(p.detach()) for s, p in zip(shardings, params)]
     return OptState(
         count=0,
-        mu=[torch.zeros_like(p, dtype=opt.mu_dtype) for p in params],
-        nu=[torch.zeros_like(p, dtype=_F32) for p in params])
+        mu=[torch.zeros(b.shape, dtype=opt.mu_dtype, device=b.device)
+            for b in blocks],
+        nu=[torch.zeros(b.shape, dtype=_F32, device=b.device)
+            for b in blocks],
+        shardings=list(shardings))
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -106,11 +140,14 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> None:
     """optax.clip_by_global_norm in place: unchanged below ``max_norm``,
     else ``(g / norm) * max_norm``, with no epsilon. Stays on the device
-    (no host synchronisation)."""
-    norm = global_norm(grads)
+    (no host synchronisation). ``norm``: the global norm when ``grads``
+    are blocks of it (ZeRO-1), else taken from ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -120,9 +157,12 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 @torch.no_grad()
 def apply_updates_(opt: Optimizer, state: OptState,
                    params: List[torch.Tensor],
-                   grads: List[torch.Tensor]) -> float:
+                   grads: List[torch.Tensor],
+                   norm: Optional[torch.Tensor] = None) -> float:
     """One optimizer step in place on ``params`` and ``state``; ``grads``
-    is consumed (overwritten). Returns the rate used. Op for op:
+    is consumed (overwritten). Returns the rate used. ``norm``: the
+    global gradient norm for the clip when ``params`` / ``grads`` are
+    ZeRO-1 blocks. Op for op:
 
         g   <- clip(g)
         nu  <- (1-b2) g^2 + b2 nu
@@ -130,7 +170,7 @@ def apply_updates_(opt: Optimizer, state: OptState,
         u   <- (mu / (1-b1^n)) / (sqrt(nu / (1-b2^n)) + eps) + wd p
         p   <- p + (-lr) u,   lr = schedule(n - 1),  mu stored cast."""
     if opt.grad_clip > 0:
-        clip_by_global_norm_(grads, opt.grad_clip)
+        clip_by_global_norm_(grads, opt.grad_clip, norm)
     lr = opt.schedule(state.count)
     count = state.count + 1
     tmp = torch._foreach_mul(grads, grads)
@@ -203,13 +243,19 @@ def _ema_copy(model: nn.Module) -> nn.Module:
     return ema.eval()
 
 
-def create_train_state(model: nn.Module, cfg: Config, steps_per_epoch: int
-                       ) -> tuple:
+def create_train_state(model: nn.Module, cfg: Config, steps_per_epoch: int,
+                       mesh: Optional[Mesh] = None) -> tuple:
     """(TrainState, Optimizer) over ``model`` as it is (the port's
-    ``build_model`` draws the initial weights from the torch seed)."""
+    ``build_model`` draws the initial weights from the torch seed). With
+    ``train.zero1`` and a mesh, each process keeps only its block of the
+    moments the ZeRO-1 rule partitions over 'data'."""
     opt = build_optimizer(cfg, steps_per_epoch)
+    shardings = None
+    if cfg.train.zero1 and mesh is not None:
+        shardings = list(opt_state_shardings(mesh, model).values())
     state = TrainState(step=0, model=model,
-                       opt_state=init_opt_state(opt, list(model.parameters())),
+                       opt_state=init_opt_state(opt, list(model.parameters()),
+                                                shardings),
                        ema=_ema_copy(model) if cfg.train.ema_decay > 0
                        else None)
     return state, opt
@@ -223,19 +269,32 @@ def host_trees(model: nn.Module) -> tuple:
 
 def opt_state_to_host(model: nn.Module, st: OptState) -> Dict:
     """The port's optimizer state as numpy copies: ``count`` and ``mu`` /
-    ``nu`` by parameter name (``mu`` widened to float32, which is exact)."""
+    ``nu`` by parameter name (``mu`` widened to float32, which is exact).
+    ZeRO-1 blocks are gathered first (a collective: every process of the
+    data group calls it, and only rank 0 gets the copies; the others get
+    None), so the layout does not depend on the world size."""
     names = [n for n, _ in model.named_parameters()]
+    if st.shardings is not None:
+        mu = [sh.gather(m) for sh, m in zip(st.shardings, st.mu)]
+        nu = [sh.gather(v) for sh, v in zip(st.shardings, st.nu)]
+        if not st.shardings[0].mesh.is_main:
+            return None  # only rank 0 writes checkpoints
+    else:
+        mu, nu = st.mu, st.nu
+
+    def host(x):
+        return x.detach().float().cpu().numpy().copy()
+
     return {"count": int(st.count),
-            "mu": {n: m.detach().float().cpu().numpy().copy()
-                   for n, m in zip(names, st.mu)},
-            "nu": {n: v.detach().cpu().numpy().copy()
-                   for n, v in zip(names, st.nu)}}
+            "mu": {n: host(m) for n, m in zip(names, mu)},
+            "nu": {n: host(v) for n, v in zip(names, nu)}}
 
 
 def opt_state_from_host(model: nn.Module, st: OptState, host) -> None:
     """Restore :func:`opt_state_to_host`'s layout in place, each moment
-    cast to the dtype the run keeps it in. Raises on any other layout (the
-    JAX package's optax state)."""
+    cast to the dtype the run keeps it in (under ZeRO-1, this process's
+    block of it). Raises on any other layout (the JAX package's optax
+    state)."""
     if not (isinstance(host, dict) and {"count", "mu", "nu"} <= set(host)
             and isinstance(host["mu"], dict)):
         raise ValueError(f"not the port's optimizer layout: "
@@ -244,10 +303,16 @@ def opt_state_from_host(model: nn.Module, st: OptState, host) -> None:
     missing = [n for n in names if n not in host["mu"] or n not in host["nu"]]
     if missing:
         raise ValueError(f"optimizer state lacks {missing[:3]}")
+    shardings = st.shardings or [None] * len(names)
+
+    def block(x, sh):
+        x = np.asarray(x)
+        return torch.from_numpy(x if sh is None else sh.local(x))
+
     with torch.no_grad():
-        for n, m, v in zip(names, st.mu, st.nu):
-            m.copy_(torch.from_numpy(np.asarray(host["mu"][n])))
-            v.copy_(torch.from_numpy(np.asarray(host["nu"][n])))
+        for n, m, v, sh in zip(names, st.mu, st.nu, shardings):
+            m.copy_(block(host["mu"][n], sh))
+            v.copy_(block(host["nu"][n], sh))
     st.count = int(host["count"])
 
 
@@ -333,8 +398,99 @@ def update_ema_(state: TrainState, decay: float) -> None:
     torch._foreach_add_(ema, torch._foreach_mul(state.params, float(1.0 - d)))
 
 
+def _data_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh when it spans processes (a group was started), else None:
+    one process runs the plain step."""
+    if mesh is None or not mesh.distributed:
+        return None
+    check_supported(mesh)
+    return mesh
+
+
+def _local_draws(mesh: Optional[Mesh], dc, x: torch.Tensor, generator,
+                 given: Optional[Dict]) -> Dict:
+    """``train_loss``'s draws for this process's block ``x`` of the batch:
+    as given, or drawn from ``generator``. Under a mesh they are drawn
+    (or given) for the global batch, identically on every process, and
+    each process takes its block."""
+    if mesh is None:
+        return given or {}
+    n = mesh.shape["data"]
+    full = given or loss_draws(dc, (n * x.shape[0], *x.shape[1:]),
+                               generator, x.device)
+    return {k: None if v is None else
+            batch_sharding(mesh, 1).local(torch.as_tensor(v))
+            for k, v in full.items()}
+
+
+@torch.no_grad()
+def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
+                        grads: List[torch.Tensor], loss: torch.Tensor
+                        ) -> torch.Tensor:
+    """The data-parallel half of the step: average the gradients and the
+    loss over 'data' and update. Replicated leaves and the loss go
+    through one flattened ``all_reduce``; under ZeRO-1 the partitioned
+    leaves go through one ``reduce_scatter`` into this process's blocks,
+    the clip takes the global norm (the blocks' squares summed over the
+    group, the replicated leaves counted once), AdamW updates the blocks
+    and one ``all_gather`` puts the new parameters back together.
+    Returns the global mean loss."""
+    group, n = mesh.group("data"), mesh.shape["data"]
+    params = state.params
+    shardings = state.opt_state.shardings or [None] * len(params)
+    part = [i for i, sh in enumerate(shardings)
+            if sh is not None and not sh.is_replicated]
+    rep = sorted(set(range(len(params))) - set(part))
+
+    flat = torch.cat([grads[i].reshape(-1) for i in rep] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    flat.div_(n)
+    for i, seg in zip(rep, flat[:-1].split([grads[i].numel() for i in rep])):
+        grads[i].copy_(seg.view(grads[i].shape))
+    loss = flat[-1]
+
+    norm = None
+    upd = list(params)
+    if part:
+        dims = {i: shardings[i].dims[0][0] for i in part}
+        rows = torch.cat([grads[i].movedim(dims[i], 0).reshape(n, -1)
+                          for i in part], dim=1)
+        blocks = torch.empty(rows.shape[1], dtype=rows.dtype,
+                             device=rows.device)
+        reduce_scatter_single(blocks, rows.reshape(-1), group=group)
+        del rows
+        blocks.div_(n)
+        sizes = [params[i].numel() // n for i in part]
+        for i, seg in zip(part, blocks.split(sizes)):
+            moved = params[i].movedim(dims[i], 0).shape
+            grads[i] = seg.view(moved[0] // n, *moved[1:]).movedim(
+                0, dims[i])
+            upd[i] = shardings[i].local(params[i])
+        if opt.grad_clip > 0:
+            sq = torch.stack(torch._foreach_norm([grads[i] for i in part])
+                             ).square().sum()
+            dist.all_reduce(sq, group=group)
+            if rep:
+                sq = sq + torch.stack(torch._foreach_norm(
+                    [grads[i] for i in rep])).square().sum()
+            norm = torch.sqrt(sq)
+    apply_updates_(opt, state.opt_state, upd, grads, norm)
+    if part:
+        mine = torch.cat([upd[i].movedim(dims[i], 0).reshape(-1)
+                          for i in part])
+        every = torch.empty(n * mine.numel(), dtype=mine.dtype,
+                            device=mine.device)
+        all_gather_single(every, mine, group=group)
+        cols = every.view(n, -1).split(sizes, dim=1)
+        for i, col in zip(part, cols):
+            moved = params[i].movedim(dims[i], 0).shape
+            params[i].copy_(col.reshape(moved).movedim(0, dims[i]))
+    return loss
+
+
 def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
-                    opt: Optimizer, normalize_u8: bool = True):
+                    opt: Optimizer, normalize_u8: bool = True,
+                    mesh: Optional[Mesh] = None):
     """Returns ``step(state, batch, generator=None, draws=None) -> loss``.
 
     batch: ``x`` [A, B, H, W, C] (float, or the uint8 wire format), ``c``
@@ -342,10 +498,21 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
     indices); numpy arrays or tensors, moved to the model's device. A is
     the number of micro-batches. ``draws``: optionally A dicts of
     ``ts`` / ``noise`` / ``ctx_mask`` for ``train_loss``. The model is in
-    train mode during the step and in eval mode after it."""
+    train mode during the step and in eval mode after it.
+
+    ``mesh`` (a distributed one; ``parallel.make_mesh``): data
+    parallelism. ``batch`` is this process's block of B (the global
+    micro-batch is ``data`` times larger), the draws are those of the
+    global batch (drawn, or given, alike on every process), BatchNorm
+    takes the global batch's statistics, and the gradients are reduced
+    once a step, after the mean over A and before the clip
+    (:func:`_reduce_and_update_`; ZeRO-1 when the state was created with
+    ``train.zero1``). The loss returned is the global batch's."""
     tc, dc = cfg.train, cfg.diffusion
     acc_dtype = _DTYPES[tc.grad_accum_dtype]
     net = remat_denoiser(model, tc.remat, tc.remat_policy)
+    mesh = _data_mesh(mesh)
+    bn_group = mesh.group("data") if mesh is not None else None
 
     def step(state: TrainState, batch: Dict, generator=None,
              draws: Optional[Sequence[Dict]] = None) -> torch.Tensor:
@@ -366,10 +533,13 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
                     _to(masks[i], dev) if masks is not None else None,
                     dc, normalize_u8)
                 c = _to(batch["c"][i], dev).long()
-                loss = train_loss(net, x, c, mask, sched, dc,
-                                  generator=generator,
-                                  **(draws[i] if draws else {}))
-                loss.backward()
+                with global_batch_stats(model, bn_group):
+                    loss = train_loss(net, x, c, mask, sched, dc,
+                                      generator=generator,
+                                      **_local_draws(mesh, dc, x, generator,
+                                                     draws[i] if draws
+                                                     else None))
+                    loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 if acc is not None:
                     with torch.no_grad():
@@ -388,22 +558,29 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
         for p in params:
             p.grad = None
         torch._foreach_div_(grads, float(a))
-        apply_updates_(opt, state.opt_state, params, grads)
+        loss = loss_sum / a
+        if mesh is None:
+            apply_updates_(opt, state.opt_state, params, grads)
+        else:
+            loss = _reduce_and_update_(opt, state, mesh, grads, loss)
         if state.ema is not None:
             update_ema_(state, tc.ema_decay)
         state.step += 1
-        return loss_sum / a
+        return loss
 
     return step
 
 
 def make_eval_step(model: nn.Module, sched: Schedule, cfg: Config,
-                   normalize_u8: bool = True):
+                   normalize_u8: bool = True, mesh: Optional[Mesh] = None):
     """Returns ``step(state, batch, generator=None) -> loss``: the
     validation loss of one (non-accumulated) batch in eval mode, without
     gradients; with ``model.use_pallas`` SE and CoordAttn run the CUDA
-    kernels. Uses the live parameters, as the JAX package does."""
+    kernels. Uses the live parameters, as the JAX package does. Under a
+    distributed ``mesh`` ``batch`` is this process's block, the draws are
+    the global batch's and the loss is averaged over 'data'."""
     dc = cfg.diffusion
+    mesh = _data_mesh(mesh)
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict, generator=None) -> torch.Tensor:
@@ -411,8 +588,10 @@ def make_eval_step(model: nn.Module, sched: Schedule, cfg: Config,
         model.eval()
         x, mask = decode_wire(_to(batch["x"], dev),
                               _to(batch.get("mask"), dev), dc, normalize_u8)
-        return train_loss(model, x, _to(batch["c"], dev).long(), mask, sched,
-                          dc, generator=generator)
+        loss = train_loss(model, x, _to(batch["c"], dev).long(), mask, sched,
+                          dc, generator=generator,
+                          **_local_draws(mesh, dc, x, generator, None))
+        return loss if mesh is None else all_reduce_mean_(mesh, loss)
 
     return step
 

@@ -20,8 +20,16 @@ Each sampling epoch scores the samples against the collected real images
 given: fid or fid_proxy from 10 images per side, SSIM and PSNR when the
 counts match). The textbook schedule family (the ``labml`` preset's
 ``ddpm_unet``) trains on its own schedule (t in [0, n_T), plain MSE) and
-samples with the textbook ancestral sampler. Mesh axes and ZeRO-1 are
-ROADMAP A12.
+samples with the textbook ancestral sampler.
+
+Data parallelism: under a process group (``torchrun``, one process per
+card) ``train.mesh_data`` processes split every batch (``parallel``):
+each decodes and trains on its block, the gradients are averaged once a
+step (with ``train.zero1``, each keeps only its block of Adam's
+moments), validation losses and samples are the global batch's. Every
+process holds the same parameters and takes the same decisions; rank 0
+alone prints, writes checkpoints, metrics and sample grids. The 'model'
+and 'spatial' axes are refused (ROADMAP A12c, A12b).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffusionmodel_tpu_torch.checkpoint import (
     extract_params,
@@ -64,6 +73,13 @@ from diffusionmodel_tpu_torch.models.annotated_ddpm.diffusion import (
     textbook_schedule,
 )
 from diffusionmodel_tpu_torch.nn import build_model
+from diffusionmodel_tpu_torch.parallel import (
+    Mesh,
+    batch_sharding,
+    broadcast_object,
+    check_supported,
+    make_mesh,
+)
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
     TrainState,
@@ -91,7 +107,8 @@ def _sanitize(obj):
     return obj
 
 
-def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None):
+def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
+                 mesh: Optional[Mesh] = None):
     """Returns ``sampler(model, generator, guide_w, x_init=None)`` ->
     images [n_sample, H, W, C] on the schedule's device, through the
     configured sampler (``sample.sampler``: ancestral over all n_T steps,
@@ -102,37 +119,70 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None):
     The textbook family samples unconditionally with the textbook
     ancestral sampler over t = n_T-1..0 (reference/ddpm/__init__.py:
     230-255; ``classes`` and ``guide_w`` are ignored), through the adapter
-    it shares with the service (``make_textbook_chunk_fn``)."""
+    it shares with the service (``make_textbook_chunk_fn``).
+
+    ``mesh`` (a distributed one): each 'data' process denoises its
+    contiguous block of the n_sample slots and the blocks are gathered,
+    so every process returns the whole batch. Every process draws the
+    global start noise and per-step noise from ``generator`` and takes its
+    block, so the images are the one-process run's (up to the batch
+    size's effect on the network's sums). When the data size does not
+    divide n_sample every process samples the whole batch, as the JAX
+    package falls back to replication."""
     dc, mc, sc = cfg.diffusion, cfg.model, cfg.sample
     shape = (mc.img_size, mc.img_size, mc.in_ch)
-    if dc.schedule_family == "textbook":
-        def textbook(model, generator, guide_w, x_init=None) -> torch.Tensor:
-            x = _start_noise(x_init, n_sample, shape, generator, sched.device)
-            chunk = make_textbook_chunk_fn(model.eval(), dc, n_sample, shape)
-            return chunk(x, generator, textbook_chunk_steps(dc.n_T))
-
-        return textbook
-    if sc.sampler not in ("ancestral", "ddim", "dpmpp"):
+    textbook = dc.schedule_family == "textbook"
+    if not textbook and sc.sampler not in ("ancestral", "ddim", "dpmpp"):
         raise ValueError(f"unknown sample.sampler {sc.sampler!r} "
                          "(expected ancestral | ddim | dpmpp)")
+    fan_out = None
+    if mesh is not None and mesh.distributed:
+        check_supported(mesh)
+        if n_sample % mesh.shape["data"] == 0:
+            fan_out = batch_sharding(mesh, 4)
 
-    def run(model, generator, guide_w, x_init):
+    def run(model, generator, n, guide_w, classes, x_init, noise_fn):
+        if textbook:
+            x = _start_noise(x_init, n, shape, generator, sched.device)
+            chunk = make_textbook_chunk_fn(model, dc, n, shape)
+            return chunk(x, generator, textbook_chunk_steps(dc.n_T),
+                         noise_fn=noise_fn)
         common = dict(guide_w=guide_w, classes=classes, x_init=x_init)
         if sc.sampler == "ddim":
-            return sample_cfg_ddim(model, generator, n_sample, shape,
+            return sample_cfg_ddim(model, generator, n, shape,
                                    mc.n_classes, sched, dc,
                                    n_steps=sc.ddim_steps, eta=sc.ddim_eta,
-                                   discretize=sc.ddim_discretize, **common)
+                                   discretize=sc.ddim_discretize,
+                                   noise_fn=noise_fn, **common)
         if sc.sampler == "dpmpp":
-            return sample_cfg_dpmpp(model, generator, n_sample, shape,
+            return sample_cfg_dpmpp(model, generator, n, shape,
                                     mc.n_classes, sched, dc,
                                     n_steps=sc.dpm_steps,
                                     discretize=sc.ddim_discretize, **common)
-        return sample_cfg(model, generator, n_sample, shape, mc.n_classes,
-                          sched, dc, **common)
+        return sample_cfg(model, generator, n, shape, mc.n_classes,
+                          sched, dc, noise_fn=noise_fn, **common)
 
     def sampler(model, generator, guide_w, x_init=None) -> torch.Tensor:
-        return run(model.eval(), generator, guide_w, x_init)
+        model = model.eval()
+        if fan_out is None:
+            return run(model, generator, n_sample, guide_w, classes, x_init,
+                       None)
+        dev = sched.device
+        x = _start_noise(x_init, n_sample, shape, generator, dev)
+        cls = (torch.arange(n_sample, device=dev) % mc.n_classes
+               if classes is None else torch.as_tensor(classes, device=dev))
+        gw = torch.as_tensor(guide_w, dtype=torch.float32)
+
+        def noise_fn(step):
+            if textbook and step == 0:  # the last update adds no noise
+                return torch.zeros_like(fan_out.local(x))
+            return fan_out.local(torch.randn(x.shape, generator=generator,
+                                             device=dev))
+
+        mine = run(model, generator, n_sample // mesh.shape["data"],
+                   gw if gw.dim() == 0 else fan_out.local(gw),
+                   fan_out.local(cls), fan_out.local(x), noise_fn)
+        return fan_out.gather(mine)
 
     return sampler
 
@@ -213,33 +263,37 @@ def _load_params(model, params, batch_stats=None) -> None:
     load_flax(model, params, batch_stats)
 
 
-def _check_single_device(tc) -> None:
-    multi = {k: getattr(tc, k) for k in ("mesh_data", "mesh_model",
-                                         "mesh_spatial")
-             if getattr(tc, k) > 1}
-    if multi or tc.zero1:
-        raise NotImplementedError(
-            f"{dict(multi, **({'zero1': True} if tc.zero1 else {}))}: "
-            "multi-device training is not ported yet: ROADMAP A12 "
-            "(parallel); the port trains on one device")
+def train_mesh(tc) -> Mesh:
+    """The mesh of ``train.mesh_data`` / ``mesh_model`` / ``mesh_spatial``
+    over the process group. Raises NotImplementedError for the axes not
+    ported (``mesh_model > 1``: ROADMAP A12c; ``mesh_spatial > 1``:
+    A12b) and ValueError for a mesh the group cannot hold (``mesh_data >
+    1`` with no group included): no mesh runs on one process silently."""
+    check_supported(Mesh({"data": tc.mesh_data, "model": tc.mesh_model,
+                          "spatial": tc.mesh_spatial}))
+    return make_mesh(tc.mesh_data, tc.mesh_model, tc.mesh_spatial)
 
 
 def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
         resume: Optional[str] = None, device=None) -> TrainState:
-    """Train on ``device`` (default CUDA; raises without it unless
-    ``device="cpu"``). ``resume`` restores the parameters, EMA, BatchNorm
-    statistics, epoch and (for the port's own checkpoints) the optimizer
+    """Train on ``device`` (default CUDA, this process's card under a
+    process group; raises without it unless ``device="cpu"``). ``resume``
+    restores the parameters, EMA, BatchNorm statistics, epoch and (for the
+    port's own checkpoints, whatever world size wrote them) the optimizer
     state from either package's checkpoint. Returns the TrainState, with
-    the best validation epoch's parameters loaded when one was kept."""
+    the best validation epoch's parameters loaded when one was kept.
+    Under a process group every process calls it (module docstring)."""
     dev = resolve_device(device)
     tc, mc, dc = cfg.train, cfg.model, cfg.diffusion
-    _check_single_device(tc)
+    mesh = train_mesh(tc)
+    main = mesh.is_main
+    verbose = verbose and main
     if tc.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
-    os.makedirs(tc.save_dir, exist_ok=True)
     metrics_dir = os.path.join(tc.save_dir, "metrics")
-    os.makedirs(metrics_dir, exist_ok=True)
+    if main:
+        os.makedirs(metrics_dir, exist_ok=True)
     metrics_log: Dict[str, list] = {
         "train_loss": [], "val_loss": [], "img_metrics": [], "lr": [],
         "steps_per_sec": [],
@@ -263,9 +317,9 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     wire_ok = _wire_format_ok(dataset, dc)
     train_loader = BatchLoader(dataset, train_idx, tc.batch_size,
                                tc.accum_steps, shuffle=True, augment=True,
-                               seed=tc.seed, wire_u8=wire_ok)
+                               seed=tc.seed, wire_u8=wire_ok, mesh=mesh)
     val_loader = BatchLoader(dataset, val_idx, tc.batch_size, 1, shuffle=False,
-                             augment=False, wire_u8=wire_ok)
+                             augment=False, wire_u8=wire_ok, mesh=mesh)
 
     torch.manual_seed(tc.seed)
     model = build_model(mc, dc.high_thresh, device=dev)
@@ -275,7 +329,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
         sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
     steps_per_epoch = max(1, len(train_loader))
     generator = torch.Generator(device=dev).manual_seed(tc.seed)
-    state, opt = create_train_state(model, cfg, steps_per_epoch)
+    state, opt = create_train_state(model, cfg, steps_per_epoch, mesh=mesh)
 
     start_epoch = 0
     if resume:
@@ -302,8 +356,10 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
         if verbose:
             print(f"Resumed from {resume} at epoch {start_epoch}")
     norm_u8 = bool(getattr(dataset, "normalize", True))
-    step_fn = make_train_step(model, sched, cfg, opt, normalize_u8=norm_u8)
-    eval_fn = make_eval_step(model, sched, cfg, normalize_u8=norm_u8)
+    step_fn = make_train_step(model, sched, cfg, opt, normalize_u8=norm_u8,
+                              mesh=mesh)
+    eval_fn = make_eval_step(model, sched, cfg, normalize_u8=norm_u8,
+                             mesh=mesh)
 
     # Eval-sample collection: stratified <= eval_sample_count from val
     # (new_scripy.py:747-765).
@@ -325,8 +381,9 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     sampler = None
     if eval_samples:
         classes = torch.tensor([c for _, c in eval_samples], device=dev)
-        sampler = make_sampler(cfg, sched, len(eval_samples), classes=classes)
-    img_metrics = (metrics_impl if metrics_impl is not None
+        sampler = make_sampler(cfg, sched, len(eval_samples), classes=classes,
+                               mesh=mesh)
+    img_metrics = (metrics_impl if metrics_impl is not None or not main
                    else ImageMetrics(device=dev))
 
     early_stop = EarlyStop(tc.patience, tc.min_delta, verbose=verbose,
@@ -345,6 +402,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                       f"(epoch {prev_best.get('epoch')})")
         except Exception as e:
             print(f"best_val sidecar ignored: {e}")
+    # every process stops, keeps its best state and saves alike
+    early_stop.best_loss = broadcast_object(mesh, early_stop.best_loss)
     lr_schedule_fn = build_schedule(
         tc.lr_schedule, tc.lr, steps_per_epoch, n_epoch=tc.n_epoch,
         t0=tc.sgdr_t0, t_mult=tc.sgdr_t_mult, eta_min=tc.sgdr_eta_min)
@@ -352,8 +411,15 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     ckpt_writer = _CkptWriter(verbose=verbose)
 
     def save_ckpt(epoch, loss, is_best=False, host_state=None):
+        """Rank 0 queues the checkpoint; under ZeRO-1 every process takes
+        part in gathering the moments."""
         name = "best_model" if is_best else f"ckpt_ep{epoch}"
         t0 = time.time()
+        opt_host = None
+        if host_state is None and (main or state.opt_state.shardings):
+            opt_host = opt_state_to_host(state.model, state.opt_state)
+        if not main:
+            return
         if host_state is not None:
             # best_model: the host copy EarlyStop already took, without
             # opt_state (a sampling artifact, like the reference's bare
@@ -367,8 +433,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
             params, batch_stats = host_trees(state.model)
             payload = {"epoch": epoch, "params": params,
                        "batch_stats": batch_stats,
-                       "opt_state": opt_state_to_host(state.model,
-                                                      state.opt_state),
+                       "opt_state": opt_host,
                        "loss": float(loss)}
             if state.ema is not None:
                 payload["ema_params"] = host_trees(state.ema)[0]
@@ -391,7 +456,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
             for ep in range(start_epoch, tc.n_epoch):
                 t_ep = time.time()
                 prof = None
-                if tc.profile_dir and ep == tc.profile_epoch:
+                if tc.profile_dir and ep == tc.profile_epoch and main:
                     from torch.profiler import ProfilerActivity, profile
 
                     acts = [ProfilerActivity.CPU] + (
@@ -425,8 +490,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                 for batch in val_loader:
                     vb = {k: v[0] for k, v in batch.items()}
                     vlosses.append(eval_fn(state, vb, generator))
-                val_loss = float(np.mean([float(v) for v in vlosses])) \
-                    if vlosses else float("nan")
+                val_loss = broadcast_object(mesh, float(np.mean(
+                    [float(v) for v in vlosses])) if vlosses else float("nan"))
                 metrics_log["val_loss"].append(val_loss)
                 # the scheduled LR of this epoch, not the base lr — the
                 # reference logs the scheduler's current value
@@ -441,7 +506,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
 
                 is_best = early_stop(val_loss, state, ep)
                 if early_stop.early_stop:
-                    if early_stop.best_state is not None:
+                    if early_stop.best_state is not None and main:
                         ckpt_writer.submit(
                             "best_model_early",
                             os.path.join(tc.save_dir, "best_model_early"),
@@ -460,6 +525,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                         gen = sampler(net, generator, float(w)).cpu().numpy()
                         imgs_per_min = len(gen) / max(time.time() - t_s,
                                                       1e-9) * 60
+                        if not main:
+                            continue
                         save_samples(gen, os.path.join(
                             tc.save_dir, f"img_ep{ep}_w{w}.png"), nrow=4,
                             denorm=cfg.sample.denorm)
@@ -483,9 +550,10 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                     save_ckpt(ep, val_loss, is_best=True,
                               host_state=early_stop.best_state)
 
-                with open(os.path.join(metrics_dir, f"metrics_ep{ep}.json"),
-                          "w") as f:
-                    json.dump(_sanitize(metrics_log), f, indent=2)
+                if main:
+                    with open(os.path.join(metrics_dir,
+                                           f"metrics_ep{ep}.json"), "w") as f:
+                        json.dump(_sanitize(metrics_log), f, indent=2)
                 last_ep = ep
                 if verbose:
                     print(f"Epoch time: {time.time() - t_ep:.2f}s")
@@ -505,6 +573,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
         ckpt_writer.close()
         if tc.debug_nans:
             torch.autograd.set_detect_anomaly(False)
+    if mesh.distributed:
+        dist.barrier()  # every checkpoint is on disk when any process returns
     if early_stop.best_state is not None:
         best = early_stop.best_state
         _load_params(state.model, best["params"])

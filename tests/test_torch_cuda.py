@@ -771,6 +771,69 @@ def test_coord_attn_cache_follows_a_train_step_on_the_card(dev):
     assert ((after - want).norm() / want.norm()).item() <= 1e-4
 
 
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A one-rank NCCL process group in this process and its mesh."""
+    import torch.distributed as dist
+
+    from diffusionmodel_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_world_size_one_nccl_step_and_sampler(dev, nccl_mesh):
+    """``chip_smoke.py``'s ``parallel`` phase at a narrow width: a ZeRO-1
+    train step through ``make_train_step(mesh=)`` over a one-rank NCCL
+    group against the step without a mesh (the loss bit for bit, the
+    weights within cuDNN's weight-gradient noise, as in
+    ``test_train_step_uses_the_twins_with_use_pallas``), then
+    ``make_sampler(mesh=)`` (DDIM-4, 4 slots) bit-identical to the plain
+    sampler, launching SE and CoordAttn 5 and 4 times a forward."""
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from diffusionmodel_tpu_torch.trainer import make_sampler
+
+    assert nccl_mesh.distributed and nccl_mesh.shape["data"] == 1
+    results = []
+    for mesh in (None, nccl_mesh):
+        cfg, model, batch = _flagship_small(True, dev, **{
+            "train.zero1": True, "sample.sampler": "ddim",
+            "sample.ddim_steps": 4})
+        dc = cfg.diffusion
+        sched = Schedule.create(dc.beta1, dc.beta2, dc.n_T, dev)
+        state, opt = create_train_state(model, cfg, 1, mesh=mesh)
+        step = make_train_step(model, sched, cfg, opt, mesh=mesh)
+        loss = step(state, batch, torch.Generator(device=dev).manual_seed(1))
+        results.append((loss.item(), torch.cat(
+            [p.detach().flatten() for p in model.parameters()])))
+    (l1, p1), (l2, p2) = results
+    assert l1 == l2
+    lr = cfg.train.lr
+    off = (p1 - p2).abs()
+    assert (off > 1e-3 * lr).float().mean().item() <= 1e-3
+    assert off.max().item() <= 2 * lr
+
+    classes = torch.arange(4, device=dev) % cfg.model.n_classes
+    want = make_sampler(cfg, sched, 4, classes=classes)(
+        model, torch.Generator(device=dev).manual_seed(3), 2.0)
+    n = (se_block.launches, coord_attn.launches)
+    got = make_sampler(cfg, sched, 4, classes=classes, mesh=nccl_mesh)(
+        model, torch.Generator(device=dev).manual_seed(3), 2.0)
+    torch.cuda.synchronize()
+    assert (se_block.launches - n[0], coord_attn.launches - n[1]) == (20, 16)
+    assert torch.equal(got, want)
+
+
 # ------------------------------------------------ metrics and fp32 paths
 def test_inception_features_on_the_card_match_the_cpu(dev):
     """The proxy extractor's features of the same four 256 px images on
