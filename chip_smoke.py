@@ -184,10 +184,15 @@ train_bf16 (last)  ``trainer.fit`` with the README's training settings
             epoch's time less two steady steps).
 parallel (after train_bf16)  the data-parallel path (``parallel``) at
             world size 1 over NCCL in this process, on the flagship as
-            train_bf16 runs it: two ZeRO-1 train steps through
-            ``make_train_step(mesh=)`` against the same two without a
-            mesh (loss and largest parameter difference within twice the
-            plain steps' own repeat difference), then
+            train_bf16 runs it: two train steps through
+            ``make_train_step(mesh=)`` with ``train.zero1`` against the
+            same two without a mesh (loss and largest parameter
+            difference within twice the plain steps' own repeat
+            difference). At one data rank ZeRO-1 partitions no leaf
+            (``zero1_partitioned_leaves`` 0): the step's collectives are
+            the flat ``all_reduce`` alone, so ``reduce_scatter_tensor``
+            and ``all_gather_into_tensor`` are run once on their own, as
+            a round trip that must return its input. Then
             ``make_sampler(mesh=)`` at DDIM-10 on 8 slots bit-identical to
             the plain sampler, with its SE and CoordAttn launches (the
             bf16 entries' ``parallel_launches``); the NCCL version and the
@@ -2367,7 +2372,10 @@ def phase_parallel(counters, out_dir, dataset) -> list:
     full width as the README trains it (bf16, fused head,
     ``use_pallas``): two train steps of ``fit``'s micro-batch shape (4 x 4
     at 256 px) through ``make_train_step(mesh=)`` with ``train.zero1``
-    against the same two steps without a mesh, from one copy of the
+    (which partitions no leaf at one data rank, so the step's one
+    collective is the flat ``all_reduce``; ``reduce_scatter`` and
+    ``all_gather`` run in the CPU tests' gloo groups) against the same two
+    steps without a mesh, from one copy of the
     weights and one set of draws; the plain steps run twice first, and
     their difference is the noise floor that the mesh steps' loss and
     largest parameter difference must stay within twice of (cuDNN's
@@ -2418,10 +2426,16 @@ def phase_parallel(counters, out_dir, dataset) -> list:
                              num_workers=0, mesh=mesh)
         batches = list(loader)[:2]
 
+        partitioned = []
+
         def two_steps(on_mesh):
             model.load_state_dict(start)
             m = mesh if on_mesh else None
             state, opt = create_train_state(model, cfg, 2, mesh=m)
+            if on_mesh:  # ZeRO-1 partitions nothing at one data rank
+                partitioned.append(sum(
+                    not sh.is_replicated
+                    for sh in state.opt_state.shardings or ()))
             step = make_train_step(model, sched, cfg, opt, mesh=m)
             gen = torch.Generator(device=dev).manual_seed(5)
             losses, secs = [], []
@@ -2461,6 +2475,14 @@ def phase_parallel(counters, out_dir, dataset) -> list:
             torch.cuda.synchronize()
             sample_s = time.perf_counter() - t0
             launches = _counts(counters)
+            # ZeRO-1's two other collectives, by the names train.py calls,
+            # on this PyTorch over NCCL (identities at one rank)
+            probe = torch.randn(1 << 20, device=dev)
+            scattered, gathered = torch.empty_like(probe), \
+                torch.empty_like(probe)
+            dist.reduce_scatter_tensor(scattered, probe)
+            dist.all_gather_into_tensor(gathered, scattered)
+            collectives_ok = torch.equal(gathered, probe)
         nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
         world = dist.get_world_size()
     finally:
@@ -2468,6 +2490,8 @@ def phase_parallel(counters, out_dir, dataset) -> list:
     same = torch.equal(got, want)
     emit("parallel", backend="nccl", nccl=nccl, world_size=world,
          mesh=mesh.shape, dtype=cfg.model.dtype, zero1=tc.zero1,
+         zero1_partitioned_leaves=partitioned[0],
+         reduce_scatter_all_gather_identity=collectives_ok,
          batch=[tc.accum_steps, tc.batch_size], steps=len(batches),
          plain_losses=plain, plain_repeat_losses=again, mesh_losses=meshed,
          floor_loss=floor_loss, floor_param_max_abs=floor_param,
@@ -2483,6 +2507,8 @@ def phase_parallel(counters, out_dir, dataset) -> list:
           f"mesh step off the plain one: loss {mesh_loss} (floor "
           f"{floor_loss}), params {mesh_param} (floor {floor_param})")
     check(same, "the mesh sampler's images differ from the plain one's")
+    check(collectives_ok, "reduce_scatter_tensor / all_gather_into_tensor "
+          "over one NCCL rank changed the tensor")
     check(launches == [SE_PER_FORWARD * PARALLEL_DDIM,
                        CA_PER_FORWARD * PARALLEL_DDIM],
           f"mesh sampler launches {launches}")

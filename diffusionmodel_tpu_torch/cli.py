@@ -312,11 +312,11 @@ def _train_or_generate(args) -> int:
 
 
 def _run_train_or_generate(args) -> int:
-    from diffusionmodel_tpu_torch.trainer import train_mesh
+    from diffusionmodel_tpu_torch.trainer import check_train_mesh
 
     cfg = _config(args)
     try:
-        train_mesh(cfg.train)
+        check_train_mesh(cfg.train)
     except (NotImplementedError, ValueError) as e:
         print(e)
         return 1

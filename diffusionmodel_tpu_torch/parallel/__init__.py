@@ -9,9 +9,9 @@ from diffusionmodel_tpu_torch.parallel.mesh import (  # noqa: F401
     batch_sharding,
     broadcast_object,
     check_supported,
-    image_sharding,
     init_from_env,
     make_mesh,
+    mesh_shape,
     opt_state_shardings,
     param_shardings,
     replicated,

@@ -11,9 +11,10 @@ which contiguous block of a tensor axis this process holds:
   list. Without a process group it is the trivial 1x1x1 mesh.
 - :class:`Sharding` maps tensor dims to mesh axes: ``local`` takes this
   process's block, ``gather`` concatenates every block back in rank order
-  (``all_gather_into_tensor``). :func:`replicated`,
-  :func:`batch_sharding` and :func:`image_sharding` are the JAX
-  package's three layouts.
+  (``all_gather_into_tensor``). :func:`replicated` and
+  :func:`batch_sharding` are two of the JAX package's three layouts;
+  its ``image_sharding`` (batch and H) comes with the spatial forward
+  (ROADMAP A12b).
 - :func:`opt_state_shardings` is JAX's ZeRO-1 rule: a moment of at least
   ``min_size`` elements is partitioned over 'data' along its largest dim
   that the data size divides; every other leaf is replicated. The rule
@@ -42,13 +43,6 @@ import torch.nn as nn
 from diffusionmodel_tpu_torch.compat.flax_bridge import flax_axes
 
 AXES = ("data", "model", "spatial")
-
-# PyTorch's newer names where it has them (the older ones warn there; the
-# card's PyTorch 2.11 has only the older)
-all_gather_single = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
 
 
 class Mesh:
@@ -84,11 +78,13 @@ class Mesh:
                 f"{'distributed' if self.distributed else 'one process'})")
 
 
-def make_mesh(data: int = -1, model: int = 1, spatial: int = 1) -> Mesh:
-    """The mesh over every process of the default group; ``data=-1``
-    takes what ``model * spatial`` leaves. Without a process group, the
-    trivial mesh (anything larger is an error: no mesh runs on one
-    process silently). The mesh must hold every process."""
+def mesh_shape(data: int = -1, model: int = 1, spatial: int = 1
+               ) -> Dict[str, int]:
+    """The axis sizes of :func:`make_mesh`, checked against the default
+    group without building anything; ``data=-1`` takes what ``model *
+    spatial`` leaves. Without a process group only the trivial shape
+    passes (no mesh runs on one process silently); with one, the mesh
+    must hold every process."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if data == -1:
         if world % (model * spatial):
@@ -107,12 +103,19 @@ def make_mesh(data: int = -1, model: int = 1, spatial: int = 1) -> Mesh:
     if n < world:
         raise ValueError(f"mesh {data}x{model}x{spatial} leaves "
                          f"{world - n} of {world} processes out")
+    return shape
+
+
+def make_mesh(data: int = -1, model: int = 1, spatial: int = 1) -> Mesh:
+    """The mesh of :func:`mesh_shape` over every process of the default
+    group; without a process group, the trivial mesh."""
+    shape = mesh_shape(data, model, spatial)
     if not dist.is_initialized():
         return Mesh(shape)
     from torch.distributed.device_mesh import init_device_mesh
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return Mesh(shape, init_device_mesh(device_type, (data, model, spatial),
+    return Mesh(shape, init_device_mesh(device_type, tuple(shape.values()),
                                         mesh_dim_names=AXES))
 
 
@@ -172,7 +175,8 @@ class Sharding:
             moved = x.movedim(dim, 0).contiguous()
             out = torch.empty((n * moved.shape[0], *moved.shape[1:]),
                               dtype=x.dtype, device=x.device)
-            all_gather_single(out, moved, group=self.mesh.group(axis))
+            dist.all_gather_into_tensor(out, moved,
+                                        group=self.mesh.group(axis))
             x = out.movedim(0, dim)
         return x
 
@@ -186,16 +190,6 @@ def batch_sharding(mesh: Mesh, ndim: int, batch_axis: int = 0) -> Sharding:
     if not 0 <= batch_axis < ndim:
         raise ValueError(f"batch_axis {batch_axis} of a {ndim}-dim tensor")
     return Sharding(mesh, ((batch_axis, "data"),))
-
-
-def image_sharding(mesh: Mesh, ndim: int = 4, batch_axis: int = 0,
-                   h_axis: int = 1) -> Sharding:
-    """An NHWC batch over 'data' (batch) and 'spatial' (H): each process
-    holds an H-slab of its samples (the layout of ``parallel.spatial``)."""
-    if not (0 <= batch_axis < ndim and 0 <= h_axis < ndim):
-        raise ValueError(f"axes {batch_axis}, {h_axis} of a {ndim}-dim "
-                         "tensor")
-    return Sharding(mesh, ((batch_axis, "data"), (h_axis, "spatial")))
 
 
 def partition_dim(flax_shape, n_data: int, min_size: int) -> Optional[int]:

@@ -2,7 +2,8 @@
 ``diffusionmodel_tpu/parallel/spatial.py``).
 
 Each process holds an H-slab [B, h, W, C] of an NHWC batch (equal slabs,
-in rank order along ``axis_name``: ``parallel.image_sharding``'s layout)
+in rank order along ``axis_name``, as the JAX package's ``image_sharding``
+lays an NHWC batch out)
 and the global statistics SE and CoordAttn need come from one
 ``all_reduce`` of the slabs' partial sums:
 

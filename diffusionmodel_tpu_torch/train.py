@@ -63,12 +63,10 @@ from diffusionmodel_tpu_torch.nn.blocks import global_batch_stats
 from diffusionmodel_tpu_torch.parallel.mesh import (
     Mesh,
     Sharding,
-    all_gather_single,
     all_reduce_mean_,
     batch_sharding,
     check_supported,
     opt_state_shardings,
-    reduce_scatter_single,
 )
 
 _F32 = torch.float32
@@ -457,7 +455,7 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
                           for i in part], dim=1)
         blocks = torch.empty(rows.shape[1], dtype=rows.dtype,
                              device=rows.device)
-        reduce_scatter_single(blocks, rows.reshape(-1), group=group)
+        dist.reduce_scatter_tensor(blocks, rows.reshape(-1), group=group)
         del rows
         blocks.div_(n)
         sizes = [params[i].numel() // n for i in part]
@@ -480,7 +478,7 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
                           for i in part])
         every = torch.empty(n * mine.numel(), dtype=mine.dtype,
                             device=mine.device)
-        all_gather_single(every, mine, group=group)
+        dist.all_gather_into_tensor(every, mine, group=group)
         cols = every.view(n, -1).split(sizes, dim=1)
         for i, col in zip(part, cols):
             moved = params[i].movedim(dims[i], 0).shape

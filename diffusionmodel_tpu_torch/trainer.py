@@ -79,6 +79,7 @@ from diffusionmodel_tpu_torch.parallel import (
     broadcast_object,
     check_supported,
     make_mesh,
+    mesh_shape,
 )
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
@@ -263,15 +264,16 @@ def _load_params(model, params, batch_stats=None) -> None:
     load_flax(model, params, batch_stats)
 
 
-def train_mesh(tc) -> Mesh:
-    """The mesh of ``train.mesh_data`` / ``mesh_model`` / ``mesh_spatial``
-    over the process group. Raises NotImplementedError for the axes not
-    ported (``mesh_model > 1``: ROADMAP A12c; ``mesh_spatial > 1``:
-    A12b) and ValueError for a mesh the group cannot hold (``mesh_data >
-    1`` with no group included): no mesh runs on one process silently."""
+def check_train_mesh(tc) -> None:
+    """Whether ``fit`` can run the mesh of ``train.mesh_data`` /
+    ``mesh_model`` / ``mesh_spatial`` over the process group. Raises
+    NotImplementedError for the axes not ported (``mesh_model > 1``:
+    ROADMAP A12c; ``mesh_spatial > 1``: A12b) and ValueError for a mesh
+    the group cannot hold (``mesh_data > 1`` with no group included): no
+    mesh runs on one process silently."""
     check_supported(Mesh({"data": tc.mesh_data, "model": tc.mesh_model,
                           "spatial": tc.mesh_spatial}))
-    return make_mesh(tc.mesh_data, tc.mesh_model, tc.mesh_spatial)
+    mesh_shape(tc.mesh_data, tc.mesh_model, tc.mesh_spatial)
 
 
 def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
@@ -285,7 +287,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     Under a process group every process calls it (module docstring)."""
     dev = resolve_device(device)
     tc, mc, dc = cfg.train, cfg.model, cfg.diffusion
-    mesh = train_mesh(tc)
+    check_train_mesh(tc)
+    mesh = make_mesh(tc.mesh_data, tc.mesh_model, tc.mesh_spatial)
     main = mesh.is_main
     verbose = verbose and main
     if tc.debug_nans:
@@ -490,8 +493,9 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                 for batch in val_loader:
                     vb = {k: v[0] for k, v in batch.items()}
                     vlosses.append(eval_fn(state, vb, generator))
-                val_loss = broadcast_object(mesh, float(np.mean(
-                    [float(v) for v in vlosses])) if vlosses else float("nan"))
+                # each batch's loss is already the mean over ranks
+                val_loss = float(np.mean([float(v) for v in vlosses])) \
+                    if vlosses else float("nan")
                 metrics_log["val_loss"].append(val_loss)
                 # the scheduled LR of this epoch, not the base lr — the
                 # reference logs the scheduler's current value

@@ -6,12 +6,9 @@ JAX runs here on its 8 virtual CPU devices. The port's ranks are spawned
 gloo processes (``tests/torch_parallel_ranks.py``, which imports no JAX),
 in three groups: 4 ranks for the spatial helpers and the train step, 2
 for BatchNorm and the samplers, 2 for ``fit``. All three run while this
-process's JAX side traces and compiles JAX's mesh step in a process of
-its own (30-70 s, the file's largest cost; so JAX's step runs in its
-ZeRO-1 layout only, the one that
-shards both the batch and the moments: the JAX package's
-``test_zero1_opt_state_sharding_matches_replicated`` holds it to the
-replicated layout). The port's one-process references run
+process's JAX side traces JAX's mesh step once and compiles it for the
+replicated and the ZeRO-1 layout, in a process of its own (about 30 s,
+the file's largest cost). The port's one-process references run
 single-threaded, as the ranks do: with 8 threads PyTorch's CPU backward
 of the tiny net lands 8e-4 (relative L2) from the same gradient summed
 per sample at one thread, which would hide what is compared here
@@ -32,18 +29,20 @@ import jax
 import jax.numpy as jnp
 
 import torch_parallel_ranks as ranks
-from diffusionmodel_tpu.config import preset as jpreset
-from diffusionmodel_tpu.diffusion import Schedule as JSchedule
-from diffusionmodel_tpu.nn import build_model as jbuild_model
-from diffusionmodel_tpu.parallel import batch_sharding as jbatch_sharding
 from diffusionmodel_tpu.parallel import make_mesh as jmake_mesh
 from diffusionmodel_tpu.parallel import opt_state_shardings as jopt_shardings
 from diffusionmodel_tpu.parallel import param_shardings as jparam_shardings
-from diffusionmodel_tpu.parallel import replicated as jreplicated
-from diffusionmodel_tpu.parallel import spatial as jspatial
-from diffusionmodel_tpu.train import TrainState as JTrainState
-from diffusionmodel_tpu.train import build_optimizer as jbuild_optimizer
-from diffusionmodel_tpu.train import make_train_step as jmake_train_step
+from jax_parallel_side import (
+    A,
+    B,
+    LR,
+    RANKS,
+    STEP_OVER,
+    STEP_SEEDS,
+    TINY,
+    spatial_input,
+    wire_batch,
+)
 from diffusionmodel_tpu_torch.compat.flax_bridge import flax_from_state_dict
 from diffusionmodel_tpu_torch.config import preset
 from diffusionmodel_tpu_torch.nn import build_model
@@ -53,11 +52,6 @@ from diffusionmodel_tpu_torch.parallel import (
     param_shardings,
 )
 
-TINY = {"model.n_feat": 16, "model.img_size": 32, "model.n_classes": 3}
-A, B, RANKS = 2, 4, 4  # micro-batches, global micro-batch, train ranks
-LR = 1e-4
-STEP_OVER = {"train.accum_steps": A, "train.batch_size": B,
-             "train.ema_decay": 0.99, "train.lr": LR, "train.remat": False}
 # BatchNorm and the samplers, 2 ranks
 BN_CFG = preset("full", **TINY, **{"model.norm": "batch"})
 SAMPLE_TINY = {**TINY, "diffusion.n_T": 12, "sample.ddim_steps": 4,
@@ -114,50 +108,28 @@ def _bn_inputs():
 def _train_inputs():
     """The train-step test's inputs: configs, the tiny net (its initial
     weights as a torch state dict and as flax trees), two wire batches,
-    the JAX step's keys and their draws, and the spatial helpers' input."""
+    the JAX step's draws, and the spatial helpers' input."""
     cfg = preset("full", **TINY, **STEP_OVER)
     model = ranks.tiny_model(cfg)
-    keys = [jax.random.PRNGKey(40), jax.random.PRNGKey(41)]
-    x = jax.random.normal(jax.random.PRNGKey(0), (2, 32, 16, 8))
-    w1 = jax.random.normal(jax.random.PRNGKey(1), (8, 4)) * 0.1
-    w2 = jax.random.normal(jax.random.PRNGKey(2), (4, 8)) * 0.1
     return {"cfgs": {"rep": cfg, "zero1": cfg.replace(
                 train=dataclasses.replace(cfg.train, zero1=True))},
             "model": model,
             "before": {n: p.detach().clone()
                        for n, p in model.named_parameters()},
             "params": flax_from_state_dict(model.state_dict())[0],
-            "batches": [_wire_batch(0), _wire_batch(1)], "keys": keys,
-            "draws": [_step_draws(k, cfg.diffusion) for k in keys],
-            "spatial": (x, w1, w2)}
-
-
-def _jax_side(out_path):
-    """JAX's spatial helpers and mesh step on :func:`_train_inputs`,
-    pickled to ``out_path``. Run in a process of its own (``python -c``,
-    through ``conftest`` for the 8 CPU devices) beside everything else:
-    tracing and compiling the step is the file's largest cost, and it
-    holds the interpreter lock."""
-    inputs = _train_inputs()
-    x, w1, w2 = inputs["spatial"]
-    jmesh = jmake_mesh(data=RANKS, model=1)
-    result = {
-        "spatial": {
-            "mean": np.asarray(jspatial.sharded_global_mean(jmesh, x)),
-            "se": np.asarray(jspatial.sharded_se_block(jmesh, x, w1, w2)),
-            "pools": tuple(np.asarray(a) for a in
-                           jspatial.sharded_directional_pools(jmesh, x))},
-        "step": _jax_mesh_steps(inputs["params"], inputs["batches"],
-                                inputs["keys"])}
-    with open(out_path, "wb") as f:
-        pickle.dump(result, f)
+            "batches": [wire_batch(0), wire_batch(1)],
+            "draws": [_step_draws(jax.random.PRNGKey(s), cfg.diffusion)
+                      for s in STEP_SEEDS],
+            "spatial": tuple(np.asarray(a) for a in spatial_input())}
 
 
 def _start_jax_side(base):
+    """``jax_parallel_side`` in a process of its own (through ``conftest``
+    for the 8 CPU devices): the file's longest path, so it starts first
+    and holds no interpreter lock of this process."""
     tests = os.path.dirname(os.path.abspath(__file__))
     code = (f"import sys; sys.path[:0] = [{tests!r}]; import conftest; "
-            "import test_torch_parallel as t; "
-            f"t._jax_side({str(base / 'jax_side.pkl')!r})")
+            f"import jax_parallel_side as j; j.main({str(base)!r})")
     return subprocess.Popen([sys.executable, "-c", code], cwd=tests,
                             stdout=subprocess.DEVNULL,
                             stderr=open(base / "jax_side.log", "wb"))
@@ -174,12 +146,13 @@ def started(tmp_path_factory):
     base = tmp_path_factory.mktemp("parallel")
     jax_proc = _start_jax_side(base)
     inputs = _train_inputs()
-    x, w1, w2 = inputs["spatial"]
+    with open(base / "jax_in.tmp", "wb") as f:
+        pickle.dump(inputs["params"], f)
+    os.replace(base / "jax_in.tmp", base / "jax_in.pkl")
     started = {
         "train": (ranks.spawn(
-            ranks.train_step_ranks, RANKS, base,
-            tuple(np.asarray(a) for a in (x, w1, w2)), inputs["cfgs"],
-            inputs["batches"], inputs["draws"]), RANKS),
+            ranks.train_step_ranks, RANKS, base, inputs["spatial"],
+            inputs["cfgs"], inputs["batches"], inputs["draws"]), RANKS),
         "bn_sampler": (ranks.spawn(ranks.bn_sampler_ranks, 2, base, BN_CFG,
                                    _bn_inputs(), SAMPLER_RUNS), 2)}
     with one_thread():
@@ -303,13 +276,6 @@ def test_unported_axes_and_meshes_are_refused(tmp_path):
 
 
 # ------------------------------------- spatial helpers and the train step
-def _wire_batch(seed):
-    rng = np.random.RandomState(seed)
-    return {"x": rng.randint(0, 256, (A, B, 32, 32, 3)).astype(np.uint8),
-            "c": rng.randint(0, 3, (A, B)).astype(np.int32),
-            "mask": rng.randint(0, 3, (A, B, 32, 32)).astype(np.uint8)}
-
-
 def _step_draws(key, dc):
     """The draws the JAX train step takes from its key for the global
     batch, per micro-batch (as ``tests/test_torch_trainer.py``)."""
@@ -325,37 +291,6 @@ def _step_draws(key, dc):
             ctx_mask=np.array(jax.random.bernoulli(
                 mkey, 1.0 - dc.drop_prob, (B,)).astype(jnp.float32))))
     return out
-
-
-def _jax_mesh_steps(params, batches, keys):
-    """JAX's train step on ``make_mesh(data=4)``, laid out as ``fit``
-    lays it out with ``train.zero1``: the losses and params."""
-    jcfg = jpreset("full", **TINY, **STEP_OVER)
-    dc = jcfg.diffusion
-    tx = jbuild_optimizer(jcfg, 1)
-    jp = jax.tree.map(jnp.asarray, params)
-    state = JTrainState(step=jnp.zeros((), jnp.int32), params=jp,
-                        batch_stats={}, opt_state=tx.init(jp),
-                        ema_params=jax.tree.map(jnp.array, jp))
-    step = jmake_train_step(jbuild_model(jcfg.model, dc.high_thresh),
-                            JSchedule.create(dc.beta1, dc.beta2, dc.n_T),
-                            jcfg, tx, has_bn=False)
-    mesh = jmake_mesh(data=RANKS, model=1)
-    rep = jreplicated(mesh)
-    shard = state.replace(step=rep, params=jax.tree.map(lambda _: rep, jp),
-                          opt_state=jopt_shardings(mesh, state.opt_state),
-                          ema_params=jax.tree.map(lambda _: rep, jp))
-    bshard = {"x": jbatch_sharding(mesh, 5, 1),
-              "c": jbatch_sharding(mesh, 2, 1),
-              "mask": jbatch_sharding(mesh, 4, 1)}
-    jstep = jax.jit(step, in_shardings=(shard, bshard, rep),
-                    out_shardings=(shard, rep))
-    losses = []
-    with mesh:
-        for b, k in zip(batches, keys):
-            state, loss = jstep(state, jax.tree.map(jnp.asarray, b), k)
-            losses.append(float(loss))
-    return losses, jax.tree.map(np.asarray, state.params)
 
 
 def _assert_param_parity(got, want, before):
@@ -374,7 +309,7 @@ def test_spatial_helpers_and_train_step_over_four_ranks(started):
       input against JAX's helpers (rtol 1e-5, atol 1e-6);
     - two train steps (A = 2 micro-batches of 4, one sample per rank),
       replicated and ZeRO-1, from the same weights and JAX's draws:
-      against JAX's mesh step in its ZeRO-1 layout (loss within 1e-5
+      each against JAX's mesh step in the same layout (loss within 1e-5
       relative, parameters by the parity distribution), against the
       port's one-process step (loss within 1e-6 relative, parameters
       within 1e-2 of the update's norm), ZeRO-1 against replicated after
@@ -390,7 +325,6 @@ def test_spatial_helpers_and_train_step_over_four_ranks(started):
     got = get("train")
     jx = get("jax")
     want_spatial = jx["spatial"]
-    jlosses, jparams = jx["step"]
     assert not any(r["jax_imported"] for r in got)
 
     tol = dict(rtol=1e-5, atol=1e-6)
@@ -417,6 +351,7 @@ def test_spatial_helpers_and_train_step_over_four_ranks(started):
             assert all(torch.equal(theirs["params"][n], p)
                        for n, p in mine["params"].items()), name
         flat = _port_flat(mine["params"])
+        jlosses, jparams = jx["step"][name]
         np.testing.assert_allclose(mine["losses"], jlosses, rtol=1e-5,
                                    err_msg=name)
         _assert_param_parity(flat, _flat(jparams), before)
