@@ -195,15 +195,48 @@ parallel (after train_bf16)  the data-parallel path (``parallel``) at
             a round trip that must return its input. Then
             ``make_sampler(mesh=)`` at DDIM-10 on 8 slots bit-identical to
             the plain sampler, with its SE and CoordAttn launches (the
-            bf16 entries' ``parallel_launches``); the NCCL version and the
-            world size. No second card exists here: agreement across
-            ranks is the CPU tests' (gloo).
+            bf16 entries' ``parallel_launches``); then
+            ``SamplerService(mesh=)`` against the service without a mesh
+            (DDIM-10, max_batch 4): a pinned request alone and batched
+            behind another, bit-identical in both and across them; the
+            NCCL version and the world size. No second card exists here:
+            agreement across ranks is the CPU tests' (gloo) and the
+            spatial phase's.
+spatial_kernels (after kernels_bf16)  the slab forms of SE and CoordAttn
+            (the spatially sharded forward's kernels, ROADMAP A12b) at
+            every flagship site, fp32 and bf16, split into 2 and 4
+            H-slabs: each slab's statistics pooled, combined in process as
+            the collective would (SE's sums added; CoordAttn's row means
+            stacked and column sums added, one bottleneck on the whole
+            map), each slab gated and scaled; against the twin and the
+            whole-map kernel (fp32 max |diff| <= 1e-4, bf16 as
+            kernels_bf16), the ms of one process's share (its slab, back
+            to back), its twin's, the whole-map kernel's and the share's
+            bytes bound.
+spatial (after parallel)  first a probe: two processes on the one card
+            over gloo each ``all_reduce`` and ``broadcast`` a CUDA
+            tensor (in the ranks below, before their work) (NCCL refuses two ranks on one device; the phase
+            stops there, saying so, where gloo refuses CUDA tensors).
+            Then two processes (data 1 x spatial 2) drive the spatial
+            main path at full width (``use_pallas``, cuDNN's heuristics:
+            no per-process search): ``make_sampler(mesh=)`` with DDIM-2
+            on 2 slots in fp32 and in bf16, and one fp32 train step (1 x
+            2 at 256 px, no remat: the CPU tests run fit's remat on
+            slabs) through ``make_train_step(mesh=)``, each process on
+            H-slabs; then the same calls in this process. The ranks must agree bit for bit,
+            the fp32 images lie within relative L2 1e-3 of one process's,
+            the loss within 1e-4 relative, the parameters within 1% of
+            the update's norm (over 2^20 sampled elements), and each
+            forward launches 5 slab SE and 4 slab CoordAttn kernels and no
+            whole-map one (the slab entries' ``launches``). It proves
+            correctness only: two processes on one card say nothing of
+            speed.
 
 The flagship's editing, ``.pt`` checkpoints, the side families and CLIP:
 
 edit (after eval)  ``sample.edit_samples`` on the trained fp32 checkpoint
             at full width: img2img and inpaint of a 256 px crack image
-            written as PNG (strength 0.75 of DDIM-50: 38 forwards, guide
+            written as PNG (strength 0.75 of DDIM-20: 15 forwards, guide
             2.0, batch 2, the start noise pinned): finite [2, 256, 256, 3]
             images, 5 SE and 4 CoordAttn launches per forward (counts
             zeroed just before each edit), the inpaint's kept half equal to
@@ -2483,6 +2516,12 @@ def phase_parallel(counters, out_dir, dataset) -> list:
             dist.reduce_scatter_tensor(scattered, probe)
             dist.all_gather_into_tensor(gathered, scattered)
             collectives_ok = torch.equal(gathered, probe)
+        # the service's fan-out (broadcast of each batch, at one rank the
+        # whole batch in this process) against the service without a mesh
+        t0 = time.perf_counter()
+        plain_svc = _pinned_service(model, cfg, sched, None)
+        mesh_svc = _pinned_service(model, cfg, sched, mesh)
+        service_s = time.perf_counter() - t0
         nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
         world = dist.get_world_size()
     finally:
@@ -2500,7 +2539,15 @@ def phase_parallel(counters, out_dir, dataset) -> list:
          sampler=f"ddim-{PARALLEL_DDIM}", slots=PARALLEL_SLOTS,
          sampler_bit_identical=same, sample_s=sample_s,
          se_launches=launches[0], ca_launches=launches[1],
-         finite=bool(torch.isfinite(got).all()))
+         finite=bool(torch.isfinite(got).all()),
+         service_pinned_alone_batched_equal=[
+             bool(np.array_equal(*plain_svc)), bool(np.array_equal(
+                 *mesh_svc))],
+         service_mesh_equals_plain=bool(np.array_equal(plain_svc[0],
+                                                       mesh_svc[0])),
+         service_mesh_vs_plain_max_abs=float(np.abs(
+             plain_svc[0] - mesh_svc[0]).max()),
+         service_s=service_s)
     check(len(batches) == 2, f"{len(batches)} batches")
     check(all(np.isfinite(plain + again + meshed)), "finite losses")
     check(mesh_loss <= 2 * floor_loss and mesh_param <= 2 * floor_param,
@@ -2509,6 +2556,10 @@ def phase_parallel(counters, out_dir, dataset) -> list:
     check(same, "the mesh sampler's images differ from the plain one's")
     check(collectives_ok, "reduce_scatter_tensor / all_gather_into_tensor "
           "over one NCCL rank changed the tensor")
+    check(np.array_equal(*plain_svc) and np.array_equal(*mesh_svc)
+          and np.array_equal(plain_svc[0], mesh_svc[0]),
+          "SamplerService(mesh=): a pinned request's images differ alone, "
+          "batched or from the service without a mesh")
     check(launches == [SE_PER_FORWARD * PARALLEL_DDIM,
                        CA_PER_FORWARD * PARALLEL_DDIM],
           f"mesh sampler launches {launches}")
@@ -2517,11 +2568,523 @@ def phase_parallel(counters, out_dir, dataset) -> list:
     return launches
 
 
-EDIT_STEPS, EDIT_STRENGTH, EDIT_GUIDE, EDIT_BATCH = 50, 0.75, 2.0, 2
+# The spatially sharded forward (ROADMAP A12b): the slab forms of the SE
+# and CoordAttn kernels in one process at every flagship site, split into
+# SPATIAL_SHARDS slabs (the constrain rule keeps each of these sites
+# sharded: at 2 and 4 slabs every slab holds >= 4 rows, and the port's
+# forward runs each of these sites on slabs); then SPATIAL_RANKS processes
+# on the one card over gloo (the card has one GPU and NCCL refuses two
+# ranks on one device; gloo runs all_reduce and broadcast on CUDA
+# tensors), which prove correctness only: two processes sharing a card
+# say nothing about speed.
+SPATIAL_SHARDS = (2, 4)
+SPATIAL_RANKS = 2
+SPATIAL_SLOTS, SPATIAL_DDIM, SPATIAL_BF16_DDIM = 2, 2, 2
+# micro-batches x samples of the one step, without remat (fit's remat
+# runs on slabs in the CPU tests): the time limit
+SPATIAL_TRAIN_BATCH = (1, 2)
+# ranks against one process, fp32 (cuDNN's heuristics in both: no
+# search per process): the sampler's images by relative L2, the step's
+# loss relative, its parameters within a share of the update's norm
+SPATIAL_IMG_RTOL, SPATIAL_LOSS_RTOL, SPATIAL_PARAM_SHARE = 1e-3, 1e-4, 1e-2
+SPATIAL_PARAM_SAMPLES = 1 << 20  # parameter elements compared, fixed seed
+SPATIAL_RANK_TIMEOUT_S = 900
+# each rank's share of the card's memory: two ranks and, after them, this
+# process's reference share one card (cuDNN's heuristics take large
+# workspaces for some fp32 shapes)
+SPATIAL_RANK_MEMORY = 0.45
+
+
+def _slabs(x, shards: int) -> list:
+    return [t.contiguous() for t in x.split(x.shape[1] // shards, dim=1)]
+
+
+def _slab_errors(y, want, whole) -> dict:
+    y, want, whole = y.float(), want.float(), whole.float()
+    return dict(max_abs_err=(y - want).abs().max().item(),
+                max_abs_err_whole=(y - whole).abs().max().item(),
+                max_abs_out=want.abs().max().item(),
+                rel_l2=((y - want).norm() / want.norm()).item(),
+                rel_l2_whole=((y - whole).norm() / whole.norm()).item())
+
+
+def _check_slab_row(name: str, row: dict) -> None:
+    if row["dtype"] == "float32":
+        check(max(row["max_abs_err"], row["max_abs_err_whole"])
+              <= KERNEL_ATOL, f"{name} {row['shape']} in {row['shards']} "
+              f"slabs: |diff| {row['max_abs_err']} (twin), "
+              f"{row['max_abs_err_whole']} (whole-map kernel)")
+    else:
+        for key in ("", "_whole"):
+            _check_bf16_row(f"{name}{key}", dict(
+                row, rel_l2=row["rel_l2" + key],
+                max_abs_err=row["max_abs_err" + key]))
+
+
+def se_slab_rows(dtype) -> list:
+    """The SE slab form at every flagship SE site, in SPATIAL_SHARDS slabs:
+    the slabs' sums added in process (as the all_reduce adds them), each
+    slab gated and scaled, against the twin and the whole-map kernel;
+    the ms of one process's share (its slab's pooling and gate-and-scale
+    launches, back to back), its twin's, the whole-map kernel's, and the
+    bytes bound of that share."""
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        _gate_and_scale,
+        se_block,
+        se_block_plain,
+        se_slab_apply,
+        se_slab_pool,
+    )
+
+    rows = []
+    for i, (h, c) in enumerate(SE_SITES):
+        x = _site_x(BATCH, h, c, i).to(dtype)
+        w1, w2 = se_site_weights(i, c)
+        r = w1.shape[1]
+        whole, want = se_block(x, w1, w2), se_block_plain(x, w1, w2)
+        whole_ms = cuda_ms(lambda: se_block(x, w1, w2), 10)
+        for shards in SPATIAL_SHARDS:
+            slabs = _slabs(x, shards)
+            sums = se_slab_pool(slabs[0])
+            for t in slabs[1:]:
+                sums = sums + se_slab_pool(t)
+            y = torch.cat([se_slab_apply(t, sums, w1, w2, h * h)
+                           for t in slabs], dim=1)
+            row = dict(kernel="se_block_slab", shape=list(x.shape),
+                       dtype=str(x.dtype).split(".")[-1], shards=shards,
+                       slab_rows=h // shards, **_slab_errors(y, want, whole))
+            del y
+            t0 = slabs[0]
+
+            def share():
+                return se_slab_apply(t0, se_slab_pool(t0), w1, w2, h * h)
+
+            def plain_share():
+                return _gate_and_scale(t0, t0.float().sum(dim=(1, 2))
+                                       / (h * h), w1, w2)
+
+            b_ms, b_by = bound(2 * t0.numel() * t0.element_size()
+                               + 2 * c * r * 4, 3 * t0.numel()
+                               + 4 * BATCH * c * r)
+            row.update(ms=cuda_ms(share, 10), plain_ms=cuda_ms(plain_share,
+                                                               10),
+                       whole_ms=whole_ms, bound_ms=b_ms, bound_by=b_by,
+                       timed="back to back, L2 warm")
+            row["bound_share"] = b_ms / row["ms"]
+            _check_slab_row("se_block_slab", row)
+            emit("spatial_kernels", **row)
+            rows.append(row)
+            del slabs, t0
+        del x, whole, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ca_slab_rows(dtype) -> list:
+    """The CoordAttn slab form at every flagship CoordAttn site (GroupNorm,
+    as the flagship runs it), in SPATIAL_SHARDS slabs: each slab pooled,
+    the row means stacked and the column sums added in process (as the
+    gather and the all_reduce give them), one bottleneck on the whole
+    map, each slab's apply pass, against the twin and the whole-map
+    kernel; the ms of one process's share (its slab's pool and apply, and
+    the bottleneck), its twin's, the whole-map kernel's, and the bytes
+    bound of that share."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn,
+        coord_attn_plain,
+        coord_attn_slab_apply,
+        coord_attn_slab_apply_plain,
+        coord_attn_slab_mix,
+        coord_attn_slab_mix_plain,
+        coord_attn_slab_pool,
+        coord_attn_slab_pool_plain,
+    )
+
+    rows = []
+    with torch.no_grad():
+        for i, (h, c) in enumerate(CA_SITES):
+            wts, groups = ca_site_weights(i, c, "group")
+            x = _site_x(BATCH, h, c, 10 + i).to(dtype)
+            r = wts.w1h.shape[-1]
+            eb = x.element_size()
+            whole = coord_attn(x, wts, "group", groups)
+            want = coord_attn_plain(x, wts, "group", groups)
+            whole_ms = cuda_ms(lambda: coord_attn(x, wts, "group", groups),
+                               10)
+            wbytes = sum(getattr(wts, f.name).numel() * 4
+                         for f in dataclasses.fields(wts))
+            for shards in SPATIAL_SHARDS:
+                slabs = _slabs(x, shards)
+                pools = [coord_attn_slab_pool(t) for t in slabs]
+                rmean = torch.cat([p[0] for p in pools], dim=1)
+                colsum = pools[0][1]
+                for p in pools[1:]:
+                    colsum = colsum + p[1]
+                yn, yx = coord_attn_slab_mix(rmean, colsum, wts, "group",
+                                             groups)
+                hs = h // shards
+                y = torch.cat([coord_attn_slab_apply(t, yn, yx, wts, k * hs)
+                               for k, t in enumerate(slabs)], dim=1)
+                row = dict(kernel="coord_attn_slab", shape=list(x.shape),
+                           dtype=str(x.dtype).split(".")[-1], shards=shards,
+                           slab_rows=hs, **_slab_errors(y, want, whole))
+                del y, pools
+                t0 = slabs[0]
+
+                def share():
+                    coord_attn_slab_pool(t0)
+                    n, m = coord_attn_slab_mix(rmean, colsum, wts, "group",
+                                               groups)
+                    return coord_attn_slab_apply(t0, n, m, wts, 0)
+
+                def plain_share():
+                    coord_attn_slab_pool_plain(t0)
+                    n, m = coord_attn_slab_mix_plain(rmean, colsum, wts,
+                                                     "group", groups)
+                    return coord_attn_slab_apply_plain(t0, n, m, wts, 0)
+
+                mlp = BATCH * 2 * h * (2 * c * r + 2 * r * r + 2 * r * c)
+                b_ms, b_by = bound(2 * t0.numel() * eb + wbytes,
+                                   4 * t0.numel() + mlp)
+                row.update(ms=cuda_ms(share, 10),
+                           plain_ms=cuda_ms(plain_share, 10),
+                           whole_ms=whole_ms, bound_ms=b_ms, bound_by=b_by,
+                           timed="back to back, L2 warm")
+                row["bound_share"] = b_ms / row["ms"]
+                _check_slab_row("coord_attn_slab", row)
+                emit("spatial_kernels", **row)
+                rows.append(row)
+                del slabs, t0, rmean, colsum, yn, yx
+            del x, whole, want
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_spatial_kernels() -> dict:
+    """The slab forms of SE and CoordAttn, fp32 and bf16 (module
+    docstring, ``spatial_kernels``): {dtype: {kernel: rows}}."""
+    return {name: {"se_block_slab": se_slab_rows(dt),
+                   "coord_attn_slab": ca_slab_rows(dt)}
+            for name, dt in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16))}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _start_ranks(fn: str, out_dir: str, *args) -> list:
+    """``SPATIAL_RANKS`` processes running ``chip_smoke.<fn>(rank, world,
+    port, out_dir, *args)`` on the one card."""
+    import os
+
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(SPATIAL_RANKS):
+        code = (f"import sys; sys.path.insert(0, {here!r}); import "
+                f"chip_smoke as c; c.{fn}({rank}, {SPATIAL_RANKS}, {port}, "
+                f"{out_dir!r}, *{args!r})")
+        log = open(os.path.join(out_dir, f"{fn}_rank{rank}.log"), "wb")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _wait_ranks(procs, fn: str, out_dir: str, timeout: float) -> list:
+    """Each rank's exit code (None where it was killed at ``timeout``)
+    and the tail of its log; every process is gone after."""
+    import os
+
+    t_end = time.monotonic() + timeout
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(1.0, t_end - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    tails = []
+    for rank in range(len(procs)):
+        with open(os.path.join(out_dir, f"{fn}_rank{rank}.log"), "rb") as f:
+            tails.append(f.read()[-3000:].decode(errors="replace"))
+    return codes, tails
+
+
+def _gloo_group(rank: int, world: int, port: int):
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+
+
+def gloo_cuda_probe(rank: int, world: int, out_dir: str) -> bool:
+    """The probe, in a rank of the group: ``all_reduce`` and ``broadcast``
+    of a CUDA tensor over gloo; writes what it got (or the error) and
+    returns whether both arrived whole."""
+    import os
+
+    import torch.distributed as dist
+
+    try:
+        x = torch.full((1024,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        y = torch.full((1024,), float(rank), device="cuda")
+        dist.broadcast(y, src=0)
+        ok, err = bool((x == world * (world + 1) / 2).all()
+                       and (y == 0).all() and x.is_cuda and y.is_cuda), None
+    except Exception as e:  # the refusal is this phase's finding
+        ok, err = False, f"{type(e).__name__}: {e}"
+    with open(os.path.join(out_dir, f"probe{rank}.json"), "w") as f:
+        json.dump({"ok": ok, "error": err}, f)
+    return ok
+
+
+def _spatial_cfg(dtype: str = "float32"):
+    from diffusionmodel_tpu_torch.config import preset
+
+    a, b = SPATIAL_TRAIN_BATCH
+    return preset("full", **{
+        "model.use_pallas": True, "model.dtype": dtype,
+        "model.fused_upsample": dtype == "bfloat16",
+        "sample.sampler": "ddim", "train.accum_steps": a,
+        "train.batch_size": b, "train.remat": False,
+        "train.mesh_spatial": SPATIAL_RANKS})
+
+
+def _spatial_batch():
+    """One fixed wire batch [A, B] of the flagship's size."""
+    rng = np.random.default_rng(41)
+    a, b = SPATIAL_TRAIN_BATCH
+    return {"x": rng.integers(0, 256, (a, b, 256, 256, 3), dtype=np.uint8),
+            "c": rng.integers(0, FLAGSHIP_CLASSES, (a, b)).astype(np.int32),
+            "mask": rng.integers(0, 3, (a, b, 256, 256), dtype=np.uint8)}
+
+
+def spatial_runs(mesh=None) -> dict:
+    """The spatial main path at full width, or (``mesh`` None) the same
+    calls in one process: a DDIM sampler (``make_sampler``, fp32 and
+    bf16, ``use_pallas``) and one fp32 train step (``make_train_step``)
+    from weights of torch seed 0, under cuDNN's heuristics.
+    On the mesh, the slab kernels' launches in the sampler calls (the
+    counts zeroed just before each)."""
+    import dataclasses as dc_
+
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import Schedule
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn,
+        coord_attn_slab,
+    )
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        se_block,
+        se_block_slab,
+    )
+    from diffusionmodel_tpu_torch.nn import build_model
+    from diffusionmodel_tpu_torch.parallel import image_sharding
+    from diffusionmodel_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from diffusionmodel_tpu_torch.trainer import make_sampler
+
+    dev = torch.device("cuda")
+    counters = [se_block_slab, coord_attn_slab, se_block, coord_attn]
+    shards = SPATIAL_RANKS if mesh is not None else 0
+    out = {"launches": {}, "sample_s": {}}
+    with fp32_compute(dev, autotune=False):
+        for dtype, steps in (("float32", SPATIAL_DDIM),
+                             ("bfloat16", SPATIAL_BF16_DDIM)):
+            cfg = _spatial_cfg(dtype)
+            cfg = cfg.replace(sample=dc_.replace(cfg.sample,
+                                                 ddim_steps=steps))
+            dcf = cfg.diffusion
+            torch.manual_seed(0)
+            model = build_model(cfg.model, dcf.high_thresh,
+                                spatial_shards=shards, device=dev)
+            sched = Schedule.create(dcf.beta1, dcf.beta2, dcf.n_T, dev)
+            classes = torch.arange(SPATIAL_SLOTS, device=dev) \
+                % cfg.model.n_classes
+            sampler = make_sampler(cfg, sched, SPATIAL_SLOTS,
+                                   classes=classes, mesh=mesh)
+            for f in counters:
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs = sampler(model, torch.Generator(device=dev).manual_seed(
+                13), 2.0)
+            torch.cuda.synchronize()
+            out["sample_s"][dtype] = time.perf_counter() - t0
+            out["launches"][dtype] = _counts(counters)
+            out[f"images_{dtype}"] = imgs.cpu()
+            if dtype == "float32":
+                state, opt = create_train_state(model, cfg, 1, mesh=mesh)
+                step = make_train_step(model, sched, cfg, opt, mesh=mesh)
+                batch = _spatial_batch()
+                if mesh is not None:
+                    rows = image_sharding(mesh, 5, 1, 2)
+                    batch = {k: rows.local(v) if v.ndim >= 4 else v
+                             for k, v in batch.items()}
+                before = _flat_params(model)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out["loss"] = float(step(state, batch, torch.Generator(
+                    device=dev).manual_seed(17)))
+                torch.cuda.synchronize()
+                out["step_s"] = time.perf_counter() - t0
+                after = _flat_params(model)
+                idx = torch.randint(after.numel(), (SPATIAL_PARAM_SAMPLES,),
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(3),
+                                    device=dev)
+                out["params"] = after[idx].cpu()
+                out["update_norm"] = (after[idx] - before[idx]).norm().item()
+                del state, step, before, after
+            del model
+            torch.cuda.empty_cache()
+    return out
+
+
+def spatial_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """A rank of the spatial phase: the gloo probe, then (where gloo took
+    the CUDA tensors) ``spatial_runs`` on the mesh (data 1, spatial
+    ``world``), its results saved."""
+    import os
+
+    import torch.distributed as dist
+
+    from diffusionmodel_tpu_torch.parallel import make_mesh
+
+    _gloo_group(rank, world, port)
+    torch.cuda.set_per_process_memory_fraction(SPATIAL_RANK_MEMORY)
+    try:
+        if not gloo_cuda_probe(rank, world, out_dir):
+            return
+        mesh = make_mesh(data=1, model=1, spatial=world)
+        result = spatial_runs(mesh)
+        result["mesh"] = mesh.shape
+    finally:
+        dist.destroy_process_group()
+    result["jax_imported"] = "jax" in sys.modules
+    torch.save(result, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
+
+
+def phase_spatial(out_dir) -> dict:
+    """Two processes on the one card over gloo: the probe, then the
+    spatial main path (``spatial_runs`` on a data 1 x spatial 2 mesh);
+    then the same calls in this process. Returns the ranks' slab-kernel
+    launches per dtype ({} where gloo refused CUDA tensors)."""
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    codes, tails = _wait_ranks(_start_ranks("spatial_rank", out_dir),
+                               "spatial_rank", out_dir,
+                               SPATIAL_RANK_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    probe = []
+    for rank in range(SPATIAL_RANKS):
+        path = os.path.join(out_dir, f"probe{rank}.json")
+        probe.append(json.load(open(path)) if os.path.exists(path)
+                     else {"ok": False, "error": "no probe result"})
+    emit("spatial", probe="gloo all_reduce and broadcast of CUDA tensors",
+         ok=[p["ok"] for p in probe], errors=[p["error"] for p in probe])
+    if not all(p["ok"] for p in probe):
+        emit("spatial", ran=False, exit_codes=codes, log_tails=tails,
+             reason="gloo refused CUDA tensors on this card: the spatial "
+             "path's on-card run waits for two cards")
+        return {}
+    check(codes == [0] * SPATIAL_RANKS,
+          f"spatial ranks exited {codes}: {tails}")
+    t0 = time.perf_counter()
+    one = spatial_runs()  # this process's reference, after the ranks
+    one_s = time.perf_counter() - t0
+    got = [torch.load(os.path.join(out_dir, f"spatial_rank{r}.pt"),
+                      weights_only=False) for r in range(SPATIAL_RANKS)]
+    r0 = got[0]
+    per_forward = [SE_PER_FORWARD, CA_PER_FORWARD, 0, 0]
+    row = dict(ranks=SPATIAL_RANKS, backend="gloo", mesh=r0["mesh"],
+               cudnn="heuristics (no search: each process would pay it)",
+               slots=SPATIAL_SLOTS, ddim=SPATIAL_DDIM,
+               bf16_ddim=SPATIAL_BF16_DDIM, batch=list(SPATIAL_TRAIN_BATCH),
+               ranks_s=ranks_s, one_process_s=one_s,
+               rank_sample_s=r0["sample_s"],
+               one_sample_s=one["sample_s"], rank_step_s=r0["step_s"],
+               one_step_s=one["step_s"], launches=r0["launches"],
+               one_launches=one["launches"],
+               jax_imported=any(r["jax_imported"] for r in got))
+    for dtype in ("float32", "bfloat16"):
+        a, b = r0[f"images_{dtype}"], one[f"images_{dtype}"]
+        row[f"images_rel_l2_{dtype}"] = ((a - b).norm() / b.norm()).item()
+        row[f"ranks_agree_{dtype}"] = all(
+            torch.equal(r[f"images_{dtype}"], a) for r in got)
+        row[f"finite_{dtype}"] = bool(torch.isfinite(a).all())
+    row["loss"], row["one_loss"] = r0["loss"], one["loss"]
+    row["loss_rel"] = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    # over the same sampled elements
+    row["param_diff_norm"] = (r0["params"] - one["params"]).norm().item()
+    row["param_update_norm"] = one["update_norm"]
+    emit("spatial", **row)
+    check(not row["jax_imported"], "a spatial rank imported jax")
+    for dtype in ("float32", "bfloat16"):
+        check(row[f"ranks_agree_{dtype}"] and row[f"finite_{dtype}"],
+              f"spatial {dtype} images: ranks agree "
+              f"{row[f'ranks_agree_{dtype}']}, finite "
+              f"{row[f'finite_{dtype}']}")
+        steps = SPATIAL_DDIM if dtype == "float32" else SPATIAL_BF16_DDIM
+        check(r0["launches"][dtype] == [n * steps for n in per_forward],
+              f"spatial {dtype} launches {r0['launches'][dtype]} (slab SE, "
+              "slab CoordAttn, whole-map SE, whole-map CoordAttn)")
+    check(row["images_rel_l2_float32"] <= SPATIAL_IMG_RTOL,
+          f"spatial fp32 images off one process: relative L2 "
+          f"{row['images_rel_l2_float32']}")
+    check(row["loss_rel"] <= SPATIAL_LOSS_RTOL,
+          f"spatial step loss {r0['loss']} against {one['loss']}")
+    check(row["param_diff_norm"] <= SPATIAL_PARAM_SHARE
+          * row["param_update_norm"],
+          f"spatial step parameters {row['param_diff_norm']} off one "
+          f"process (update norm {row['param_update_norm']}, both over "
+          f"{SPATIAL_PARAM_SAMPLES} sampled elements)")
+    return r0["launches"]
+
+
+def _pinned_service(model, cfg, sched, mesh) -> tuple:
+    """A ``SamplerService`` (DDIM, max_batch 4) over ``mesh``: a pinned
+    request's images alone, then batched behind another request. cuDNN on
+    its heuristics in the worker: a searched choice is kept per thread,
+    so two autotuned services (two worker threads) may pick other
+    algorithms for a shape and give other bits."""
+    from diffusionmodel_tpu_torch.serving import SamplerService
+
+    svc = SamplerService(model, cfg, sched, max_batch=4, sampler="ddim",
+                         max_wait_ms=1000, service_seed=3, mesh=mesh,
+                         autotune=False)
+    try:
+        alone = svc.generate([0, 1], guide_w=2.0, seed=21)
+        svc.submit([2, 3], guide_w=3.0, seed=4)
+        return alone, svc.submit([0, 1], guide_w=2.0, seed=21).result()
+    finally:
+        svc.close()
+
+
+# DDIM-20 (DDIM-50 until the spatial phases needed the time)
+EDIT_STEPS, EDIT_STRENGTH, EDIT_GUIDE, EDIT_BATCH = 20, 0.75, 2.0, 2
 # the planted fault that shows the kernel-vs-plain comparison can fail:
 # every SE gate of the plain path 1% too large in one img2img run
 EDIT_PLANTED_GATE = 1.01
-# DDIM steps an edit runs: max(1, min(n, round(strength * n))) = 38
+# DDIM steps an edit runs: max(1, min(n, round(strength * n))) = 15
 EDIT_FORWARDS = max(1, min(EDIT_STEPS, round(EDIT_STRENGTH * EDIT_STEPS)))
 
 
@@ -2539,7 +3102,7 @@ def _edit_source(dataset, out_dir) -> str:
 def phase_edit(counters, cfg, ckpt, out_dir, dataset, tag="edit") -> list:
     """``sample.edit_samples`` (the ``--family main`` front door) on the
     trained flagship checkpoint at full width, img2img and inpaint
-    (strength 0.75 of DDIM-50: 38 forwards, guide 2.0, batch 2, the
+    (strength 0.75 of DDIM-20: 15 forwards, guide 2.0, batch 2, the
     default bottom-half keep-mask) from a crack image written as PNG, the
     start noise pinned: finite [2, 256, 256, 3] images, 5 SE and 4
     CoordAttn launches per forward, the inpaint's kept half equal to the
@@ -3063,6 +3626,7 @@ def main() -> int:
     counts = timed("counts", fresh_kernel_counts)
     rows = timed("kernels", phase_kernels, counts)
     bf16_rows = timed("kernels_bf16", phase_kernels_bf16, counts)
+    slab_rows = timed("spatial_kernels", phase_spatial_kernels)
     flash_rows = timed("flash", phase_flash)
     cfg, model = timed("forward", phase_forward, counters, counts)
     launches = timed("serve", phase_serve, cfg, model, counters, env)
@@ -3104,6 +3668,10 @@ def main() -> int:
                               os.path.join(out_root, "chip_smoke_parallel"),
                               dataset)
     shutil.rmtree(os.path.join(out_root, "chip_smoke_parallel"),
+                  ignore_errors=True)
+    spatial_launches = timed("spatial", phase_spatial,
+                             os.path.join(out_root, "chip_smoke_spatial"))
+    shutil.rmtree(os.path.join(out_root, "chip_smoke_spatial"),
                   ignore_errors=True)
     base = _flagship_train_cfg(bf16_dir)
     cfg16 = base.replace(model=dataclasses.replace(
@@ -3194,6 +3762,33 @@ def main() -> int:
                    "library_ms is the whole SDPA backward (dq, dk and dv)",
         }
 
+    def slab_entry(name, key, dtype, i, replaces):
+        sites = [r for r in slab_rows[dtype][key]
+                 if r["shards"] == SPATIAL_RANKS]
+        return {
+            "name": name, "route": "cuda",
+            "source": "diffusionmodel_tpu_torch/kernels/csrc/"
+                      f"{key.replace('_slab', '')}.cu",
+            "replaces": replaces,
+            "launches": spatial_launches.get(dtype, [0, 0])[i],
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               slab_rows[dtype][key]),
+            "max_abs_err_whole_map": max(r["max_abs_err_whole"] for r in
+                                         slab_rows[dtype][key]),
+            "ms": sum(r["ms"] for r in sites),
+            "plain_ms": sum(r["plain_ms"] for r in sites),
+            "bound_ms": sum(r["bound_ms"] for r in sites),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in sites) else "operations",
+            "library_ms": None,
+            "whole_map_ms": sum(r["whole_ms"] for r in sites),
+            "dtype": dtype,
+            "per": f"one process's share of a batch-{BATCH} forward at "
+                   f"{SPATIAL_RANKS} slabs ({len(sites)} sites, back to "
+                   "back); whole_map_ms the whole-map kernel on the whole "
+                   "map; launches on the two-rank spatial path",
+        }
+
     fwd = flash_entry(flash_rows, flash_launches)
     fwd["train_launches"] = train_launches[0]
     se = entry("se_block", "se_block", launches[0],
@@ -3221,6 +3816,14 @@ def main() -> int:
         ca,
         se16,
         ca16,
+        slab_entry("se_block_slab", "se_block_slab", "float32", 0,
+                   "diffusionmodel_tpu/kernels/se_block.py:202"),
+        slab_entry("coord_attn_slab", "coord_attn_slab", "float32", 1,
+                   "diffusionmodel_tpu/kernels/coord_attn.py:296"),
+        slab_entry("se_block_slab_bf16", "se_block_slab", "bfloat16", 0,
+                   "diffusionmodel_tpu/kernels/se_block.py:202"),
+        slab_entry("coord_attn_slab_bf16", "coord_attn_slab", "bfloat16", 1,
+                   "diffusionmodel_tpu/kernels/coord_attn.py:296"),
         fwd,
         bwd_entry("flash_attn_dq", "dq", train_launches[1],
                   "diffusionmodel_tpu/kernels/flash_attn.py:268"),

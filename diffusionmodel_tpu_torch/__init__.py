@@ -21,8 +21,10 @@ latent-diffusion inference and training paths with the CLIP text encoder
 train_ldm``), ``.pt`` checkpoints, the quality metrics, and data
 parallelism over ``torch.distributed`` for training and generation
 (``parallel``: the 'data' axis and ZeRO-1, one process per card under
-``torchrun``). The spatially sharded forward, serving's fan-out (ROADMAP
-A12b) and the 'model' axis (A12c) are not ported.
+``torchrun``), the spatially sharded forward through training and the
+samplers (the 'spatial' axis: H-slabs with halo exchange) and
+``SamplerService(mesh=)``'s fan-out. The 'model' axis (ROADMAP A12c) is
+not ported.
 """
 
 __version__ = "0.1.0"

@@ -30,15 +30,18 @@ Every mode of the JAX CLI is ported, for every preset (``full``, ``old``,
 ``generation``, ``mnist``, ``custom``, ``labml``) and both editing
 families. ``--mode train|generate`` run data-parallel on N cards under
 ``torchrun`` (one process per card, ``cuda:{LOCAL_RANK}``; NCCL, or gloo
-with ``--device cpu``)::
+with ``--device cpu``), and ``--mode train`` also spatially sharded (each
+process an H-slab of every large feature map)::
 
     torchrun --nproc_per_node N -m diffusionmodel_tpu_torch.cli \
         --mode train -o train.mesh_data=N -o train.zero1=true
+    torchrun --nproc_per_node S -m diffusionmodel_tpu_torch.cli \
+        --mode train -o train.mesh_spatial=S
 
-A 'model' or 'spatial' axis (``-o train.mesh_model=2``, ROADMAP A12c;
-``train.mesh_spatial``, A12b), a mesh larger than the process group, and
-any ``train.mesh_*`` > 1 or ``torchrun`` in the other modes print that
-they are not ported and return 1. ``--preset mnist`` trains on
+A 'model' axis (``-o train.mesh_model=2``, ROADMAP A12c), a mesh larger
+than the process group, and any ``train.mesh_*`` > 1 or ``torchrun`` in
+the other modes print why and return 1: those modes run in one process,
+as the JAX CLI runs them (its ``--mode serve`` passes no mesh). ``--preset mnist`` trains on
 the MNIST IDX files under ``--data_root`` or a synthetic set, ``labml`` on
 an image folder or a synthetic one, as the JAX CLI does.
 ``--inception_weights`` (a torchvision inception_v3 state dict,
@@ -342,18 +345,18 @@ def _run_train_or_generate(args) -> int:
 
 def _one_process_only(args) -> Optional[str]:
     """Why a mode other than train / generate cannot run as asked: under
-    torchrun, or with a ``train.mesh_*`` override above 1 (serving's
-    fan-out is ROADMAP A12b)."""
+    torchrun, or with a ``train.mesh_*`` override above 1. Those modes run
+    in one process, as the JAX CLI runs them (``SamplerService(mesh=)``
+    fans a service out from Python)."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         return (f"--mode {args.mode} runs in one process: only --mode "
-                "train|generate are data-parallel (serving's fan-out is "
-                "not ported yet: ROADMAP A12b)")
+                "train|generate run under torchrun")
     for item in args.override:
         k, _, v = item.partition("=")
         if k in ("train.mesh_data", "train.mesh_model",
                  "train.mesh_spatial") and _parse_value(v) not in (-1, 1):
-            return (f"{item}: --mode {args.mode} runs on one device; its "
-                    "mesh fan-out is not ported yet: ROADMAP A12b")
+            return (f"{item}: --mode {args.mode} runs on one device, as "
+                    "the JAX CLI runs it")
     return None
 
 

@@ -11,7 +11,13 @@ uint8 (``dataset.load_wire``), expanded on the device by
 
 With a distributed ``mesh`` every process shuffles with the same seed and
 decodes only its contiguous block of the B axis of each [A, B, ...]
-batch: the JAX package's ``batch_sharding(mesh, 5, 1)``.
+batch: the JAX package's ``batch_sharding(mesh, 5, 1)``. With ``spatial``
+(the mesh's 'spatial' axis, for a model with the spatial hooks) each
+process keeps the H-block of its images and masks as well:
+``image_sharding(mesh, 5, batch_axis=1, h_axis=2)``. The processes of one
+'spatial' group decode the same images, so there the loader draws the
+horizontal flips itself, in order from its own seeded generator, where
+the dataset would draw them in whatever order its worker threads run.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ class BatchLoader:
     def __init__(self, dataset, indices: Sequence[int], batch_size: int,
                  accum_steps: int = 1, shuffle: bool = True, augment: bool = True,
                  seed: int = 0, num_workers: int = 4, prefetch: int = 2,
-                 drop_last: bool = False, wire_u8: bool = True, mesh=None):
+                 drop_last: bool = False, wire_u8: bool = True, mesh=None,
+                 spatial: bool = False):
         self.dataset = dataset
         self.indices = np.asarray(indices)
         self.batch_size = batch_size
@@ -44,10 +51,21 @@ class BatchLoader:
         self.wire_u8 = wire_u8 and hasattr(dataset, "load_wire")
         # this process's rows of B (all of them without a mesh)
         self.rows = slice(0, batch_size)
+        # this process's rows of H (all of them unless spatial)
+        self.h_rows = slice(None)
+        self.flip_prob = 0.0
         if mesh is not None and mesh.distributed:
-            from diffusionmodel_tpu_torch.parallel import batch_sharding
+            from diffusionmodel_tpu_torch.parallel import (
+                batch_sharding,
+                image_sharding,
+            )
 
             self.rows = batch_sharding(mesh, 2, 1).block(1, batch_size)
+            if spatial and mesh.shape["spatial"] > 1:
+                self.h_rows = image_sharding(mesh, 5, 1, 2).block(
+                    2, dataset.img_size)
+                if augment:
+                    self.flip_prob = getattr(dataset, "hflip_prob", 0.0)
 
     def __len__(self) -> int:
         per_step = self.batch_size * self.accum_steps
@@ -60,7 +78,8 @@ class BatchLoader:
             self._rng.shuffle(order)
         return order
 
-    def _assemble(self, idxs: np.ndarray) -> Dict[str, np.ndarray]:
+    def _assemble(self, idxs: np.ndarray, flips=None
+                  ) -> Dict[str, np.ndarray]:
         per_step = self.batch_size * self.accum_steps
         # pad the tail batch by wrapping (every step has the same shape)
         if len(idxs) < per_step:
@@ -71,16 +90,23 @@ class BatchLoader:
                 else self.dataset.load)
         idxs = idxs.reshape(self.accum_steps, self.batch_size)[:, self.rows]
         b = idxs.shape[1]
+        if flips is not None:
+            flips = flips.reshape(self.accum_steps,
+                                  self.batch_size)[:, self.rows].reshape(-1)
         xs, cs, ms = [], [], []
-        for i in idxs.reshape(-1):
-            x, c, m = load(int(i), augment=self.augment)
-            xs.append(x)
+        for k, i in enumerate(idxs.reshape(-1)):
+            x, c, m = load(int(i), augment=self.augment and flips is None)
+            if flips is not None and flips[k]:
+                x = x[:, ::-1]
+                if getattr(self.dataset, "co_flip_mask", False):
+                    m = m[:, ::-1]
+            xs.append(x[self.h_rows])
             cs.append(c)
-            ms.append(m)
+            ms.append(m[self.h_rows])
         s = self.dataset.img_size
-        x = np.stack(xs).reshape(self.accum_steps, b, s, s, -1)
+        x = np.stack(xs).reshape(self.accum_steps, b, xs[0].shape[0], s, -1)
         c = np.asarray(cs, np.int32).reshape(self.accum_steps, b)
-        m = np.stack(ms).reshape(self.accum_steps, b, s, s)
+        m = np.stack(ms).reshape(self.accum_steps, b, xs[0].shape[0], s)
         return {"x": x, "c": c, "mask": m}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -90,9 +116,12 @@ class BatchLoader:
         chunks = [
             order[i * per_step:(i + 1) * per_step] for i in range(n_batches)
         ]
+        # the flips the loader draws itself (spatial), per chunk, in order
+        flips = [self._rng.rand(per_step) < self.flip_prob
+                 if self.flip_prob > 0 else None for _ in chunks]
         if self.num_workers <= 0:
-            for ch in chunks:
-                yield self._assemble(ch)
+            for ch, fl in zip(chunks, flips):
+                yield self._assemble(ch, fl)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -108,8 +137,9 @@ class BatchLoader:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     from collections import deque
 
-                    futs = deque(pool.submit(self._assemble, ch)
-                                 for ch in chunks[:window])
+                    futs = deque(pool.submit(self._assemble, ch, fl)
+                                 for ch, fl in zip(chunks[:window],
+                                                   flips[:window]))
                     next_i = len(futs)
                     while futs:
                         if stop.is_set():
@@ -118,8 +148,8 @@ class BatchLoader:
                             return
                         item = futs.popleft().result()
                         if next_i < len(chunks):
-                            futs.append(
-                                pool.submit(self._assemble, chunks[next_i]))
+                            futs.append(pool.submit(
+                                self._assemble, chunks[next_i], flips[next_i]))
                             next_i += 1
                         while not stop.is_set():
                             try:

@@ -89,22 +89,24 @@ class LaunchPlan(NamedTuple):
     counters: int  # per (sample, direction), then per output tile
 
 
-@functools.lru_cache(maxsize=256)
-def launch_plan(b: int, l: int, c: int, r: int, norm_kind: str = "group",
-                groups: int = 1, elem_bytes: int = 4) -> LaunchPlan:
-    """Grid, block and shared memory of each pass, and the scratch, for x
-    [b, l, l, c] of ``elem_bytes``-byte elements (4 float32, 2 bf16) and
-    R = r (``groups`` 1 for the affine norm). Plain Python, so the CPU
-    tests check it; the wrapper hands its numbers to the C entry point.
-    Tiles depend on l, c and r, never on b: a sample's sums do not depend
-    on its batch. Only the pooling pass's chunks depend on the type."""
+def _pool_plan(b: int, rows: int, l: int, c: int, elem_bytes: int):
+    """The pooling pass over ``rows`` rows of ``l`` columns: (plan,
+    rows per tile, row tiles)."""
     per_chunk = CHUNK_CHANNELS * 4 // elem_bytes
     chunks = -(-c // per_chunk)
-    pool_rows = min(POOL_ROWS, l)
-    n_tiles = -(-l // pool_rows)
+    pool_rows = min(POOL_ROWS, rows)
+    n_tiles = -(-rows // pool_rows)
     pool_warps = min(POOL_WARPS, -(-l // 4))
-    pool = PassPlan((chunks, n_tiles, b), 32 * pool_warps,
-                    POOL_SMEM * per_chunk // CHUNK_CHANNELS)
+    return (PassPlan((chunks, n_tiles, b), 32 * pool_warps,
+                     POOL_SMEM * per_chunk // CHUNK_CHANNELS),
+            pool_rows, n_tiles)
+
+
+def _bottleneck_plan(b: int, l: int, c: int, r: int, n_tiles: int,
+                     groups: int):
+    """The bottleneck over a map of side ``l`` whose column means arrive
+    as ``n_tiles`` row tiles' sums: (plan, k-slices, chunks per slice,
+    ring depth)."""
     k_chunks = -(-c // BN_CHUNK)
     n_splits = -(-k_chunks // BN_SPLIT_CHUNKS)
     split_chunks = -(-k_chunks // n_splits)
@@ -117,22 +119,85 @@ def launch_plan(b: int, l: int, c: int, r: int, norm_kind: str = "group",
                           BN_SMEM_PER_SM // per_sm // stage))
     ring = n_stages * stage // 4
     mix = (l * r + 2 * r + 2 * groups + 3) // 4 * 4 + (r + 1) * r
-    bottleneck = PassPlan((n_jt * n_splits, n_rt, 2 * b), THREADS,
-                          4 * max(ring, mix) + BN_STATIC_SMEM)
-    apply_rows = min(APPLY_ROWS, l)
+    return (PassPlan((n_jt * n_splits, n_rt, 2 * b), THREADS,
+                     4 * max(ring, mix) + BN_STATIC_SMEM),
+            n_splits, split_chunks, n_stages)
+
+
+def _apply_plan(b: int, rows: int, l: int, c: int, r: int):
+    """The apply pass over ``rows`` rows of a map of side ``l``: (plan,
+    rows per tile)."""
+    apply_rows = min(APPLY_ROWS, rows)
     rp = -(-r // 4) * 4
-    rows = apply_rows + l  # gate rows: the tile's rows, then all L columns
-    apply = PassPlan((-(-c // APPLY_CHANNELS), -(-l // apply_rows), b),
-                     THREADS, 4 * (rows * (rp + max(rp, APPLY_CHANNELS))
-                                   + 2 * rp * APPLY_CHANNELS))
-    tiles = 2 * b * n_rt * n_jt
-    yp = tiles * n_splits * BN_ROWS * BN_COLS if n_splits > 1 else 0
+    gate_rows = apply_rows + l  # the tile's rows, then all L columns
+    return (PassPlan((-(-c // APPLY_CHANNELS), -(-rows // apply_rows), b),
+                     THREADS, 4 * (gate_rows * (rp + max(rp, APPLY_CHANNELS))
+                                   + 2 * rp * APPLY_CHANNELS)),
+            apply_rows)
+
+
+def _partials_floats(b: int, l: int, r: int, n_splits: int) -> int:
+    """The bottleneck's k-slice partials, when it has more than one."""
+    tiles = 2 * b * -(-l // BN_ROWS) * -(-r // BN_COLS)
+    return tiles * n_splits * BN_ROWS * BN_COLS if n_splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(b: int, l: int, c: int, r: int, norm_kind: str = "group",
+                groups: int = 1, elem_bytes: int = 4) -> LaunchPlan:
+    """Grid, block and shared memory of each pass, and the scratch, for x
+    [b, l, l, c] of ``elem_bytes``-byte elements (4 float32, 2 bf16) and
+    R = r (``groups`` 1 for the affine norm). Plain Python, so the CPU
+    tests check it; the wrapper hands its numbers to the C entry point.
+    Tiles depend on l, c and r, never on b: a sample's sums do not depend
+    on its batch. Only the pooling pass's chunks depend on the type."""
+    pool, pool_rows, n_tiles = _pool_plan(b, l, l, c, elem_bytes)
+    bottleneck, n_splits, split_chunks, n_stages = _bottleneck_plan(
+        b, l, c, r, n_tiles, groups)
+    apply, apply_rows = _apply_plan(b, l, l, c, r)
+    yp = _partials_floats(b, l, r, n_splits)
     partial = 4 * b * n_tiles * l * c
     return LaunchPlan(
         pool, bottleneck, apply, pool_rows, n_tiles, n_splits, split_chunks,
         n_stages, apply_rows,
         scratch_bytes=4 * (b * l * c + 6 * b * l * r + yp) + partial,
-        partial_bytes=partial, counters=2 * b + tiles)
+        partial_bytes=partial,
+        counters=2 * b + 2 * b * -(-l // BN_ROWS) * -(-r // BN_COLS))
+
+
+class SlabPlan(NamedTuple):
+    pool: PassPlan
+    bottleneck: PassPlan
+    apply: PassPlan
+    pool_rows: int
+    n_tiles: int  # the slab's row tiles: T in cp [B, T, L, C]
+    n_splits: int
+    split_chunks: int
+    n_stages: int
+    apply_rows: int
+    cp_bytes: int  # the pooling pass's per-tile column sums
+    scratch_bytes: int  # the bottleneck's y and k-slice partials
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def slab_plan(b: int, h: int, l: int, c: int, r: int,
+              norm_kind: str = "group", groups: int = 1,
+              elem_bytes: int = 4) -> SlabPlan:
+    """The slab form's launches for a slab x [b, h, l, c] of a map of side
+    ``l``: the pooling and apply passes over the slab's h rows, the
+    bottleneck over the whole map's pooled terms, its column sums arriving
+    already folded (one row tile)."""
+    pool, pool_rows, n_tiles = _pool_plan(b, h, l, c, elem_bytes)
+    bottleneck, n_splits, split_chunks, n_stages = _bottleneck_plan(
+        b, l, c, r, 1, groups)
+    apply, apply_rows = _apply_plan(b, h, l, c, r)
+    return SlabPlan(
+        pool, bottleneck, apply, pool_rows, n_tiles, n_splits, split_chunks,
+        n_stages, apply_rows, cp_bytes=4 * b * n_tiles * l * c,
+        scratch_bytes=4 * (2 * b * l * r + _partials_floats(b, l, r,
+                                                            n_splits)),
+        counters=2 * b + 2 * b * -(-l // BN_ROWS) * -(-r // BN_COLS))
 
 
 @dataclass
@@ -462,3 +527,246 @@ def coord_attn(x: torch.Tensor, wts: CoordAttnWeights,
 
 
 coord_attn.launches = 0
+
+
+# ---------------------------------------------------------------- slab form
+# x is this process's H-slab [B, h, L, C] (rows row0 .. row0 + h) of a map
+# of side L whose H is split over the 'spatial' processes. The kernel's
+# three passes already split where the collective goes (csrc/coord_attn.cu,
+# "slab form"): coord_attn_slab_pool -> this slab's row means [B, h, C] and
+# column sums [B, L, C]; the row means are gathered over the slabs and the
+# column sums all-reduced; coord_attn_slab_mix -> the bottleneck's yn, yx
+# [B, 2, L, R] on the whole map (replicated); coord_attn_slab_apply -> the
+# slab times its gates. Each stage takes its kernel for a CUDA tensor and
+# its plain twin for a CPU tensor; :func:`coord_attn_slab` runs them with
+# the collectives between, and :func:`coord_attn_slab_plain` runs the
+# twins on any device (differentiable: the train path).
+
+
+def coord_attn_slab_pool_plain(x: torch.Tensor):
+    """(row means [B, h, C], column sums [B, L, C]) of a slab, float32."""
+    xf = x.float()
+    return xf.mean(dim=2), xf.sum(dim=1)
+
+
+def coord_attn_slab_mix_plain(rmean: torch.Tensor, colsum: torch.Tensor,
+                              wts: CoordAttnWeights, norm_kind: str = "group",
+                              gn_groups: int = 4):
+    """The bottleneck on the whole map's pooled terms (rmean [B, L, C] the
+    row means, colsum [B, L, C] the column sums over all L rows): yn =
+    GELU(norm(pooled @ W1 + b)) and the cross terms yx = yn @ Wx + bx (h2w
+    for h, w2h for w), each [B, 2, L, R]."""
+    l = rmean.shape[1]
+    r = wts.w1h.shape[-1]
+    mm = per_sample_matmul
+    xh1 = mm(rmean, wts.w1h[:-1]) + wts.w1h[-1]
+    xw1 = mm(colsum / l, wts.w1w[:-1]) + wts.w1w[-1]
+    if norm_kind == "affine":
+        xh1 = xh1 * wts.nh[0] + wts.nh[1]
+        xw1 = xw1 * wts.nw[0] + wts.nw[1]
+    elif norm_kind == "group":
+        xh1 = _group_norm(xh1, gn_groups, wts.nh[0], wts.nh[1])
+        xw1 = _group_norm(xw1, gn_groups, wts.nw[0], wts.nw[1])
+    else:
+        raise ValueError(f"unknown norm_kind {norm_kind!r}")
+    yh, yw = F.gelu(xh1), F.gelu(xw1)
+    yx_h = mm(yh, wts.wmix[:r]) + wts.wmix[r]
+    yx_w = mm(yw, wts.wmix[r + 1:2 * r + 1]) + wts.wmix[2 * r + 1]
+    return torch.stack([yh, yw], dim=1), torch.stack([yx_h, yx_w], dim=1)
+
+
+def coord_attn_slab_apply_plain(x: torch.Tensor, yn: torch.Tensor,
+                                yx: torch.Tensor, wts: CoordAttnWeights,
+                                row0: int) -> torch.Tensor:
+    """The slab x [B, h, L, C] (rows row0 .. row0 + h) times its gates:
+    zh = yn_h + s0 * yx_w on its rows, zw = yn_w + s1 * yx_h,
+    out = x * (s2 * sigmoid(zh @ Wh + bh) + s3 * sigmoid(zw @ Ww + bw))."""
+    h = x.shape[1]
+    r = wts.w1h.shape[-1]
+    s = wts.scal.reshape(-1)
+    rows = slice(row0, row0 + h)
+    zh = yn[:, 0, rows] + s[0] * yx[:, 1, rows]
+    zw = yn[:, 1] + s[1] * yx[:, 0]
+    mm = per_sample_matmul
+    a_h = torch.sigmoid(mm(zh, wts.wout[:r]) + wts.bout[0])
+    a_w = torch.sigmoid(mm(zw, wts.wout[r:]) + wts.bout[1])
+    attn = s[2] * a_h[:, :, None, :] + s[3] * a_w[:, None, :, :]
+    return (x.float() * attn).to(x.dtype)
+
+
+def coord_attn_slab_plain(x: torch.Tensor, wts: CoordAttnWeights,
+                          norm_kind: str, gn_groups: int, group
+                          ) -> torch.Tensor:
+    """CoordAttn on this process's slab through the twins on any device,
+    with ``group``'s differentiable gather and all_reduce between them
+    (``parallel.spatial.SpatialGroup``)."""
+    rmean, colsum = coord_attn_slab_pool_plain(x)
+    yn, yx = coord_attn_slab_mix_plain(
+        group.gather(rmean, dim=1), group.all_reduce(colsum), wts,
+        norm_kind, gn_groups)
+    return coord_attn_slab_apply_plain(x, yn, yx, wts,
+                                       group.row0(x.shape[1]))
+
+
+def coord_attn_slab(x: torch.Tensor, wts: CoordAttnWeights,
+                    norm_kind: str, gn_groups: int, group) -> torch.Tensor:
+    """CoordAttn on this process's slab x [B, h, L, C]: the pooling pass,
+    the gather of the row means and the all_reduce of the column sums over
+    ``group``'s slabs, the bottleneck on the whole map, the apply pass on
+    the slab's rows. CUDA tensors launch the slab kernels
+    (``coord_attn_slab.launches`` counts those calls), CPU tensors take the
+    twins."""
+    rmean, colsum = coord_attn_slab_pool(x)
+    yn, yx = coord_attn_slab_mix(group.gather(rmean, dim=1),
+                                 group.all_reduce(colsum), wts, norm_kind,
+                                 gn_groups)
+    out = coord_attn_slab_apply(x, yn, yx, wts, group.row0(x.shape[1]))
+    if x.device.type == "cuda":
+        coord_attn_slab.launches += 1
+    return out
+
+
+coord_attn_slab.launches = 0
+
+
+def _slab_lib() -> ctypes.CDLL:
+    lib = _lib()
+    if lib.coord_attn_slab_mix.argtypes is None:
+        p = ctypes.c_void_p
+        for fn in (lib.coord_attn_slab_pool, lib.coord_attn_slab_pool_bf16):
+            fn.argtypes = [p] * 6
+            fn.restype = ctypes.c_int
+        lib.coord_attn_slab_mix.argtypes = [p] * 9
+        lib.coord_attn_slab_mix.restype = ctypes.c_int
+        for fn in (lib.coord_attn_slab_apply,
+                   lib.coord_attn_slab_apply_bf16):
+            fn.argtypes = [p] * 7
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_slab_x(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"{what}: x must be [B,h,L,C], got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    vec = 16 // x.element_size()
+    if (not x.is_contiguous() or x.data_ptr() % 16 or x.shape[3] % vec
+            or x.numel() == 0):
+        raise ValueError(f"{what}: needs a contiguous 16-byte aligned NHWC x"
+                         f" with C % {vec} == 0, got {tuple(x.shape)}")
+    if x.shape[2] > MAX_SIDE:
+        raise ValueError(f"{what}: the kernel takes maps of side <= "
+                         f"{MAX_SIDE}, got {x.shape[2]}")
+
+
+def _groups(norm_kind: str, gn_groups: int, r: int) -> int:
+    if norm_kind == "group":
+        if gn_groups < 1 or r % gn_groups:
+            raise ValueError(f"coord_attn: R={r} not divisible into "
+                             f"{gn_groups} groups")
+        return gn_groups
+    if norm_kind == "affine":
+        return 1
+    raise ValueError(f"unknown norm_kind {norm_kind!r}")
+
+
+def coord_attn_slab_pool(x: torch.Tensor):
+    """(row means [B, h, C], column sums [B, L, C]) of the slab x
+    [B, h, L, C], float32."""
+    if x.device.type == "cpu":
+        return coord_attn_slab_pool_plain(x)
+    _check_slab_x(x, "coord_attn_slab_pool")
+    b, h, l, c = x.shape
+    plan = slab_plan(b, h, l, c, 1, "affine", 1, x.element_size())
+    rmean = torch.empty((b, h, c), dtype=torch.float32, device=x.device)
+    cp = torch.empty(plan.cp_bytes // 4, dtype=torch.float32, device=x.device)
+    colsum = torch.empty((b, l, c), dtype=torch.float32, device=x.device)
+    params = (ctypes.c_int * 7)(x.device.index, b, h, l, c, plan.pool_rows,
+                                plan.pool.block)
+    lib = _slab_lib()
+    fn = (lib.coord_attn_slab_pool if x.dtype == torch.float32
+          else lib.coord_attn_slab_pool_bf16)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib, fn(x.data_ptr(), rmean.data_ptr(), cp.data_ptr(),
+                         colsum.data_ptr(), ctypes.addressof(params), stream),
+                 "coord_attn_slab_pool")
+    return rmean, colsum
+
+
+def coord_attn_slab_mix(rmean: torch.Tensor, colsum: torch.Tensor,
+                        wts: CoordAttnWeights, norm_kind: str = "group",
+                        gn_groups: int = 4):
+    """(yn, yx) [B, 2, L, R] from the whole map's row means and column
+    sums (each [B, L, C] float32), replicated on every slab's process."""
+    if rmean.device.type == "cpu":
+        return coord_attn_slab_mix_plain(rmean, colsum, wts, norm_kind,
+                                         gn_groups)
+    b, l, c = rmean.shape
+    r = wts.w1h.shape[-1]
+    groups = _groups(norm_kind, gn_groups, r)
+    if tuple(colsum.shape) != (b, l, c) or l > MAX_SIDE:
+        raise ValueError(f"coord_attn_slab_mix: rmean and colsum must be "
+                         f"[B, L, C] with L <= {MAX_SIDE}, got "
+                         f"{tuple(rmean.shape)}, {tuple(colsum.shape)}")
+    dev = rmean.device
+    rmean = rmean.to(torch.float32).contiguous()
+    colsum = colsum.to(torch.float32).contiguous()
+    plan = slab_plan(b, l, l, c, r, norm_kind, groups)
+    if plan.bottleneck.smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"coord_attn: L={l}, R={r} exceed a block's "
+                         "shared memory")
+    ptrs = _weight_ptrs(wts, dev, c)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, scratch = _workspace(dev, stream, plan)
+    yn = torch.empty((b, 2, l, r), dtype=torch.float32, device=dev)
+    yx = torch.empty_like(yn)
+    params = (ctypes.c_int * 11)(
+        dev.index, b, l, c, r, 0 if norm_kind == "group" else 1, groups,
+        plan.n_splits, plan.split_chunks, plan.n_stages,
+        plan.bottleneck.smem - BN_STATIC_SMEM)
+    lib = _slab_lib()
+    _build.check(lib, lib.coord_attn_slab_mix(
+        rmean.data_ptr(), colsum.data_ptr(), ctypes.addressof(ptrs),
+        scratch.data_ptr(), yn.data_ptr(), yx.data_ptr(),
+        counters.data_ptr(), ctypes.addressof(params), stream),
+        "coord_attn_slab_mix")
+    return yn, yx
+
+
+def coord_attn_slab_apply(x: torch.Tensor, yn: torch.Tensor,
+                          yx: torch.Tensor, wts: CoordAttnWeights,
+                          row0: int) -> torch.Tensor:
+    """The slab x [B, h, L, C] (rows row0 .. row0 + h) times its gates
+    from the whole map's yn, yx [B, 2, L, R]."""
+    if x.device.type == "cpu":
+        return coord_attn_slab_apply_plain(x, yn, yx, wts, row0)
+    _check_slab_x(x, "coord_attn_slab_apply")
+    b, h, l, c = x.shape
+    r = wts.w1h.shape[-1]
+    if tuple(yn.shape) != (b, 2, l, r) or tuple(yx.shape) != (b, 2, l, r) \
+            or not 0 <= row0 <= l - h:
+        raise ValueError(f"coord_attn_slab_apply: yn, yx must be "
+                         f"{(b, 2, l, r)} and rows {row0}..{row0 + h} in "
+                         f"0..{l}, got {tuple(yn.shape)}, {tuple(yx.shape)}")
+    plan = slab_plan(b, h, l, c, r, "affine", 1, x.element_size())
+    if plan.apply.smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"coord_attn: L={l}, R={r} exceed a block's "
+                         "shared memory")
+    ptrs = _weight_ptrs(wts, x.device, c)
+    yn, yx = yn.contiguous(), yx.contiguous()
+    out = torch.empty_like(x)
+    params = (ctypes.c_int * 9)(x.device.index, b, h, l, c, r, row0,
+                                plan.apply_rows, plan.apply.smem)
+    lib = _slab_lib()
+    fn = (lib.coord_attn_slab_apply if x.dtype == torch.float32
+          else lib.coord_attn_slab_apply_bf16)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib, fn(x.data_ptr(), yn.data_ptr(), yx.data_ptr(),
+                         ctypes.addressof(ptrs),
+                         out.data_ptr(), ctypes.addressof(params), stream),
+                 "coord_attn_slab_apply")
+    return out

@@ -225,15 +225,16 @@ __device__ __forceinline__ bool last_block(unsigned int* count, unsigned int n,
   return true;
 }
 
-// grid (ceil(cv / kChunkV), ceil(l / rows), b), block 32 * warps with
-// warps * kColsPerWarp * KC >= l; cv = c / Vec<T>::n vectors per pixel.
-// Lane = (column, vector) = (lane / 8, lane % 8); warp w owns columns
+// x [b, hr, l, c]: hr rows of l columns (hr = l for a whole map, fewer for
+// an H-slab). grid (ceil(cv / kChunkV), ceil(hr / rows), b), block 32 *
+// warps with warps * kColsPerWarp * KC >= l; cv = c / Vec<T>::n vectors per
+// pixel. Lane = (column, vector) = (lane / 8, lane % 8); warp w owns columns
 // w*4 + lane/8 + k*4*warps, k < KC. Writes the tile's row means to rmean
-// [b, l, c] and its column sums to cp [b, T, l, c] (fp32).
+// [b, hr, c] and its column sums to cp [b, T, l, c] (fp32).
 template <typename T, int KC>
 __global__ void __launch_bounds__(kPoolWarps * 32)
 ca_pool(const typename Vec<T>::type* __restrict__ x, float* __restrict__ rmean,
-        float* __restrict__ cp, int l, int cv_n, int rows) {
+        float* __restrict__ cp, int hr, int l, int cv_n, int rows) {
   using V = typename Vec<T>::type;
   constexpr int N = Vec<T>::n;
   constexpr int G = KC >= 8 ? 1 : 8 / KC;  // rows loaded together
@@ -243,13 +244,13 @@ ca_pool(const typename Vec<T>::type* __restrict__ x, float* __restrict__ rmean,
   const int nw = blockDim.x >> 5;
   const int cv = blockIdx.x * kChunkV + (lane & 7);
   const int tile = blockIdx.y, b = blockIdx.z;
-  const int h0 = tile * rows, h1 = min(h0 + rows, l);
+  const int h0 = tile * rows, h1 = min(h0 + rows, hr);
   const bool active = cv < cv_n;
   const int col0 = warp * kColsPerWarp + (lane >> 3);
   const int step = nw * kColsPerWarp;
   const int c = cv_n * N;
   const V zero{};
-  const V* xs = x + (size_t)b * l * l * cv_n + cv;
+  const V* xs = x + (size_t)b * hr * l * cv_n + cv;
   float col[KC][N];
 #pragma unroll
   for (int k = 0; k < KC; ++k)
@@ -305,7 +306,7 @@ ca_pool(const typename Vec<T>::type* __restrict__ x, float* __restrict__ rmean,
       for (int e = 0; e < N; ++e) s[e] += red[i][w][vi][e];
 #pragma unroll
     for (int e = 0; e < N; ++e) s[e] = s[e] / (float)l;
-    store_floats<N>(rmean + ((size_t)b * l + h0 + i) * c + (size_t)cvv * N, s);
+    store_floats<N>(rmean + ((size_t)b * hr + h0 + i) * c + (size_t)cvv * N, s);
   }
   if (active) {
     float* o = cp + ((size_t)b * gridDim.y + tile) * l * c + (size_t)cv * N;
@@ -589,13 +590,15 @@ ca_bottleneck(const float* __restrict__ rmean, const float* __restrict__ cp,
 // before the kernel waits for ca_bottleneck's yn and yx (programmatic
 // dependent launch), so both are in flight during the bottleneck's tail
 // and the gates' products.
+// x and out are [b, hs, l, c]: the rows row0 .. row0 + hs of the map whose
+// pooled terms yn and yx hold (hs = l and row0 = 0 for a whole map).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
 ca_apply(const typename Vec<T>::type* __restrict__ x, const float* __restrict__ yn,
          const float* __restrict__ yx, const float* __restrict__ wout,
          const float* __restrict__ bout,
          const float* __restrict__ scal, typename Vec<T>::type* __restrict__ out,
-         int l, int c, int r, int rows) {
+         int l, int c, int r, int rows, int hs, int row0) {
   extern __shared__ __align__(16) float sm[];
   constexpr int N = Vec<T>::n;
   // V: 16-byte vectors of x per chunk row (8 fp32 / 4 bf16)
@@ -604,7 +607,7 @@ ca_apply(const typename Vec<T>::type* __restrict__ x, const float* __restrict__ 
   // blocks walk x in the reverse of ca_pool's order: the part it read last
   // may still be in L2
   const int chunk = gridDim.x - 1 - blockIdx.x, b = gridDim.z - 1 - blockIdx.z;
-  const int h0 = (gridDim.y - 1 - blockIdx.y) * rows, nh = min(rows, l - h0);
+  const int h0 = (gridDim.y - 1 - blockIdx.y) * rows, nh = min(rows, hs - h0);
   const int nrow = nh + l;  // gate rows: the tile's rows, then all L columns
   float* zs = sm;                    // [nrow][rp]
   float* ws = zs + nrow * rp;        // [2][rp][kApplyCh]: Wh, Ww for the chunk
@@ -627,7 +630,7 @@ ca_apply(const typename Vec<T>::type* __restrict__ x, const float* __restrict__ 
   // col) slot, slot + kThreads / V, ... (row-major over the tile)
   const int vi = tid % V, pstep = kThreads / V;
   const bool vok = chunk * V + vi < cv_n;
-  const size_t base = ((size_t)b * l + h0) * l * cv_n + chunk * V + vi;
+  const size_t base = ((size_t)b * hs + h0) * l * cv_n + chunk * V + vi;
   const int n_pairs = vok ? nh * l : 0;
   int pair = tid / V;
   typename Vec<T>::type xv[U];
@@ -644,8 +647,9 @@ ca_apply(const typename Vec<T>::type* __restrict__ x, const float* __restrict__ 
   for (int i = tid; i < nrow * rp; i += kThreads) {
     const int gr = i / rp, k = i % rp;
     const bool ok = k < r;
-    const size_t hn = (size_t)(h0 + gr) * r + k, wn = (size_t)(l + gr - nh) * r + k;
-    const size_t hx = (size_t)(l + h0 + gr) * r + k, wx = (size_t)(gr - nh) * r + k;
+    const int hg = row0 + h0 + gr;  // the map's row
+    const size_t hn = (size_t)hg * r + k, wn = (size_t)(l + gr - nh) * r + k;
+    const size_t hx = (size_t)(l + hg) * r + k, wx = (size_t)(gr - nh) * r + k;
     cp_async4(zs + i, ok ? nb + (gr < nh ? hn : wn) : nb, ok);
     cp_async4(xs + i, ok ? pb + (gr < nh ? hx : wx) : pb, ok);
   }
@@ -731,11 +735,32 @@ ca_apply(const typename Vec<T>::type* __restrict__ x, const float* __restrict__ 
 
 template <typename T, int KC>
 cudaError_t launch_pool(dim3 grid, int threads, cudaStream_t s, const T* x,
-                        float* rmean, float* cp, int l, int cv_n, int rows) {
+                        float* rmean, float* cp, int hr, int l, int cv_n,
+                        int rows) {
   ca_pool<T, KC><<<grid, threads, 0, s>>>(
-      reinterpret_cast<const typename Vec<T>::type*>(x), rmean, cp, l, cv_n,
-      rows);
+      reinterpret_cast<const typename Vec<T>::type*>(x), rmean, cp, hr, l,
+      cv_n, rows);
   return cudaGetLastError();
+}
+
+// The pooling pass over hr rows of l columns, KC picked from l.
+template <typename T>
+cudaError_t pool_pass(const T* x, float* rmean, float* cp, int b, int hr,
+                      int l, int c, int pool_rows, int pool_threads,
+                      cudaStream_t s) {
+  const int cv_n = c / Vec<T>::n;
+  const int n_tiles = (hr + pool_rows - 1) / pool_rows;
+  const int chunks = (cv_n + kChunkV - 1) / kChunkV;
+  const int cols_per_step = (pool_threads / 32) * kColsPerWarp;
+  const int kc = (l + cols_per_step - 1) / cols_per_step;
+  if (pool_rows > kPoolRows || pool_threads > kPoolWarps * 32 || kc > 8 ||
+      c % Vec<T>::n)
+    return cudaErrorInvalidValue;
+  const dim3 grid(chunks, n_tiles, b);
+  return kc <= 1 ? launch_pool<T, 1>(grid, pool_threads, s, x, rmean, cp, hr, l, cv_n, pool_rows)
+       : kc <= 2 ? launch_pool<T, 2>(grid, pool_threads, s, x, rmean, cp, hr, l, cv_n, pool_rows)
+       : kc <= 4 ? launch_pool<T, 4>(grid, pool_threads, s, x, rmean, cp, hr, l, cv_n, pool_rows)
+                 : launch_pool<T, 8>(grid, pool_threads, s, x, rmean, cp, hr, l, cv_n, pool_rows);
 }
 
 // Launch with programmatic stream serialization: the kernel may start
@@ -774,6 +799,64 @@ cudaError_t allow_smem(const void* fn, int bytes, bool (&done)[kMaxDevices]) {
   return err;
 }
 
+static bool bn_smem_set[kMaxDevices] = {}, apply_smem_set[kMaxDevices] = {};
+
+// ca_bottleneck over a whole map's pooled terms (programmatic dependent
+// launch after the pooling pass).
+cudaError_t bottleneck_pass(const float* rmean, const float* cp,
+                            const float* w1h, const float* w1w,
+                            const float* nh, const float* nw,
+                            const float* wmix, float* yp, float* y, float* yn,
+                            float* yx, unsigned int* counter, int b, int l,
+                            int c, int r, int n_tiles, int n_splits,
+                            int split_chunks, int n_stages, int norm_kind,
+                            int groups, int bottleneck_smem, cudaStream_t s) {
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(ca_bottleneck),
+                               bottleneck_smem, bn_smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 bn_grid((r + kBnCols - 1) / kBnCols * n_splits,
+                     (l + kBnRows - 1) / kBnRows, 2 * b);
+  return launch_dependent(ca_bottleneck, bn_grid, kThreads, bottleneck_smem, s,
+                          rmean, cp, w1h, w1w, nh, nw, wmix, yp, y, yn, yx,
+                          counter, l, c, r, n_tiles, n_splits, split_chunks,
+                          n_stages, norm_kind, groups);
+}
+
+// ca_apply over hs rows (from row row0) of a map of side l.
+template <typename T>
+cudaError_t apply_pass(const T* x, const float* yn, const float* yx,
+                       const float* wout, const float* bout, const float* scal,
+                       T* out, int b, int hs, int l, int row0, int c, int r,
+                       int apply_rows, int apply_smem, cudaStream_t s) {
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(ca_apply<T>),
+                               apply_smem, apply_smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 apply_grid((c + kApplyCh - 1) / kApplyCh,
+                        (hs + apply_rows - 1) / apply_rows, b);
+  using V = typename Vec<T>::type;
+  return launch_dependent(
+      ca_apply<T>, apply_grid, kThreads, apply_smem, s,
+      reinterpret_cast<const V*>(x), yn, yx, wout, bout, scal,
+      reinterpret_cast<V*>(out), l, c, r, apply_rows, hs, row0);
+}
+
+// cs[b, l, c] = the row tiles' column sums cp[b, T, l, c] added in tile
+// order (the slab form's column sums, before the all-reduce).
+__global__ void __launch_bounds__(kThreads)
+ca_fold(const float4* __restrict__ cp, float4* __restrict__ cs, int n_tiles,
+        int per_sample, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int b = i / per_sample, e = i % per_sample;
+  const float4* p = cp + (size_t)b * n_tiles * per_sample + e;
+  float4 s = p[0];
+  for (int t = 1; t < n_tiles; ++t) {
+    const float4 v = p[(size_t)t * per_sample];
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  }
+  cs[i] = s;
+}
+
 // The three launches of one call, on stream s of the current device.
 template <typename T>
 cudaError_t launch(const T* x, const float* w1h, const float* w1w,
@@ -784,13 +867,8 @@ cudaError_t launch(const T* x, const float* w1h, const float* w1w,
                    int pool_rows, int pool_threads, int n_splits,
                    int split_chunks, int n_stages, int apply_rows,
                    int bottleneck_smem, int apply_smem, cudaStream_t s) {
-  const int cv_n = c / Vec<T>::n;
   const int n_tiles = (l + pool_rows - 1) / pool_rows;
-  const int chunks = (cv_n + kChunkV - 1) / kChunkV;
-  const int cols_per_step = (pool_threads / 32) * kColsPerWarp;
-  const int kc = (l + cols_per_step - 1) / cols_per_step;
-  if (pool_rows > kPoolRows || pool_threads > kPoolWarps * 32 || kc > 8 ||
-      n_stages < 2 || n_stages > kBnMaxStages || c % Vec<T>::n ||
+  if (n_stages < 2 || n_stages > kBnMaxStages ||
       (size_t)n_splits * split_chunks * kBnChunk < (size_t)c)
     return cudaErrorInvalidValue;
   float* rmean = scratch;
@@ -800,36 +878,15 @@ cudaError_t launch(const T* x, const float* w1h, const float* w1w,
   float* yx = yn + (size_t)b * 2 * l * r;
   float* yp = yx + (size_t)b * 2 * l * r;
 
-  const dim3 pool_grid(chunks, n_tiles, b);
-  cudaError_t err =
-      kc <= 1 ? launch_pool<T, 1>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows)
-      : kc <= 2 ? launch_pool<T, 2>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows)
-      : kc <= 4 ? launch_pool<T, 4>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows)
-                : launch_pool<T, 8>(pool_grid, pool_threads, s, x, rmean, cp, l, cv_n, pool_rows);
+  cudaError_t err = pool_pass<T>(x, rmean, cp, b, l, l, c, pool_rows,
+                                 pool_threads, s);
   if (err != cudaSuccess) return err;
-
-  static bool bn_smem[kMaxDevices] = {}, apply_smem_set[kMaxDevices] = {};
-  err = allow_smem(reinterpret_cast<const void*>(ca_bottleneck), bottleneck_smem,
-                   bn_smem);
+  err = bottleneck_pass(rmean, cp, w1h, w1w, nh, nw, wmix, yp, y, yn, yx,
+                        counter, b, l, c, r, n_tiles, n_splits, split_chunks,
+                        n_stages, norm_kind, groups, bottleneck_smem, s);
   if (err != cudaSuccess) return err;
-  const dim3 bn_grid((r + kBnCols - 1) / kBnCols * n_splits,
-                     (l + kBnRows - 1) / kBnRows, 2 * b);
-  err = launch_dependent(ca_bottleneck, bn_grid, kThreads, bottleneck_smem, s,
-                         rmean, cp, w1h, w1w, nh, nw, wmix, yp, y, yn, yx,
-                         counter, l, c, r, n_tiles, n_splits, split_chunks,
-                         n_stages, norm_kind, groups);
-  if (err != cudaSuccess) return err;
-
-  err = allow_smem(reinterpret_cast<const void*>(ca_apply<T>), apply_smem,
-                   apply_smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 apply_grid((c + kApplyCh - 1) / kApplyCh,
-                        (l + apply_rows - 1) / apply_rows, b);
-  using V = typename Vec<T>::type;
-  return launch_dependent(
-      ca_apply<T>, apply_grid, kThreads, apply_smem, s,
-      reinterpret_cast<const V*>(x), yn, yx, wout, bout, scal,
-      reinterpret_cast<V*>(out), l, c, r, apply_rows);
+  return apply_pass<T>(x, yn, yx, wout, bout, scal, out, b, l, l, 0, c, r,
+                       apply_rows, apply_smem, s);
 }
 
 // The entry points' body: the shape and plan from p, on the given device.
@@ -851,6 +908,71 @@ int forward(const T* x, const float* const* w, T* out, float* scratch,
                   counter, b, l, c, r, norm_kind, groups, pool_rows,
                   pool_threads, n_splits, split_chunks, n_stages, apply_rows,
                   bottleneck_smem, apply_smem, static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// The slab form's three entry points (see the extern "C" block).
+template <typename T>
+int slab_pool(const T* x, float* rmean, float* cp, float* colsum, const int* p,
+              void* stream) {
+  const int device = p[0], b = p[1], hs = p[2], l = p[3], c = p[4];
+  const int pool_rows = p[5], pool_threads = p[6];
+  if (c % 4 || hs < 1 || l < 1 || b < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (err == cudaSuccess)
+    err = pool_pass<T>(x, rmean, cp, b, hs, l, c, pool_rows, pool_threads, s);
+  if (err == cudaSuccess) {
+    const int n_tiles = (hs + pool_rows - 1) / pool_rows;
+    const int per_sample = l * c / 4, n = b * per_sample;
+    ca_fold<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(cp), reinterpret_cast<float4*>(colsum),
+        n_tiles, per_sample, n);
+    err = cudaGetLastError();
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+int slab_mix(const float* rmean, const float* colsum, const float* const* w,
+             float* scratch, float* yn, float* yx, unsigned int* counter,
+             const int* p, void* stream) {
+  const int device = p[0], b = p[1], l = p[2], c = p[3], r = p[4];
+  const int norm_kind = p[5], groups = p[6], n_splits = p[7];
+  const int split_chunks = p[8], n_stages = p[9], bottleneck_smem = p[10];
+  if (n_stages < 2 || n_stages > kBnMaxStages ||
+      (size_t)n_splits * split_chunks * kBnChunk < (size_t)c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  float* y = scratch;
+  float* yp = y + (size_t)b * 2 * l * r;
+  if (err == cudaSuccess)
+    err = bottleneck_pass(rmean, colsum, w[0], w[1], w[2], w[3], w[4], yp, y,
+                          yn, yx, counter, b, l, c, r, 1, n_splits,
+                          split_chunks, n_stages, norm_kind, groups,
+                          bottleneck_smem, static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int slab_apply(const T* x, const float* yn, const float* yx,
+               const float* const* w, T* out, const int* p, void* stream) {
+  const int device = p[0], b = p[1], hs = p[2], l = p[3], c = p[4], r = p[5];
+  const int row0 = p[6], apply_rows = p[7], apply_smem = p[8];
+  if (c % Vec<T>::n || row0 < 0 || row0 + hs > l)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = apply_pass<T>(x, yn, yx, w[5], w[6], w[7], out, b, hs, l, row0, c, r,
+                        apply_rows, apply_smem, static_cast<cudaStream_t>(stream));
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
@@ -890,6 +1012,53 @@ int coord_attn_forward_bf16(const __nv_bfloat16* x, const float* const* w,
                             __nv_bfloat16* out, float* scratch,
                             unsigned int* counter, const int* p, void* stream) {
   return forward<__nv_bfloat16>(x, w, out, scratch, counter, p, stream);
+}
+
+// The slab form: x [b, hs, l, c] is rows row0 .. row0 + hs of a map of side
+// l whose H is split over processes. The caller all-gathers the slabs' row
+// means and all-reduces their column sums between the first two entries.
+//
+// coord_attn_slab_pool: the pooling pass over the slab, then the row tiles'
+// column sums folded in tile order: rmean [b, hs, c] (means over the l
+// columns), cp [b, T, l, c] scratch (T = ceil(hs / pool_rows)), colsum
+// [b, l, c] (sums over the slab's rows). p: device, b, hs, l, c, pool_rows,
+// pool_threads.
+int coord_attn_slab_pool(const float* x, float* rmean, float* cp,
+                         float* colsum, const int* p, void* stream) {
+  return slab_pool<float>(x, rmean, cp, colsum, p, stream);
+}
+
+int coord_attn_slab_pool_bf16(const __nv_bfloat16* x, float* rmean, float* cp,
+                              float* colsum, const int* p, void* stream) {
+  return slab_pool<__nv_bfloat16>(x, rmean, cp, colsum, p, stream);
+}
+
+// coord_attn_slab_mix: the bottleneck over the whole map's pooled terms,
+// rmean [b, l, c] (row means, gathered) and colsum [b, l, c] (column sums
+// over all l rows, reduced): yn, yx [b, 2, l, r]. scratch holds y [b, 2, l,
+// r] and the k-slices' partials; counter as for coord_attn_forward. p:
+// device, b, l, c, r, norm_kind, groups, n_splits, split_chunks, n_stages,
+// bottleneck_smem.
+int coord_attn_slab_mix(const float* rmean, const float* colsum,
+                        const float* const* w, float* scratch, float* yn,
+                        float* yx, unsigned int* counter, const int* p,
+                        void* stream) {
+  return slab_mix(rmean, colsum, w, scratch, yn, yx, counter, p, stream);
+}
+
+// coord_attn_slab_apply: out [b, hs, l, c] = the slab times its gates, the
+// h-gates from rows row0 .. row0 + hs of yn and yx. p: device, b, hs, l, c,
+// r, row0, apply_rows, apply_smem.
+int coord_attn_slab_apply(const float* x, const float* yn, const float* yx,
+                          const float* const* w, float* out, const int* p,
+                          void* stream) {
+  return slab_apply<float>(x, yn, yx, w, out, p, stream);
+}
+
+int coord_attn_slab_apply_bf16(const __nv_bfloat16* x, const float* yn,
+                               const float* yx, const float* const* w,
+                               __nv_bfloat16* out, const int* p, void* stream) {
+  return slab_apply<__nv_bfloat16>(x, yn, yx, w, out, p, stream);
 }
 
 }  // extern "C"

@@ -602,6 +602,192 @@ int forward(const T* x, const float* w1t, const float* w2t, T* out,
   return static_cast<int>(err);
 }
 
+
+// ---------------------------------------------------------------- slab form
+// An H-slab of an image whose H is split over processes (the 'spatial'
+// mesh axis). The mean needs every slab's sums, so the slab form splits
+// where the collective goes: se_slab_pool writes this slab's per-channel
+// sums [b, c] (fp32), the caller all-reduces them over the slabs, and
+// se_slab_apply forms the gate from the reduced sums and scales the slab.
+// Simple kernels, no atomics: every sum runs in an order fixed by the
+// slab's shape (pixels in order within a thread, lanes then parts in
+// index order), never by b.
+//
+// se_slab_parts: grid (parts, cv / vb, b), block kSlabThreads = vb vector
+// columns x lanes pixel rows. Thread (lane, v) sums pixels p0 + lane,
+// p0 + lane + lanes, ... < p1 of its part for vector column v; the lanes
+// are added in order into psum[b, part, c].
+constexpr int kSlabThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kSlabThreads)
+se_slab_parts(const typename Vec<T>::type* __restrict__ x,
+              float* __restrict__ psum, int hw, int cv, int vb,
+              int pix_per_part) {
+  constexpr int N = Vec<T>::n;
+  __shared__ float red[kSlabThreads][N];
+  const int t = threadIdx.x, v = t % vb, lane = t / vb, lanes = blockDim.x / vb;
+  const int part = blockIdx.x, b = blockIdx.z, parts = gridDim.x;
+  const int vi = blockIdx.y * vb + v;
+  const int p0 = part * pix_per_part, p1 = min(p0 + pix_per_part, hw);
+  float acc[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  const typename Vec<T>::type* xs = x + (size_t)b * hw * cv + vi;
+  for (int p = p0 + lane; p < p1; p += lanes) {
+    float f[N];
+    Vec<T>::widen(__ldg(xs + (size_t)p * cv), f);
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] += f[e];
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) red[t][e] = acc[e];
+  __syncthreads();
+  if (lane == 0) {
+    float s[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) s[e] = red[v][e];
+    for (int l = 1; l < lanes; ++l)
+#pragma unroll
+      for (int e = 0; e < N; ++e) s[e] += red[l * vb + v][e];
+    float* o = psum + ((size_t)b * parts + part) * cv * N + (size_t)vi * N;
+#pragma unroll
+    for (int e = 0; e < N; ++e) o[e] = s[e];
+  }
+}
+
+// sums[b, c] = the parts' sums added in part order; one thread per (b, c).
+__global__ void __launch_bounds__(kSlabThreads)
+se_slab_fold(const float* __restrict__ psum, float* __restrict__ sums,
+             int parts, int c, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int b = i / c, ch = i % c;
+  const float* ps = psum + (size_t)b * parts * c + ch;
+  float s = ps[0];
+  for (int k = 1; k < parts; ++k) s += ps[(size_t)k * c];
+  sums[i] = s;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// grid b, block kSlabThreads, dynamic shared memory (c + r) floats. The
+// sample's gate: mean = sums / count, hidden = GELU(mean @ w1) (a warp per
+// output, lane-strided over C, then a butterfly), gate = sigmoid(hidden @
+// w2), rounded to T (bf16) and kept as fp32 in gate[b, c].
+template <typename T>
+__global__ void __launch_bounds__(kSlabThreads)
+se_slab_gate(const float* __restrict__ sums, const float* __restrict__ w1t,
+             const float* __restrict__ w2t, float* __restrict__ gate, int c,
+             int r, float count) {
+  extern __shared__ float sm[];
+  float* mean = sm;
+  float* hid = sm + c;
+  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int i = t; i < c; i += blockDim.x) mean[i] = sums[(size_t)b * c + i] / count;
+  __syncthreads();
+  for (int j = warp; j < r; j += blockDim.x / 32) {
+    const float* w = w1t + (size_t)j * c;
+    float a = 0.f;
+    for (int i = lane; i < c; i += 32) a = fmaf(mean[i], __ldg(w + i), a);
+    a = warp_sum(a);
+    if (lane == 0) hid[j] = gelu_erf(a);
+  }
+  __syncthreads();
+  for (int i = t; i < c; i += blockDim.x) {
+    const float* w = w2t + (size_t)i * r;
+    float a = 0.f;
+    for (int j = 0; j < r; ++j) a = fmaf(hid[j], __ldg(w + j), a);
+    const float g = sigmoid(a);
+    gate[(size_t)b * c + i] =
+        Vec<T>::round_gate ? __bfloat162float(__float2bfloat16_rn(g)) : g;
+  }
+}
+
+// out = x * gate, one 16-byte vector a thread, grid-stride.
+template <typename T>
+__global__ void __launch_bounds__(kSlabThreads)
+se_slab_scale(const typename Vec<T>::type* __restrict__ x,
+              const float* __restrict__ gate,
+              typename Vec<T>::type* __restrict__ out, int hw, int cv) {
+  constexpr int N = Vec<T>::n;
+  const int b = blockIdx.y;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)hw * cv;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t at = (size_t)b * hw * cv + i;
+    const float* g = gate + ((size_t)b * cv + i % cv) * N;
+    float f[N];
+    Vec<T>::widen(__ldg(x + at), f);
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] *= g[e];
+    out[at] = Vec<T>::narrow(f);
+  }
+}
+
+// q: device, b, hw, c, vb, parts, pix_per_part (kernels/se_block.py
+// slab_plan). psum: b * parts * c floats.
+template <typename T>
+int slab_pool(const T* x, float* psum, float* sums, const int* q, void* stream) {
+  using V = typename Vec<T>::type;
+  const int device = q[0], b = q[1], hw = q[2], c = q[3], vb = q[4];
+  const int parts = q[5], ppp = q[6];
+  const int cv = c / Vec<T>::n;
+  if (c % Vec<T>::n || vb < 1 || vb > 32 || cv % vb || kSlabThreads % vb ||
+      (long long)parts * ppp < hw || b < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    se_slab_parts<T><<<dim3(parts, cv / vb, b), kSlabThreads, 0, s>>>(
+        reinterpret_cast<const V*>(x), psum, hw, cv, vb, ppp);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) {
+      const int n = b * c;
+      se_slab_fold<<<(n + kSlabThreads - 1) / kSlabThreads, kSlabThreads, 0, s>>>(
+          psum, sums, parts, c, n);
+      err = cudaGetLastError();
+    }
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// q: device, b, hw, c, r, scale_blocks. gate: b * c floats of scratch.
+template <typename T>
+int slab_apply(const T* x, const float* sums, const float* w1t,
+               const float* w2t, float* gate, T* out, const int* q,
+               float count, void* stream) {
+  using V = typename Vec<T>::type;
+  const int device = q[0], b = q[1], hw = q[2], c = q[3], r = q[4];
+  const int blocks = q[5];
+  const size_t smem = (size_t)(c + r) * sizeof(float);
+  if (c % Vec<T>::n || r < 1 || b < 1 || blocks < 1 || smem > 48 * 1024 ||
+      !(count > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    se_slab_gate<T><<<b, kSlabThreads, smem, s>>>(sums, w1t, w2t, gate, c, r, count);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) {
+      se_slab_scale<T><<<dim3(blocks, b), kSlabThreads, 0, s>>>(
+          reinterpret_cast<const V*>(x), gate, reinterpret_cast<V*>(out), hw,
+          c / Vec<T>::n);
+      err = cudaGetLastError();
+    }
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -637,6 +823,36 @@ int se_block_forward_bf16(const __nv_bfloat16* x, const float* w1t,
                           unsigned long long* published, const int* q,
                           unsigned epoch, void* stream) {
   return forward<__nv_bfloat16>(x, w1t, w2t, out, published, q, epoch, stream);
+}
+
+// The slab form (see se_slab_parts). se_slab_pool: x [b, hw, c] -> sums
+// [b, c] fp32, through psum (b * parts * c floats of scratch); q: device, b,
+// hw, c, vb, parts, pix_per_part. se_slab_apply: out = x * sigmoid(GELU((sums
+// / count) @ w1) @ w2), the gate rounded to x's type, through gate (b * c
+// floats of scratch); q: device, b, hw, c, r, scale_blocks. Two launches
+// each, on `stream` of the given device.
+int se_slab_pool(const float* x, float* psum, float* sums, const int* q,
+                 void* stream) {
+  return slab_pool<float>(x, psum, sums, q, stream);
+}
+
+int se_slab_pool_bf16(const __nv_bfloat16* x, float* psum, float* sums,
+                      const int* q, void* stream) {
+  return slab_pool<__nv_bfloat16>(x, psum, sums, q, stream);
+}
+
+int se_slab_apply(const float* x, const float* sums, const float* w1t,
+                  const float* w2t, float* gate, float* out, const int* q,
+                  float count, void* stream) {
+  return slab_apply<float>(x, sums, w1t, w2t, gate, out, q, count, stream);
+}
+
+int se_slab_apply_bf16(const __nv_bfloat16* x, const float* sums,
+                       const float* w1t, const float* w2t, float* gate,
+                       __nv_bfloat16* out, const int* q, float count,
+                       void* stream) {
+  return slab_apply<__nv_bfloat16>(x, sums, w1t, w2t, gate, out, q, count,
+                                   stream);
 }
 
 }  // extern "C"

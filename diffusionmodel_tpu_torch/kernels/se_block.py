@@ -149,12 +149,17 @@ def se_block_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
     GELU as ``se_block_xla``): the mean and the MLP in float32, the gate
     rounded to x's dtype, then x times the gate in float32 (exact for bf16
     operands) rounded once to x's dtype."""
-    xf = x.float()
-    pooled = xf.mean(dim=(1, 2))
+    return _gate_and_scale(x, x.float().mean(dim=(1, 2)), w1, w2)
+
+
+def _gate_and_scale(x: torch.Tensor, pooled: torch.Tensor, w1: torch.Tensor,
+                    w2: torch.Tensor) -> torch.Tensor:
+    """x times ``sigmoid(GELU(pooled @ w1) @ w2)`` (pooled [B, C] float32),
+    the gate rounded to x's dtype, the product rounded once."""
     y = torch.sigmoid(per_sample_matmul(
         F.gelu(per_sample_matmul(pooled, w1.float())), w2.float()))
     gate = y.to(x.dtype).float()
-    return (xf * gate[:, None, None, :]).to(x.dtype)
+    return (x.float() * gate[:, None, None, :]).to(x.dtype)
 
 
 def se_block_staged(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
@@ -312,3 +317,144 @@ def se_block(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
 
 
 se_block.launches = 0
+
+
+# ---------------------------------------------------------------- slab form
+# x is this process's H-slab [B, h, W, C] of a map whose H is split over
+# the 'spatial' processes. The mean needs every slab, so the slab form
+# splits where the collective goes (csrc/se_block.cu, "slab form"):
+# se_slab_pool -> this slab's sums [B, C] (float32), an all_reduce over the
+# slabs, then se_slab_apply -> the gate from the reduced sums, applied to
+# the slab's rows. Each stage takes its kernel for a CUDA tensor and its
+# plain twin for a CPU tensor; :func:`se_block_slab` runs the three.
+SLAB_THREADS = 256
+SLAB_PIXELS_PER_LANE = 16
+SLAB_SCALE_BLOCKS = 2048
+
+
+class SlabPlan(NamedTuple):
+    vb: int  # 16-byte vector columns per block (a power of two <= 32)
+    parts: int  # pixel parts per sample
+    pix_per_part: int
+    scale_blocks: int  # the scaling kernel's grid (per sample, grid-stride)
+
+
+@functools.lru_cache(maxsize=256)
+def slab_plan(hw: int, c: int, dtype=torch.float32) -> SlabPlan:
+    """The slab kernels' partition for a slab of ``hw`` pixels of ``c``
+    channels: a block sums ``vb`` vector columns over ``lanes`` pixel rows
+    (vb * lanes = 256 threads), each thread 16 pixels of its part. It
+    depends on (hw, c, dtype) only, never on B."""
+    vec = 16 // _elem_bytes(dtype)
+    if c % vec or hw == 0:
+        raise ValueError(f"se_block_slab: needs C % {vec} == 0 and pixels, "
+                         f"got hw={hw}, c={c}")
+    cv = c // vec
+    vb = next(n for n in (32, 16, 8, 4, 2, 1) if cv % n == 0)
+    ppp = SLAB_PIXELS_PER_LANE * (SLAB_THREADS // vb)
+    return SlabPlan(vb=vb, parts=-(-hw // ppp), pix_per_part=ppp,
+                    scale_blocks=min(-(-hw * cv // SLAB_THREADS),
+                                     SLAB_SCALE_BLOCKS))
+
+
+def _check_slab(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"{what}: x must be [B,h,W,C], got {tuple(x.shape)}")
+    _elem_bytes(x.dtype)
+    vec = 16 // x.element_size()
+    if (not x.is_contiguous() or x.data_ptr() % 16 or x.shape[3] % vec
+            or x.numel() == 0):
+        raise ValueError(f"{what}: needs a contiguous 16-byte aligned NHWC x"
+                         f" with C % {vec} == 0, got {tuple(x.shape)}")
+
+
+def se_slab_pool(x: torch.Tensor) -> torch.Tensor:
+    """x: [B,h,W,C] (a slab) -> its per-channel sums [B, C], float32."""
+    if x.device.type == "cpu":
+        return x.float().sum(dim=(1, 2))
+    _check_slab(x, "se_slab_pool")
+    b, h, w, c = x.shape
+    plan = slab_plan(h * w, c, x.dtype)
+    psum = torch.empty(b * plan.parts * c, dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    params = (ctypes.c_int * 7)(x.device.index, b, h * w, c, plan.vb,
+                                plan.parts, plan.pix_per_part)
+    lib = _slab_lib()
+    fn = (lib.se_slab_pool if x.dtype == torch.float32
+          else lib.se_slab_pool_bf16)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib, fn(x.data_ptr(), psum.data_ptr(), sums.data_ptr(),
+                         ctypes.addressof(params), stream), "se_slab_pool")
+    return sums
+
+
+def se_slab_apply(x: torch.Tensor, sums: torch.Tensor, w1: torch.Tensor,
+                  w2: torch.Tensor, count: int) -> torch.Tensor:
+    """The slab times ``sigmoid(GELU((sums / count) @ w1) @ w2)``: sums
+    [B, C] float32 are the whole map's (reduced over the slabs), ``count``
+    its pixels. The gate is rounded to x's dtype, the product once."""
+    if x.device.type == "cpu":
+        return _gate_and_scale(x, sums.float() / count, w1, w2)
+    _check_slab(x, "se_slab_apply")
+    b, h, w, c = x.shape
+    r = w1.shape[1] if w1.dim() == 2 else -1
+    if tuple(w1.shape) != (c, r) or tuple(w2.shape) != (r, c) \
+            or tuple(sums.shape) != (b, c):
+        raise ValueError(f"se_slab_apply: sums [B,C], w1 [C,R], w2 [R,C] for"
+                         f" C={c}, got {tuple(sums.shape)}, {tuple(w1.shape)}"
+                         f", {tuple(w2.shape)}")
+    if 4 * (c + r) > 48 * 1024:
+        raise ValueError(f"se_slab_apply: C+R={c + r} exceed the gate "
+                         "kernel's shared memory")
+    sums = sums.to(device=x.device, dtype=torch.float32).contiguous()
+    w1t = w1.t().to(device=x.device, dtype=torch.float32).contiguous()
+    w2t = w2.t().to(device=x.device, dtype=torch.float32).contiguous()
+    plan = slab_plan(h * w, c, x.dtype)
+    gate = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    params = (ctypes.c_int * 6)(x.device.index, b, h * w, c, r,
+                                plan.scale_blocks)
+    lib = _slab_lib()
+    fn = (lib.se_slab_apply if x.dtype == torch.float32
+          else lib.se_slab_apply_bf16)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib, fn(x.data_ptr(), sums.data_ptr(), w1t.data_ptr(),
+                         w2t.data_ptr(), gate.data_ptr(), out.data_ptr(),
+                         ctypes.addressof(params), ctypes.c_float(count),
+                         stream), "se_slab_apply")
+    return out
+
+
+def se_block_slab(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  group) -> torch.Tensor:
+    """SE on this process's slab x [B,h,W,C] of a map split into
+    ``group.shards`` equal slabs: the slab's sums, ``group.all_reduce``
+    over the slabs, then the gate and the scale (``parallel.spatial.
+    SpatialGroup`` is such a group). CUDA tensors launch the slab kernels
+    (``se_block_slab.launches`` counts those calls), CPU tensors take the
+    twins."""
+    sums = group.all_reduce(se_slab_pool(x))
+    out = se_slab_apply(x, sums, w1, w2,
+                        x.shape[1] * group.shards * x.shape[2])
+    if x.device.type == "cuda":
+        se_block_slab.launches += 1
+    return out
+
+
+se_block_slab.launches = 0
+
+
+def _slab_lib() -> ctypes.CDLL:
+    lib = _lib()
+    if lib.se_slab_pool.argtypes is None:
+        p = ctypes.c_void_p
+        for fn in (lib.se_slab_pool, lib.se_slab_pool_bf16):
+            fn.argtypes = [p] * 5
+            fn.restype = ctypes.c_int
+        for fn in (lib.se_slab_apply, lib.se_slab_apply_bf16):
+            fn.argtypes = [p] * 7 + [ctypes.c_float, p]
+            fn.restype = ctypes.c_int
+    return lib

@@ -44,11 +44,18 @@ def gn32(channels: int) -> GroupNorm:
     return GroupNorm(32 if channels % 32 == 0 else 1, channels, eps=LDM_EPS)
 
 
+def time_frequencies(channels: int, max_period: int = 10000,
+                     device=None) -> torch.Tensor:
+    """The embedding's ``channels // 2`` float32 frequencies,
+    ``exp(-log(max_period) * k / half)``."""
+    half = channels // 2
+    return torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=device) / half)
+
+
 def sinusoidal_time_emb(t: torch.Tensor, channels: int,
                         max_period: int = 10000) -> torch.Tensor:
-    half = channels // 2
-    freqs = torch.exp(-math.log(max_period) * torch.arange(
-        half, dtype=torch.float32, device=t.device) / half)
+    freqs = time_frequencies(channels, max_period, t.device)
     ang = t.to(torch.float32)[:, None] * freqs[None, :]
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 

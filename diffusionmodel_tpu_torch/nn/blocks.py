@@ -24,6 +24,16 @@ bf16 activation with a float32 value promote to float32, as in JAX: the
 align-corners upsample (float32 interpolation matrices) and CoordAttn's
 plain path (float32 scalars) return float32, which the next layer rounds.
 At float32 every layer is the PyTorch layer it extends.
+
+Spatial sharding (``parallel.spatial``): in a model given a 'spatial'
+group (``spatial.attach``), a layer that meets an H-slab (a map with fewer
+rows than columns) computes its rows of the whole map's result:
+:class:`Conv2d` takes its kernel's halo rows from the neighbouring slabs,
+:class:`GroupNorm` and :class:`SEBlock` sum their statistics over the
+slabs, :class:`UpsampleBilinear2x` and the fused head read their source
+rows by global index (one halo row each side), and BatchNorm takes the
+data x spatial group the train step gives it. Without a group, or on a
+whole map, every layer is the one above.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ from diffusionmodel_tpu_torch.kernels import (
     per_sample_conv,
     per_sample_matmul,
 )
-from diffusionmodel_tpu_torch.kernels.se_block import se_block
+from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_slab
 from diffusionmodel_tpu_torch.ops.fused_upconv import (
     up2_conv3x3_align_corners_nchw,
 )
@@ -48,6 +58,7 @@ from diffusionmodel_tpu_torch.ops.resize import (
     upsample_bilinear_align_corners_taps,
     upsample_bilinear_align_corners_nchw,
 )
+from diffusionmodel_tpu_torch.parallel.spatial import is_slab
 
 _F32 = torch.float32
 
@@ -120,17 +131,43 @@ class Conv2d(nn.Conv2d):
     cuDNN would otherwise let a sample's result depend on its batch
     position)."""
 
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+
     def __init__(self, *args, compute_dtype: torch.dtype = _F32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        if is_slab(self.spatial, x):
+            return self._slab_forward(x)
         dt = self.compute_dtype
         if dt == _F32:
             return super().forward(x)
         w = self.weight.to(dt)
         y = per_sample_conv(lambda a: self._conv_forward(a, w, None),
                             x.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+    def _slab_forward(self, x):
+        """This slab's rows of the convolution of the whole map: the slab
+        with ``pad`` halo rows above and ``kernel - stride - pad`` below,
+        convolved without padding along H (3x3 pad 1: one each side; the
+        4x4 stride-2 downsample: one each side, from an even row; 1x1:
+        none)."""
+        k, st, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        h = x.shape[2]
+        if st > 1 and h % st:
+            raise ValueError(f"a stride-{st} convolution on a slab of {h} "
+                             f"rows: the slabs must hold a multiple of {st}")
+        xh = self.spatial.halo(x, p, k - st - p)
+        pad, dt = (0, self.padding[1]), self.compute_dtype
+        if dt == _F32:
+            return F.conv2d(xh, self.weight, self.bias, self.stride, pad,
+                            self.dilation, self.groups)
+        w = self.weight.to(dt)
+        y = per_sample_conv(lambda a: F.conv2d(
+            a, w, None, self.stride, pad, self.dilation, self.groups),
+            xh.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
@@ -181,6 +218,8 @@ class GroupNorm(nn.GroupNorm):
     which would let batch neighbours move a sample's result. CUDA tensors
     take one call for the batch."""
 
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  compute_dtype: torch.dtype = _F32):
         super().__init__(num_groups, num_channels, eps=eps)
@@ -190,12 +229,37 @@ class GroupNorm(nn.GroupNorm):
         dt = self.compute_dtype
         if dt != _F32:
             x = x.float()
-        if x.device.type == "cpu" and x.shape[0] > 1:
+        if is_slab(self.spatial, x):
+            y = self._slab_forward(x)
+        elif x.device.type == "cpu" and x.shape[0] > 1:
             y = torch.cat([channels_last(super(GroupNorm, self).forward(s))
                            for s in x.split(1)])
         else:
             y = channels_last(super().forward(x))
         return y if dt == _F32 else y.to(dt)
+
+    def _slab_forward(self, x):
+        """GroupNorm of the whole map from this slab (float32 x): per
+        sample and group, the sums of x and x^2 over the slab in float64,
+        summed over the slabs (one all_reduce), the variance their mean
+        of squares less the squared mean (float64 loses nothing to the
+        cancellation)."""
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xd = x.double().reshape(b, g, -1)
+        stats = self.spatial.all_reduce(
+            torch.stack([xd.sum(dim=2), (xd * xd).sum(dim=2)]))
+        n = xd.shape[2] * self.spatial.shards
+        mean = stats[0] / n
+        var = torch.clamp(stats[1] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + self.eps).float()
+        mean = mean.float()
+        shape = (b, c, 1, 1)
+        mean_c = mean.repeat_interleave(c // g, dim=1).reshape(shape)
+        inv_c = invstd.repeat_interleave(c // g, dim=1).reshape(shape)
+        y = (x - mean_c) * inv_c
+        return channels_last(y * self.weight[:, None, None]
+                             + self.bias[:, None, None])
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -347,14 +411,21 @@ class EmbedFC(nn.Module):
 
 
 def se_module_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                    dtype: torch.dtype = _F32) -> torch.Tensor:
+                    dtype: torch.dtype = _F32, spatial=None) -> torch.Tensor:
     """The SE block's own path (the JAX module's XLA lines, not the
     kernel's function): the mean taken in float32 and rounded to
     ``dtype``, both products and the gate in ``dtype`` with the weights
     cast, then ``x * gate``. x: [B,H,W,C]; w1: [C,R]; w2: [R,C]. One
     product per sample. At float32 it computes what the kernel's twin
-    ``kernels.se_block.se_block_plain`` computes."""
-    y = x.float().mean(dim=(1, 2)).to(dtype)
+    ``kernels.se_block.se_block_plain`` computes. With ``spatial`` (a
+    ``SpatialGroup``) x is a slab: its float32 sums are summed over the
+    slabs before the division."""
+    if spatial is None:
+        y = x.float().mean(dim=(1, 2))
+    else:
+        y = spatial.all_reduce(x.float().sum(dim=(1, 2))) / (
+            x.shape[1] * spatial.shards * x.shape[2])
+    y = y.to(dtype)
     y = gelu(per_sample_matmul(y, w1.to(dtype)))
     y = sigmoid(per_sample_matmul(y, w2.to(dtype)))
     return x * y[:, None, None, :]
@@ -375,6 +446,8 @@ class SEBlock(nn.Module):
     ``w1``/``w2`` as their transposed views), so an eval call launches the
     one kernel and no copy."""
 
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+
     def __init__(self, channels: int, reduction: int = 16,
                  use_pallas: bool = False, dtype: torch.dtype = _F32):
         super().__init__()
@@ -388,10 +461,12 @@ class SEBlock(nn.Module):
 
     def forward(self, x):
         w1, w2 = self.fc[0].weight.t(), self.fc[2].weight.t()
+        sp = self.spatial if is_slab(self.spatial, x) else None
         if self.use_pallas and not self.training:
-            out = se_block(to_nhwc(x), w1, w2)
+            out = (se_block(to_nhwc(x), w1, w2) if sp is None
+                   else se_block_slab(to_nhwc(x), w1, w2, sp))
         else:
-            out = se_module_plain(to_nhwc(x), w1, w2, self.dtype)
+            out = se_module_plain(to_nhwc(x), w1, w2, self.dtype, sp)
         return out.permute(0, 3, 1, 2)
 
 
@@ -483,11 +558,19 @@ class UpsampleBilinear2x(nn.Module):
     contracts the activations with float32 interpolation matrices, which
     promotes them to float32. The float32 net keeps PyTorch's upsample."""
 
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+
     def __init__(self, dtype: torch.dtype = _F32):
         super().__init__()
         self.dtype = dtype
 
     def forward(self, x):
+        if is_slab(self.spatial, x):
+            # the output slab's taps reach one row past the slab each side
+            sp = self.spatial
+            return channels_last(upsample_bilinear_align_corners_taps(
+                sp.halo(x, 1, 1), 2, rows=(sp.row0(x.shape[2]), x.shape[2],
+                                           x.shape[2] * sp.shards)))
         if self.dtype == _F32:
             return upsample_bilinear_align_corners_nchw(x, 2)
         return channels_last(upsample_bilinear_align_corners_taps(x, 2))
@@ -513,11 +596,20 @@ class UnetUp(nn.Module):
             ResConvBlock(out_ch, out_ch, norm=norm, dtype=dtype),
             ResConvBlock(out_ch, out_ch, norm=norm, dtype=dtype))
 
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+
     def forward(self, x, skip):
         x = torch.cat([x, skip], dim=1)
         if not self.fused_upsample:
             return self.model(x)
         dt, c = self.dtype, self.model[0][1]
-        x = up2_conv3x3_align_corners_nchw(
-            x.to(dt), c.weight.to(dt), c.bias.to(dt))
+        if is_slab(self.spatial, x):
+            sp = self.spatial
+            x = up2_conv3x3_align_corners_nchw(
+                sp.halo(x, 1, 1).to(dt), c.weight.to(dt), c.bias.to(dt),
+                rows=(sp.row0(x.shape[2]), x.shape[2],
+                      x.shape[2] * sp.shards))
+        else:
+            x = up2_conv3x3_align_corners_nchw(
+                x.to(dt), c.weight.to(dt), c.bias.to(dt))
         return self.model[2](self.model[1](x))

@@ -23,6 +23,16 @@ value), and ``fused_upsample`` takes the fused head in every UnetUp.
 Parameter names are the reference's, so
 ``diffusionmodel_tpu/compat/torch_convert.py::convert_context_unet_v2``
 reads ``state_dict()`` directly.
+
+``spatial_shards`` > 0 gives the net the JAX package's spatial hooks:
+once ``parallel.spatial.attach`` has given it a 'spatial' group of that
+size, ``forward`` takes an H-slab (or a whole map) and returns the same
+layout, and between its layers applies ``constrain_spatial`` at the JAX
+sites (the stem, each down stage, up0 and each up stage): H stays split
+while a slab holds at least 8 rows and is gathered below that. The
+layers on the slabs compute their rows of the whole map's result
+(``nn/blocks.py``), so the output is the unsharded net's up to summation
+order.
 """
 
 from __future__ import annotations
@@ -47,11 +57,17 @@ from diffusionmodel_tpu_torch.nn.blocks import (
     gn_groups,
 )
 from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
+from diffusionmodel_tpu_torch.parallel.spatial import (
+    constrain_spatial,
+    is_slab,
+    match_layout,
+)
 
 
 class ContextUnet(nn.Module):
     # the flax-tree walk of compat.flax_bridge (v1 and v2 share it)
     layout = {"arch": "context_unet_v2"}
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
 
     def __init__(self, in_ch: int = 3, n_feat: int = 192, n_classes: int = 10,
                  img_size: int = 256, norm: str = "group",
@@ -59,9 +75,10 @@ class ContextUnet(nn.Module):
                  use_se: bool = True, use_local_enhancer: bool = True,
                  high_thresh: float = 1.2, mnist_style_ctx_flip: bool = False,
                  use_pallas: bool = False, dtype: torch.dtype = torch.float32,
-                 fused_upsample: bool = False):
+                 fused_upsample: bool = False, spatial_shards: int = 0):
         super().__init__()
         dt = self.dtype = dtype
+        self.spatial_shards = spatial_shards
         nf = n_feat
         d4 = img_size // 16
         pool = min(8, d4)
@@ -116,8 +133,10 @@ class ContextUnet(nn.Module):
         normalized timestep t/T; ctx_mask: [B] (1 = keep context);
         attn_mask: optional [B,H,W] spatial attention mask."""
         b = x.shape[0]
+        sp = self.spatial
         x = channels_last(x.permute(0, 3, 1, 2))
-        x0 = self.init_conv(x)
+        x_in = x
+        x0 = constrain_spatial(self.init_conv(x), sp)
 
         downs = []
         h = x0
@@ -125,10 +144,18 @@ class ContextUnet(nn.Module):
             h = getattr(self, f"down{i}")(h)
             if self.use_coord_attn:
                 h = getattr(self, f"ca{i}")(h)
+            h = constrain_spatial(h, sp)
             downs.append(h)
         down1, down2, down3, down4 = downs
 
-        hidden = gelu(F.avg_pool2d(down4, self.pool))
+        # to_vec: pooled on the slabs where its windows do not cross them
+        v = down4
+        if is_slab(sp, v) and v.shape[2] % self.pool:
+            v = sp.gather(v)
+        hidden = F.avg_pool2d(v, self.pool)
+        if is_slab(sp, v):
+            hidden = sp.gather(hidden)
+        hidden = gelu(hidden)
 
         # Context one-hot, masked (v2: multiply by keep-mask; MNIST style
         # flips 0<->1 and negates the kept one-hot, MNIST_script.py:170).
@@ -149,13 +176,16 @@ class ContextUnet(nn.Module):
         cemb2 = self.ctx_emb2(cvec)[:, :, None, None]
         temb2 = self.time_emb2(t[:, None])[:, :, None, None]
 
-        up1 = self.up0(hidden)
-        up2 = self.up1(cemb1 * up1 + temb1, down4)
-        up3 = self.up2(cemb2 * up2 + temb2, down3)
-        up4 = self.up3(up3, down2)
-        up5 = self.up4(up4, down1)
+        up1 = constrain_spatial(self.up0(hidden), sp)
+        up2 = constrain_spatial(self.up1(cemb1 * up1 + temb1, down4), sp)
+        up3 = constrain_spatial(self.up2(cemb2 * up2 + temb2, down3), sp)
+        up4 = constrain_spatial(self.up3(up3, down2), sp)
+        up5 = constrain_spatial(self.up4(up4, down1), sp)
         if self.local_enhance is not None:
+            if attn_mask is not None:
+                attn_mask = match_layout(attn_mask, up5, sp)
             up5 = self.local_enhance(up5, attn_mask)
 
         out = self.out(torch.cat([up5, x0], dim=1))
+        out = match_layout(out, x_in, sp)  # the layout it was given
         return channels_last(out).permute(0, 2, 3, 1)

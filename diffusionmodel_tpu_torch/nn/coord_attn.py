@@ -19,6 +19,14 @@ the directional means in float32 rounded to bf16, the 1x1 convs, norms
 and GELU in bf16, then the cross mix, the weighting and the product with
 x promoted to float32 by the float32 scalars (gamma, alpha, beta): the
 block returns float32, which the next layer rounds.
+
+On an H-slab of a spatially sharded forward (``parallel.spatial``) the
+W-pool is the sum of the slabs' column sums (one all_reduce) and the
+H-pool is gathered whole ([B, C, H, 1], small): the bottleneck (its
+norms, the cross mix, the realignment) runs replicated on every process,
+and each applies its own rows of ``a_h``. The fused path does the same
+through the kernels' slab form (``kernels.coord_attn.coord_attn_slab``)
+in eval mode and its twin in train mode.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from diffusionmodel_tpu_torch.kernels.coord_attn import (
     CoordAttnWeights,
     coord_attn,
     coord_attn_plain,
+    coord_attn_slab,
+    coord_attn_slab_plain,
 )
 from diffusionmodel_tpu_torch.nn.blocks import (
     Conv2d,
@@ -40,9 +50,12 @@ from diffusionmodel_tpu_torch.nn.blocks import (
     to_nhwc,
 )
 from diffusionmodel_tpu_torch.ops.pool import adaptive_avg_pool_axis
+from diffusionmodel_tpu_torch.parallel.spatial import is_slab
 
 
 class CoordAttn(nn.Module):
+    spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+
     def __init__(self, channels: int, reduction: int = 16,
                  norm: str = "group", use_pallas: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -66,11 +79,19 @@ class CoordAttn(nn.Module):
     def forward(self, x):
         if self.use_pallas and self.norm == "group":
             return self._fused_path(x)
+        sp = self.spatial if is_slab(self.spatial, x) else None
         _, _, h, w = x.shape
         dt = self.conv1_h.compute_dtype
         # [B, C, H, 1] and [B, C, 1, W], means in float32
-        x_h = x.mean(dim=3, keepdim=True, dtype=torch.float32).to(dt)
-        x_w = x.mean(dim=2, keepdim=True, dtype=torch.float32).to(dt)
+        x_h = x.mean(dim=3, keepdim=True, dtype=torch.float32)
+        if sp is None:
+            x_w = x.mean(dim=2, keepdim=True, dtype=torch.float32)
+        else:  # the whole map's pools, replicated
+            x_h = sp.gather(x_h)
+            h = x_h.shape[2]
+            x_w = sp.all_reduce(x.sum(dim=2, keepdim=True,
+                                      dtype=torch.float32)) / h
+        x_h, x_w = x_h.to(dt), x_w.to(dt)
         x_h = gelu(self.bn1_h(self.conv1_h(x_h)))
         x_w = gelu(self.bn1_w(self.conv1_w(x_w)))
 
@@ -85,6 +106,8 @@ class CoordAttn(nn.Module):
 
         a_h = sigmoid(self.conv_h(x_h))
         a_w = sigmoid(self.conv_w(x_w))
+        if sp is not None:  # this slab's rows
+            a_h = a_h.narrow(2, sp.row0(x.shape[2]), x.shape[2])
         alpha = torch.sigmoid(self.alpha)
         beta = torch.sigmoid(self.beta)
         s = alpha + beta + 1e-8
@@ -110,5 +133,10 @@ class CoordAttn(nn.Module):
     def _fused_path(self, x):
         wts = self._packed()
         g = gn_groups(self.conv1_h.out_channels, 8)
-        fn = coord_attn_plain if self.training else coord_attn
-        return fn(to_nhwc(x), wts, "group", g).permute(0, 3, 1, 2)
+        if is_slab(self.spatial, x):
+            fn = coord_attn_slab_plain if self.training else coord_attn_slab
+            out = fn(to_nhwc(x), wts, "group", g, self.spatial)
+        else:
+            fn = coord_attn_plain if self.training else coord_attn
+            out = fn(to_nhwc(x), wts, "group", g)
+        return out.permute(0, 3, 1, 2)

@@ -26,14 +26,16 @@ def build_model(mc: ModelConfig, high_thresh: float = 1.2,
     the JAX package). Parameters get PyTorch's default initialisation from
     the global torch seed and stay float32; ``model.dtype`` sets the
     compute type ("bfloat16", else float32, as the JAX factory maps it).
-    Every network takes and returns [B,H,W,C]."""
+    Every network takes and returns [B,H,W,C].
+
+    ``spatial_shards`` > 0 gives the ContextUnet family the spatial hooks
+    (``ContextUnet(spatial_shards=)``), as the JAX factory does; the other
+    archs ignore it, and ``fit`` then shards their batch over 'data'
+    only."""
     dev = resolve_device(device)
     if mc.arch not in ("context_unet_v2", "context_unet_v1", "mnist_unet",
                        "cbam_unet", "ddpm_unet"):
         raise ValueError(f"unknown arch {mc.arch!r}")
-    if spatial_shards > 0:
-        raise NotImplementedError(
-            "the spatially sharded forward is not ported yet: ROADMAP A12b")
     dtype = compute_dtype(mc.dtype)
     with torch.device(dev):
         if mc.arch == "mnist_unet":
@@ -56,11 +58,12 @@ def build_model(mc: ModelConfig, high_thresh: float = 1.2,
                 ch_mults=tuple(mc.ch_mults), is_attn=tuple(mc.is_attn),
                 n_blocks=mc.n_blocks, dropout=mc.dropout)
         else:
-            model = _context_unet(mc, high_thresh, dtype)
+            model = _context_unet(mc, high_thresh, dtype, spatial_shards)
     return model.to(memory_format=torch.channels_last).eval()
 
 
-def _context_unet(mc: ModelConfig, high_thresh: float, dtype) -> ContextUnet:
+def _context_unet(mc: ModelConfig, high_thresh: float, dtype,
+                  spatial_shards: int = 0) -> ContextUnet:
     return ContextUnet(
         in_ch=mc.in_ch,
         n_feat=mc.n_feat,
@@ -77,4 +80,5 @@ def _context_unet(mc: ModelConfig, high_thresh: float, dtype) -> ContextUnet:
         use_pallas=mc.use_pallas,
         dtype=dtype,
         fused_upsample=mc.fused_upsample,
+        spatial_shards=spatial_shards,
     )

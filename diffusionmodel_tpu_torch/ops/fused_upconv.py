@@ -54,23 +54,43 @@ def up2_conv3x3_align_corners(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def up2_conv3x3_align_corners_nchw(x: torch.Tensor, weight: torch.Tensor,
-                                   bias: torch.Tensor | None = None
-                                   ) -> torch.Tensor:
+                                   bias: torch.Tensor | None = None,
+                                   rows=None) -> torch.Tensor:
     """The same on an NCHW view (channels_last memory inside the net) with
     a PyTorch conv weight [Cout, Cin, 3, 3]; returns an NCHW view of
-    channels_last memory."""
+    channels_last memory.
+
+    ``rows=(row0, h, H)``: x is an H-slab (rows row0 .. row0 + h of a map
+    of H rows) with one halo row on each side, and the result is the
+    slab's rows 2 * row0 .. 2 * (row0 + h) of the whole map's result: the
+    three shifted H-matrices are the whole map's, cut to those output rows
+    and to the haloed slab's columns (the taps of those rows reach at most
+    one row past the slab)."""
     x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    return _up2_conv3x3(x, weight, bias).permute(0, 3, 1, 2)
+    return _up2_conv3x3(x, weight, bias, rows).permute(0, 3, 1, 2)
+
+
+@lru_cache(maxsize=64)
+def _slab_h_matrices(row0: int, h: int, full: int) -> np.ndarray:
+    """[3, 2h, h+2]: the rows 2*row0 .. 2*(row0+h) of
+    ``_shifted_h_matrices(full)`` on the columns row0-1 .. row0+h (zero
+    outside the map)."""
+    eh = np.pad(_shifted_h_matrices(full), ((0, 0), (0, 0), (1, 1)))
+    return np.ascontiguousarray(
+        eh[:, 2 * row0:2 * (row0 + h), row0:row0 + h + 2])
 
 
 def _up2_conv3x3(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor | None) -> torch.Tensor:
+                 bias: torch.Tensor | None, rows=None) -> torch.Tensor:
     """x: [N,H,W,Cin] (NHWC); weight: [Cout, Cin, 3, 3]. Returns NHWC."""
     n, h, w, _ = x.shape
     cout = weight.shape[0]
     dt, dev = x.dtype, x.device
     mw = torch.from_numpy(_align_corners_matrix(w, 2 * w)).to(dev, dt)
-    eh = torch.from_numpy(_shifted_h_matrices(h)).to(dev, dt)
+    if rows is None:
+        eh = torch.from_numpy(_shifted_h_matrices(h)).to(dev, dt)
+    else:
+        eh = torch.from_numpy(_slab_h_matrices(*rows)).to(dev, dt)
     # 1) W-upsample: the half-size intermediate [N, H, 2W, Cin]
     xw = torch.einsum("ow,nhwc->nhoc", mw, x)
     # 2) the three 1x3 row-convs as one conv with 3*Cout outputs:

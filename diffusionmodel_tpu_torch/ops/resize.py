@@ -67,20 +67,36 @@ def _two_taps(in_size: int, out_size: int):
     return lo, hi, w_lo, m[rows, hi].copy()
 
 
-def upsample_bilinear_align_corners_taps(x: torch.Tensor, scale: int = 2
-                                         ) -> torch.Tensor:
+def upsample_bilinear_align_corners_taps(x: torch.Tensor, scale: int = 2,
+                                         rows=None) -> torch.Tensor:
     """The same upsample of an NCHW ``x``, in float32, with the JAX
     package's arithmetic: its float32 interpolation matrices applied along
     H, then W, each output the sum of its two rounded products (what XLA's
     dot computes, zero terms adding nothing). A bf16 ``x`` is promoted to
-    float32, as JAX promotes it."""
+    float32, as JAX promotes it.
+
+    ``rows=(row0, h, H)``: x is an H-slab (rows row0 .. row0 + h of a map
+    of H rows) with one halo row on each side, and the result is the
+    slab's rows of the whole map's upsample (rows scale * row0 .. scale *
+    (row0 + h)): the taps along H are the whole map's, indexed by global
+    row (align-corners taps reach at most one row past the slab)."""
     x = x.float()
+    dev = x.device
     for axis in (2, 3):
         n = x.shape[axis]
-        lo, hi, w_lo, w_hi = _two_taps(n, n * scale)
+        if axis == 2 and rows is not None:
+            row0, h, full = rows
+            out = slice(scale * row0, scale * (row0 + h))
+            lo, hi, w_lo, w_hi = (t[out] for t in _two_taps(full,
+                                                            full * scale))
+            hi = np.where(w_hi == 0, lo, hi)  # a lone tap: its own row
+            lo, hi = lo - row0 + 1, hi - row0 + 1  # into the haloed slab
+            n_out = scale * h
+        else:
+            lo, hi, w_lo, w_hi = _two_taps(n, n * scale)
+            n_out = n * scale
         shape = [1, 1, 1, 1]
-        shape[axis] = n * scale
-        dev = x.device
+        shape[axis] = n_out
         a = x.index_select(axis, torch.from_numpy(lo).to(dev))
         b = x.index_select(axis, torch.from_numpy(hi).to(dev))
         x = (a * torch.from_numpy(w_lo).to(dev).reshape(shape)

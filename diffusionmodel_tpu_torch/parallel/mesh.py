@@ -11,10 +11,10 @@ which contiguous block of a tensor axis this process holds:
   list. Without a process group it is the trivial 1x1x1 mesh.
 - :class:`Sharding` maps tensor dims to mesh axes: ``local`` takes this
   process's block, ``gather`` concatenates every block back in rank order
-  (``all_gather_into_tensor``). :func:`replicated` and
-  :func:`batch_sharding` are two of the JAX package's three layouts;
-  its ``image_sharding`` (batch and H) comes with the spatial forward
-  (ROADMAP A12b).
+  (an ``all_reduce`` of a zero buffer holding this block, which gloo runs
+  on CUDA tensors too). :func:`replicated`, :func:`batch_sharding` and
+  :func:`image_sharding` (batch over 'data', H over 'spatial') are the
+  JAX package's three layouts.
 - :func:`opt_state_shardings` is JAX's ZeRO-1 rule: a moment of at least
   ``min_size`` elements is partitioned over 'data' along its largest dim
   that the data size divides; every other leaf is replicated. The rule
@@ -26,8 +26,9 @@ which contiguous block of a tensor axis this process holds:
   'model' axis as a plan: nothing runs a mesh with ``model > 1`` yet
   (ROADMAP A12c), and :func:`check_supported` refuses one.
 
-Only the 'data' axis runs: the train step, the loader, the samplers and
-``fit`` shard over it. The spatially sharded forward is ROADMAP A12b.
+The 'data' and 'spatial' axes run: the train step, the loader, the
+samplers and ``fit`` shard over both (``parallel.spatial`` holds the
+spatially sharded forward's transport).
 """
 
 from __future__ import annotations
@@ -68,6 +69,12 @@ class Mesh:
             return 0
         return self.device_mesh.get_local_rank(axis)
 
+    def data_spatial_group(self):
+        """The group of 'data' x 'spatial': every process, since
+        :func:`check_supported` refuses a 'model' axis."""
+        check_supported(self)
+        return dist.group.WORLD
+
     @property
     def is_main(self) -> bool:
         """Rank 0 of the group: the process that writes files and prints."""
@@ -87,10 +94,7 @@ def mesh_shape(data: int = -1, model: int = 1, spatial: int = 1
     must hold every process."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if data == -1:
-        if world % (model * spatial):
-            raise ValueError(f"{world} processes not divisible by "
-                             f"model*spatial={model * spatial}")
-        data = world // (model * spatial)
+        data = max(1, world // (model * spatial))
     shape = dict(zip(AXES, (data, model, spatial)))
     n = data * model * spatial
     if n > world:
@@ -120,16 +124,11 @@ def make_mesh(data: int = -1, model: int = 1, spatial: int = 1) -> Mesh:
 
 
 def check_supported(mesh: Mesh) -> None:
-    """Refuse the axes that are not ported yet, naming their ROADMAP item."""
+    """Refuse the axis that is not ported yet, naming its ROADMAP item."""
     if mesh.shape["model"] > 1:
         raise NotImplementedError(
             f"mesh_model={mesh.shape['model']}: the 'model' axis (output-"
             "channel tensor parallelism) is not ported yet: ROADMAP A12c")
-    if mesh.shape["spatial"] > 1:
-        raise NotImplementedError(
-            f"mesh_spatial={mesh.shape['spatial']}: the spatially sharded "
-            "forward (halo exchange, constrain_spatial) is not ported yet: "
-            "ROADMAP A12b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,17 +166,22 @@ class Sharding:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global tensor from every process's block ``x`` (a
-        collective: every process of each axis calls it)."""
+        collective: every process of each axis calls it): per axis, an
+        ``all_reduce`` of a zero buffer in which this process's block
+        stands at its place (float32 for bf16, which it holds exactly)."""
         for dim, axis in self.dims:
             n = self.mesh.shape[axis]
             if not self.mesh.distributed:
                 continue
-            moved = x.movedim(dim, 0).contiguous()
-            out = torch.empty((n * moved.shape[0], *moved.shape[1:]),
-                              dtype=x.dtype, device=x.device)
-            dist.all_gather_into_tensor(out, moved,
-                                        group=self.mesh.group(axis))
-            x = out.movedim(0, dim)
+            k = x.shape[dim]
+            shape = list(x.shape)
+            shape[dim] = n * k
+            wire = torch.float32 if x.dtype in (torch.bfloat16,
+                                                torch.float16) else x.dtype
+            out = torch.zeros(shape, dtype=wire, device=x.device)
+            out.narrow(dim, self.mesh.rank(axis) * k, k).copy_(x)
+            dist.all_reduce(out, group=self.mesh.group(axis))
+            x = out.to(x.dtype)
         return x
 
 
@@ -190,6 +194,18 @@ def batch_sharding(mesh: Mesh, ndim: int, batch_axis: int = 0) -> Sharding:
     if not 0 <= batch_axis < ndim:
         raise ValueError(f"batch_axis {batch_axis} of a {ndim}-dim tensor")
     return Sharding(mesh, ((batch_axis, "data"),))
+
+
+def image_sharding(mesh: Mesh, ndim: int = 4, batch_axis: int = 0,
+                   h_axis: int = 1) -> Sharding:
+    """Split axis ``batch_axis`` over 'data' and axis ``h_axis`` (an
+    image's H) over 'spatial': the big-image layout, each process holding
+    an H-slab of its block of the batch."""
+    if not (0 <= batch_axis < ndim and 0 <= h_axis < ndim
+            and batch_axis != h_axis):
+        raise ValueError(f"batch_axis {batch_axis}, h_axis {h_axis} of a "
+                         f"{ndim}-dim tensor")
+    return Sharding(mesh, ((batch_axis, "data"), (h_axis, "spatial")))
 
 
 def partition_dim(flax_shape, n_data: int, min_size: int) -> Optional[int]:

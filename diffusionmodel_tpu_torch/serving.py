@@ -29,7 +29,22 @@ per-slot noise streams): classes set the slot count only and the guidance
 scale is ignored, as in ``trainer.make_sampler``. Its worker holds cuDNN
 to deterministic algorithms (``fp32_compute(deterministic=True)``): under
 cuDNN's default choice the labml net's eval output did not repeat bit for
-bit on the card. Mesh fan-out is not ported yet (ROADMAP A12b).
+bit on the card.
+
+**Mesh fan-out** (``mesh=``, a distributed ``parallel.make_mesh``): every
+process of the group builds the service on the same weights; rank 0
+owns the queue, ``submit`` and the HTTP front end. For each packed batch
+rank 0 broadcasts the classes, the guidance vector, the start noise and
+the slot seeds; each process denoises its contiguous block of the
+``max_batch`` slots over 'data' (the JAX package's ``batch_sharding``
+when the data size divides ``max_batch``), and the blocks return to rank
+0 by an ``all_reduce`` of zero-padded buffers. When the data size does not
+divide ``max_batch`` every process runs the whole batch, as the JAX
+package replicates. Processes along 'spatial' run their data block
+alike. On the other ranks the worker thread is the follower loop, which
+ends when rank 0's ``close()`` broadcasts the stop; their ``close()``
+waits for it. A pinned request's images still depend only on its seed,
+classes and scale.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.device_check import fp32_compute
@@ -70,7 +86,11 @@ class _Request:
 
 class SamplerService:
     """Batched generation service over a denoiser (an ``nn.Module`` on the
-    schedule's device, put in eval mode here).
+    schedule's device, put in eval mode here). ``autotune=False`` keeps
+    cuDNN on its heuristics in the worker (no search, and the same
+    algorithm for a shape in every service: cuDNN's searched choices are
+    per thread, so two autotuned services may sum a convolution in other
+    orders).
 
     ``sampler``: "ddim" (default of the serve CLI), "dpmpp", or
     "ancestral" (the reference's full-T loop); a textbook-family config
@@ -79,7 +99,8 @@ class SamplerService:
     def __init__(self, model, cfg: Config, sched: Schedule,
                  max_batch: int = 8, sampler: Optional[str] = None,
                  max_wait_ms: float = 20.0,
-                 service_seed: Optional[int] = None):
+                 service_seed: Optional[int] = None, mesh=None,
+                 autotune: bool = True):
         mc, dc, sc = cfg.model, cfg.diffusion, cfg.sample
         kind = ("textbook" if dc.schedule_family == "textbook"
                 else sampler or sc.sampler)
@@ -96,11 +117,26 @@ class SamplerService:
         shape = (mc.img_size, mc.img_size, mc.in_ch)
         self._shape = shape
         model.eval()
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        # this process's slots of the batch: a block over 'data' when the
+        # data size divides max_batch, else all of them
+        self._block = slice(0, max_batch)
+        if self.mesh is not None:
+            from diffusionmodel_tpu_torch.parallel import (
+                batch_sharding,
+                check_supported,
+            )
+
+            check_supported(self.mesh)
+            if max_batch % self.mesh.shape["data"] == 0:
+                self._block = batch_sharding(self.mesh, 1).block(0, max_batch)
         if kind == "textbook":
-            chunk = make_textbook_chunk_fn(model, dc, max_batch, shape)
+            chunk = make_textbook_chunk_fn(
+                model, dc, self._block.stop - self._block.start, shape)
             steps = textbook_chunk_steps(dc.n_T)
 
         def run(classes, guide_w, x_init=None, slot_seeds=None):
+            n = x_init.shape[0]
             if kind == "textbook":
                 x = torch.as_tensor(x_init, dtype=torch.float32).to(
                     self.device)
@@ -108,16 +144,16 @@ class SamplerService:
             common = dict(classes=classes, x_init=x_init)
             if kind == "dpmpp":
                 return sample_cfg_dpmpp(
-                    model, self._gen, max_batch, shape, mc.n_classes, sched,
+                    model, self._gen, n, shape, mc.n_classes, sched,
                     dc, guide_w=guide_w, n_steps=sc.dpm_steps,
                     discretize=sc.ddim_discretize, **common)
             if kind == "ddim":
                 return sample_cfg_ddim(
-                    model, self._gen, max_batch, shape, mc.n_classes, sched,
+                    model, self._gen, n, shape, mc.n_classes, sched,
                     dc, guide_w=guide_w, n_steps=sc.ddim_steps,
                     eta=sc.ddim_eta, discretize=sc.ddim_discretize,
                     slot_seeds=slot_seeds, **common)
-            return sample_cfg(model, self._gen, max_batch, shape,
+            return sample_cfg(model, self._gen, n, shape,
                               mc.n_classes, sched, dc, guide_w=guide_w,
                               slot_seeds=slot_seeds, **common)
 
@@ -134,7 +170,10 @@ class SamplerService:
             "slots_used": 0, "slots_dispatched": 0,
             "pinned_batches": 0, "busy_seconds": 0.0,
         }
-        self._worker = threading.Thread(target=self._serve, daemon=True)
+        self._autotune = autotune
+        self._main = self.mesh is None or self.mesh.is_main
+        self._worker = threading.Thread(
+            target=self._serve if self._main else self._follow, daemon=True)
         self._worker.start()
 
     # ------------------------------------------------------------- public
@@ -163,6 +202,9 @@ class SamplerService:
                     f"seed must be an integer, got {type(seed).__name__}")
         if self._closed:
             raise RuntimeError("service is closed")
+        if not self._main:
+            raise RuntimeError("submit goes to rank 0 of the service's "
+                               "group; this process follows it")
         req = _Request(classes, float(guide_w), seed)
         self._q.put(req)
         return req.future
@@ -173,9 +215,12 @@ class SamplerService:
         return self.submit(classes, guide_w, seed).result()
 
     def close(self) -> None:
+        """Stop the worker. On rank 0 of a mesh this broadcasts the stop to
+        the followers; on a follower it waits for that stop."""
         if not self._closed:
             self._closed = True
-            self._q.put(None)
+            if self._main:
+                self._q.put(None)
             self._worker.join()
             # fail any request that raced past the _closed check in
             # submit() and landed behind the shutdown sentinel.
@@ -250,6 +295,61 @@ class SamplerService:
                     pad_sd).generate_state(self.max_batch - off)
         return flat, gw, x_init, slot_seeds
 
+    # --------------------------------------------------------- fan-out
+    def _exchange(self, batch=None):
+        """Rank 0 broadcasts its packed batch (``None``: the stop) and
+        every process gets (classes, guidance, start noise, slot seeds),
+        or None for the stop. A command word, then the int64 classes and
+        slot seeds, then the float32 guidance and start noise."""
+        h, w, ch = self._shape
+        m = self.max_batch
+        ints = torch.zeros(1 + 2 * m, dtype=torch.int64, device=self.device)
+        floats = torch.zeros(m * (1 + h * w * ch), dtype=torch.float32,
+                             device=self.device)
+        if batch is not None:
+            flat, gw, x_init, slot_seeds = batch
+            ints[0] = 1
+            ints[1:1 + m] = torch.from_numpy(flat)
+            if slot_seeds is not None:
+                ints[1 + m:] = torch.from_numpy(
+                    np.asarray(slot_seeds, np.int64))
+            floats[:m] = torch.from_numpy(gw)
+            floats[m:] = torch.from_numpy(x_init).reshape(-1)
+        dist.broadcast(ints, src=0)
+        if int(ints[0]) == 0:
+            return None
+        dist.broadcast(floats, src=0)
+        seeds = (None if self._deterministic
+                 else ints[1 + m:].cpu().numpy().astype(np.uint32))
+        return (ints[1:1 + m], floats[:m],
+                floats[m:].reshape(m, h, w, ch), seeds)
+
+    def _run_block(self, classes, gw, x_init, slot_seeds) -> torch.Tensor:
+        """This process's block of the batch, denoised; under a mesh with
+        a block over 'data', the whole batch on rank 0 (the blocks summed
+        into zeros by an all_reduce over 'data')."""
+        b = self._block
+        seeds = None if slot_seeds is None else list(slot_seeds[b])
+        mine = self._run(classes[b], gw[b], x_init[b], seeds)
+        if self.mesh is None or b.stop - b.start == self.max_batch:
+            return mine
+        full = torch.zeros((self.max_batch, *mine.shape[1:]),
+                           dtype=mine.dtype, device=mine.device)
+        full[b] = mine
+        dist.all_reduce(full, group=self.mesh.group("data"))
+        return full
+
+    def _follow(self) -> None:
+        """A follower's worker: denoise its block of each batch rank 0
+        broadcasts, until the stop."""
+        with fp32_compute(self.device, self._autotune,
+                          deterministic=self._textbook):
+            while True:
+                got = self._exchange()
+                if got is None:
+                    return
+                self._run_block(*got)
+
     def _serve(self) -> None:
         # fp32 with TF32 off for the service's lifetime, set by this thread
         # alone (the flags are process settings). cuDNN autotuned: the slot
@@ -259,7 +359,8 @@ class SamplerService:
         # (DDIM-50 at max_batch 8: 34.7 -> 30.3 s; NVIDIA H100,
         # tools/fp32_autotune_probe.py). The textbook kind also holds cuDNN
         # to its deterministic algorithms (module docstring).
-        with fp32_compute(self.device, deterministic=self._textbook):
+        with fp32_compute(self.device, self._autotune,
+                          deterministic=self._textbook):
             self._serve_loop()
 
     def _serve_loop(self) -> None:
@@ -268,16 +369,23 @@ class SamplerService:
             req, pending = (pending, None) if pending is not None \
                 else (self._q.get(), None)
             if req is None:
+                if self.mesh is not None:
+                    self._exchange(None)  # the followers stop
                 break
             batch, slots, pending = self._collect(req)
             try:
-                flat, gw, x_init, slot_seeds = self._pack(batch)
+                packed = self._pack(batch)
                 t_run = time.monotonic()
-                imgs = self._run(
-                    torch.from_numpy(flat).to(self.device),
-                    torch.from_numpy(gw).to(self.device), x_init,
-                    None if slot_seeds is None else slot_seeds.tolist(),
-                ).cpu().numpy()
+                if self.mesh is not None:
+                    imgs = self._run_block(*self._exchange(packed))
+                else:
+                    flat, gw, x_init, slot_seeds = packed
+                    imgs = self._run_block(
+                        torch.from_numpy(flat).to(self.device),
+                        torch.from_numpy(gw).to(self.device),
+                        torch.from_numpy(x_init).to(self.device),
+                        slot_seeds)
+                imgs = imgs.cpu().numpy()
                 st = self.stats
                 st["busy_seconds"] += time.monotonic() - t_run
                 st["batches"] += 1

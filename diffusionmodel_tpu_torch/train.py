@@ -31,12 +31,18 @@ early stopping (counterpart of ``diffusionmodel_tpu/train.py``).
 - **Draws.** Each micro-batch's (t, eps, context mask) come from the
   step's ``torch.Generator`` or are handed in (``draws``), which is how
   the tests replay the JAX package's ``jax.random`` draws.
-- **Data parallelism** (``mesh=``, ``parallel``): each process steps on
-  its block of the batch with the global batch's draws, BatchNorm takes
-  the global batch's statistics, and the gradients and the loss are
-  averaged over 'data' once a step, before the clip; with
+- **Data and spatial parallelism** (``mesh=``, ``parallel``): each
+  process steps on its block of the batch with the global batch's draws,
+  BatchNorm takes the global batch's statistics, and the gradients and
+  the loss are averaged over 'data' once a step, before the clip; with
   ``train.zero1`` each process keeps, clips and updates only its block of
-  the moments the ZeRO-1 rule partitions (``_reduce_and_update_``).
+  the moments the ZeRO-1 rule partitions (``_reduce_and_update_``). When
+  the mesh has a 'spatial' axis and the model carries the spatial hooks
+  (``build_model(spatial_shards=)``), the block is an H-slab of its
+  samples (``image_sharding``), the loss is this slab's mean (equal slabs:
+  their mean is the global mean), BatchNorm's statistics span data x
+  spatial, and the gradients are summed over 'spatial' first; ZeRO-1
+  stays over 'data'.
 
 PyTorch updates the model and the optimizer state in place, so a step
 returns only its loss (a float32 scalar tensor on the device).
@@ -66,8 +72,10 @@ from diffusionmodel_tpu_torch.parallel.mesh import (
     all_reduce_mean_,
     batch_sharding,
     check_supported,
+    image_sharding,
     opt_state_shardings,
 )
+from diffusionmodel_tpu_torch.parallel.spatial import attach
 
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -406,19 +414,43 @@ def _data_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
 
 
 def _local_draws(mesh: Optional[Mesh], dc, x: torch.Tensor, generator,
-                 given: Optional[Dict]) -> Dict:
-    """``train_loss``'s draws for this process's block ``x`` of the batch:
-    as given, or drawn from ``generator``. Under a mesh they are drawn
-    (or given) for the global batch, identically on every process, and
-    each process takes its block."""
+                 given: Optional[Dict], spatial: bool = False) -> Dict:
+    """``train_loss``'s draws for this process's block ``x`` of the batch
+    (an H-slab of it with ``spatial``): as given, or drawn from
+    ``generator``. Under a mesh they are drawn (or given) for the global
+    batch, identically on every process, and each process takes its
+    block: its samples' t and context mask, its samples' (and rows')
+    noise."""
     if mesh is None:
         return given or {}
     n = mesh.shape["data"]
-    full = given or loss_draws(dc, (n * x.shape[0], *x.shape[1:]),
+    h = x.shape[1] * (mesh.shape["spatial"] if spatial else 1)
+    full = given or loss_draws(dc, (n * x.shape[0], h, *x.shape[2:]),
                                generator, x.device)
+    noise = image_sharding(mesh, 4) if spatial else batch_sharding(mesh, 4)
     return {k: None if v is None else
-            batch_sharding(mesh, 1).local(torch.as_tensor(v))
+            (noise if k == "noise" else batch_sharding(mesh, 1)).local(
+                torch.as_tensor(v))
             for k, v in full.items()}
+
+
+def _is_slab(x: torch.Tensor) -> bool:
+    """Whether the NHWC batch ``x`` holds H-slabs (fewer rows than
+    columns; whole images are square)."""
+    return x.shape[1] < x.shape[2]
+
+
+def _spatial_mean_(mesh: Mesh, tensors: List[torch.Tensor]) -> None:
+    """Each tensor replaced in place by its mean over 'spatial' (one
+    flattened all_reduce; nothing without a 'spatial' axis)."""
+    s = mesh.shape["spatial"]
+    if s == 1:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group("spatial"))
+    flat.div_(s)
+    for t, seg in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(seg.view(t.shape))
 
 
 @torch.no_grad()
@@ -426,13 +458,17 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
                         grads: List[torch.Tensor], loss: torch.Tensor
                         ) -> torch.Tensor:
     """The data-parallel half of the step: average the gradients and the
-    loss over 'data' and update. Replicated leaves and the loss go
-    through one flattened ``all_reduce``; under ZeRO-1 the partitioned
+    loss over 'spatial' (where the mesh has it: each slab's gradient is
+    its share), then over 'data', and update. Replicated leaves and the
+    loss go through one flattened ``all_reduce``; under ZeRO-1 the
+    partitioned
     leaves go through one ``reduce_scatter`` into this process's blocks,
     the clip takes the global norm (the blocks' squares summed over the
     group, the replicated leaves counted once), AdamW updates the blocks
     and one ``all_gather`` puts the new parameters back together.
     Returns the global mean loss."""
+    loss = loss.reshape(1).clone()
+    _spatial_mean_(mesh, grads + [loss])
     group, n = mesh.group("data"), mesh.shape["data"]
     params = state.params
     shardings = state.opt_state.shardings or [None] * len(params)
@@ -510,7 +546,6 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
     acc_dtype = _DTYPES[tc.grad_accum_dtype]
     net = remat_denoiser(model, tc.remat, tc.remat_policy)
     mesh = _data_mesh(mesh)
-    bn_group = mesh.group("data") if mesh is not None else None
 
     def step(state: TrainState, batch: Dict, generator=None,
              draws: Optional[Sequence[Dict]] = None) -> torch.Tensor:
@@ -523,6 +558,11 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
         for p in params:
             p.grad = None
         loss_sum = torch.zeros((), dtype=_F32, device=dev)
+        hooks = attach(model, mesh)
+        bn_group = None
+        if mesh is not None:
+            bn_group = (mesh.data_spatial_group() if hooks
+                        else mesh.group("data"))
         model.train()
         try:
             for i in range(a):
@@ -536,7 +576,8 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
                                       generator=generator,
                                       **_local_draws(mesh, dc, x, generator,
                                                      draws[i] if draws
-                                                     else None))
+                                                     else None,
+                                                     hooks and _is_slab(x)))
                     loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 if acc is not None:
@@ -576,7 +617,9 @@ def make_eval_step(model: nn.Module, sched: Schedule, cfg: Config,
     gradients; with ``model.use_pallas`` SE and CoordAttn run the CUDA
     kernels. Uses the live parameters, as the JAX package does. Under a
     distributed ``mesh`` ``batch`` is this process's block, the draws are
-    the global batch's and the loss is averaged over 'data'."""
+    the global batch's and the loss is averaged over 'data' (and over
+    'spatial', whose processes hold H-slabs when the model carries the
+    spatial hooks)."""
     dc = cfg.diffusion
     mesh = _data_mesh(mesh)
 
@@ -584,12 +627,17 @@ def make_eval_step(model: nn.Module, sched: Schedule, cfg: Config,
     def step(state: TrainState, batch: Dict, generator=None) -> torch.Tensor:
         dev = next(model.parameters()).device
         model.eval()
+        hooks = attach(model, mesh)
         x, mask = decode_wire(_to(batch["x"], dev),
                               _to(batch.get("mask"), dev), dc, normalize_u8)
         loss = train_loss(model, x, _to(batch["c"], dev).long(), mask, sched,
                           dc, generator=generator,
-                          **_local_draws(mesh, dc, x, generator, None))
-        return loss if mesh is None else all_reduce_mean_(mesh, loss)
+                          **_local_draws(mesh, dc, x, generator, None,
+                                         hooks and _is_slab(x)))
+        if mesh is None:
+            return loss
+        return all_reduce_mean_(mesh, all_reduce_mean_(mesh, loss),
+                                "spatial")
 
     return step
 

@@ -22,14 +22,18 @@ counts match). The textbook schedule family (the ``labml`` preset's
 ``ddpm_unet``) trains on its own schedule (t in [0, n_T), plain MSE) and
 samples with the textbook ancestral sampler.
 
-Data parallelism: under a process group (``torchrun``, one process per
-card) ``train.mesh_data`` processes split every batch (``parallel``):
-each decodes and trains on its block, the gradients are averaged once a
-step (with ``train.zero1``, each keeps only its block of Adam's
-moments), validation losses and samples are the global batch's. Every
-process holds the same parameters and takes the same decisions; rank 0
-alone prints, writes checkpoints, metrics and sample grids. The 'model'
-and 'spatial' axes are refused (ROADMAP A12c, A12b).
+Data and spatial parallelism: under a process group (``torchrun``, one
+process per card) ``train.mesh_data`` processes split every batch
+(``parallel``): each decodes and trains on its block, the gradients are
+averaged once a step (with ``train.zero1``, each keeps only its block of
+Adam's moments), validation losses and samples are the global batch's.
+With ``train.mesh_spatial`` > 1 the ContextUnet family is built with the
+spatial hooks and each process of a 'spatial' group holds an H-slab of
+its block (the batches, the validation batches and the samplers' images:
+the JAX package's ``image_sharding``); the other archs shard over 'data'
+only, as in the JAX package. Every process holds the same parameters and
+takes the same decisions; rank 0 alone prints, writes checkpoints,
+metrics and sample grids. The 'model' axis is refused (ROADMAP A12c).
 """
 
 from __future__ import annotations
@@ -78,9 +82,11 @@ from diffusionmodel_tpu_torch.parallel import (
     batch_sharding,
     broadcast_object,
     check_supported,
+    image_sharding,
     make_mesh,
     mesh_shape,
 )
+from diffusionmodel_tpu_torch.parallel.spatial import attach
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
     TrainState,
@@ -127,20 +133,27 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
     so every process returns the whole batch. Every process draws the
     global start noise and per-step noise from ``generator`` and takes its
     block, so the images are the one-process run's (up to the batch
-    size's effect on the network's sums). When the data size does not
-    divide n_sample every process samples the whole batch, as the JAX
-    package falls back to replication."""
+    size's effect on the network's sums). The big-image layout, under the
+    JAX package's conditions (a 'spatial' axis that divides img_size, a
+    model with the spatial hooks, ``build_model(spatial_shards=)``): each
+    process holds the H-slab of its block of the slots
+    (``image_sharding``) and the model runs on the slabs. When the data
+    size does not divide n_sample every process samples the whole batch,
+    as the JAX package falls back to replication."""
     dc, mc, sc = cfg.diffusion, cfg.model, cfg.sample
     shape = (mc.img_size, mc.img_size, mc.in_ch)
     textbook = dc.schedule_family == "textbook"
     if not textbook and sc.sampler not in ("ancestral", "ddim", "dpmpp"):
         raise ValueError(f"unknown sample.sampler {sc.sampler!r} "
                          "(expected ancestral | ddim | dpmpp)")
-    fan_out = None
+    fan_out = spatial = None
     if mesh is not None and mesh.distributed:
         check_supported(mesh)
         if n_sample % mesh.shape["data"] == 0:
             fan_out = batch_sharding(mesh, 4)
+            if mesh.shape["spatial"] > 1 and \
+                    mc.img_size % mesh.shape["spatial"] == 0:
+                spatial = image_sharding(mesh, 4)
 
     def run(model, generator, n, guide_w, classes, x_init, noise_fn):
         if textbook:
@@ -165,7 +178,12 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
 
     def sampler(model, generator, guide_w, x_init=None) -> torch.Tensor:
         model = model.eval()
-        if fan_out is None:
+        layout = fan_out
+        if spatial is not None and attach(model, mesh):
+            layout = spatial  # the big-image layout
+        else:
+            attach(model, None)
+        if layout is None:
             return run(model, generator, n_sample, guide_w, classes, x_init,
                        None)
         dev = sched.device
@@ -176,14 +194,14 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
 
         def noise_fn(step):
             if textbook and step == 0:  # the last update adds no noise
-                return torch.zeros_like(fan_out.local(x))
-            return fan_out.local(torch.randn(x.shape, generator=generator,
-                                             device=dev))
+                return torch.zeros_like(layout.local(x))
+            return layout.local(torch.randn(x.shape, generator=generator,
+                                            device=dev))
 
         mine = run(model, generator, n_sample // mesh.shape["data"],
                    gw if gw.dim() == 0 else fan_out.local(gw),
-                   fan_out.local(cls), fan_out.local(x), noise_fn)
-        return fan_out.gather(mine)
+                   fan_out.local(cls), layout.local(x), noise_fn)
+        return layout.gather(mine)
 
     return sampler
 
@@ -267,9 +285,9 @@ def _load_params(model, params, batch_stats=None) -> None:
 def check_train_mesh(tc) -> None:
     """Whether ``fit`` can run the mesh of ``train.mesh_data`` /
     ``mesh_model`` / ``mesh_spatial`` over the process group. Raises
-    NotImplementedError for the axes not ported (``mesh_model > 1``:
-    ROADMAP A12c; ``mesh_spatial > 1``: A12b) and ValueError for a mesh
-    the group cannot hold (``mesh_data > 1`` with no group included): no
+    NotImplementedError for the axis not ported (``mesh_model > 1``:
+    ROADMAP A12c) and ValueError for a mesh the group cannot hold
+    (``mesh_data`` or ``mesh_spatial`` > 1 with no group included): no
     mesh runs on one process silently."""
     check_supported(Mesh({"data": tc.mesh_data, "model": tc.mesh_model,
                           "spatial": tc.mesh_spatial}))
@@ -317,15 +335,22 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     if verbose:
         print(f"Dataset split - Train: {len(train_idx)}, Val: {len(val_idx)}")
 
+    torch.manual_seed(tc.seed)
+    model = build_model(mc, dc.high_thresh, spatial_shards=tc.mesh_spatial,
+                        device=dev)
+    # the JAX package's condition for H-slab batches (trainer.py:433-436)
+    spatial = (mesh.shape["spatial"] > 1
+               and mc.img_size % mesh.shape["spatial"] == 0
+               and getattr(model, "spatial_shards", 0) > 0)
     wire_ok = _wire_format_ok(dataset, dc)
     train_loader = BatchLoader(dataset, train_idx, tc.batch_size,
                                tc.accum_steps, shuffle=True, augment=True,
-                               seed=tc.seed, wire_u8=wire_ok, mesh=mesh)
+                               seed=tc.seed, wire_u8=wire_ok, mesh=mesh,
+                               spatial=spatial)
     val_loader = BatchLoader(dataset, val_idx, tc.batch_size, 1, shuffle=False,
-                             augment=False, wire_u8=wire_ok, mesh=mesh)
+                             augment=False, wire_u8=wire_ok, mesh=mesh,
+                             spatial=spatial)
 
-    torch.manual_seed(tc.seed)
-    model = build_model(mc, dc.high_thresh, device=dev)
     if dc.schedule_family == "textbook":
         sched = textbook_schedule(dc.n_T, dc.beta1, dc.beta2, dev)
     else:

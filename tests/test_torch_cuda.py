@@ -1029,3 +1029,129 @@ def test_labml_service_pinned_request_repeats_on_the_card(dev):
     assert batches == 2
     assert alone.shape == (1, 32, 32, 3) and np.isfinite(alone).all()
     np.testing.assert_array_equal(outs[1], alone)
+
+
+# ------------------------------------------ the slab forms (spatial axis)
+# (B, L, C, slabs): narrow widths and slabs of 1-16 rows, a ragged C, and
+# slab heights off the kernels' 16-row tiles
+SLAB_SHAPES = [(2, 32, 64, 2), (2, 32, 64, 4), (3, 16, 96, 4),
+               (2, 40, 32, 2), (1, 8, 128, 8), (2, 64, 192, 2)]
+
+
+def _slab_forms(x, shards, se_w=None, ca=None):
+    """The slab forms run slab by slab, the statistics combined in process
+    as the collectives combine them: the whole map's result."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn_slab_apply,
+        coord_attn_slab_mix,
+        coord_attn_slab_pool,
+    )
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        se_slab_apply,
+        se_slab_pool,
+    )
+
+    l = x.shape[1]
+    hs = l // shards
+    slabs = [t.contiguous() for t in x.split(hs, dim=1)]
+    if se_w is not None:
+        sums = sum(se_slab_pool(t) for t in slabs)
+        return torch.cat([se_slab_apply(t, sums, *se_w, l * x.shape[2])
+                          for t in slabs], dim=1)
+    wts, groups = ca
+    pools = [coord_attn_slab_pool(t) for t in slabs]
+    yn, yx = coord_attn_slab_mix(torch.cat([p[0] for p in pools], 1),
+                                 sum(p[1] for p in pools), wts, "group",
+                                 groups)
+    return torch.cat([coord_attn_slab_apply(t, yn, yx, wts, k * hs)
+                      for k, t in enumerate(slabs)], dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SLAB_SHAPES)
+def test_slab_forms_match_twins_and_whole_map_kernels(dev, shape, dtype):
+    """SE's and CoordAttn's slab kernels (pool, then the reduced
+    statistics, then gate and scale / bottleneck and apply) against their
+    plain twins on the same slabs and against the whole-map kernels:
+    fp32 max |diff| <= 1e-4, bf16 within one bf16 ulp of max |y|; two runs
+    bit-identical."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn_slab_apply_plain,
+        coord_attn_slab_mix_plain,
+    )
+
+    b, l, c, shards = shape
+    x, w1, w2 = _se_inputs((b, l, l, c), dev, seed=4)
+    x = x.to(dtype)
+    mod = _ca_module(c, "group", dev)
+    ca = (CoordAttnWeights.from_module(mod, "group"), gn_groups(c // 16, 8))
+    with torch.no_grad():
+        for got, whole, twin in (
+                (_slab_forms(x, shards, se_w=(w1, w2)), se_block(x, w1, w2),
+                 se_block_plain(x, w1, w2)),
+                (_slab_forms(x, shards, ca=ca),
+                 coord_attn(x, ca[0], "group", ca[1]),
+                 coord_attn_plain(x, ca[0], "group", ca[1]))):
+            assert got.dtype == dtype and got.shape == x.shape
+            tol = ATOL if dtype == torch.float32 else \
+                2.0 ** -7 * twin.float().abs().max().item()
+            for want in (twin, whole):
+                assert (got.float() - want.float()).abs().max().item() <= tol
+        assert torch.equal(_slab_forms(x, shards, se_w=(w1, w2)),
+                           _slab_forms(x, shards, se_w=(w1, w2)))
+        assert torch.equal(_slab_forms(x, shards, ca=ca),
+                           _slab_forms(x, shards, ca=ca))
+        # the twins of the slab stages on the card, against the whole map
+        hs = l // shards
+        yn, yx = coord_attn_slab_mix_plain(
+            x.float().mean(dim=2), x.float().sum(dim=1), ca[0], "group",
+            ca[1])
+        twin = torch.cat([coord_attn_slab_apply_plain(
+            t.contiguous(), yn, yx, ca[0], k * hs)
+            for k, t in enumerate(x.split(hs, dim=1))], dim=1)
+        tol = ATOL if dtype == torch.float32 else \
+            2.0 ** -7 * twin.float().abs().max().item()
+        assert (twin.float() - coord_attn_plain(
+            x, ca[0], "group", ca[1]).float()).abs().max().item() <= tol
+
+
+def test_slab_wrappers_count_launches_and_refuse_float16(dev):
+    """``se_block_slab`` and ``coord_attn_slab`` (one group of one slab:
+    the collectives are identities) launch their kernels, add one to
+    their counts, equal the whole-map kernels, and refuse float16 x
+    rather than fall back to a twin."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn_slab
+    from diffusionmodel_tpu_torch.kernels.se_block import (
+        se_block_slab,
+        se_slab_pool,
+    )
+
+    class One:
+        shards = 1
+
+        @staticmethod
+        def all_reduce(t):
+            return t
+
+        @staticmethod
+        def gather(t, dim=2):
+            return t
+
+        @staticmethod
+        def row0(rows):
+            return 0
+
+    x, w1, w2 = _se_inputs((2, 16, 16, 64), dev, seed=6)
+    mod = _ca_module(64, "group", dev)
+    wts = CoordAttnWeights.from_module(mod, "group")
+    n_se, n_ca = se_block_slab.launches, coord_attn_slab.launches
+    with torch.no_grad():
+        got = se_block_slab(x, w1, w2, One())
+        assert (got - se_block(x, w1, w2)).abs().max().item() <= ATOL
+        got = coord_attn_slab(x, wts, "group", 4, One())
+        assert (got - coord_attn(x, wts, "group", 4)).abs().max().item() \
+            <= ATOL
+    assert (se_block_slab.launches, coord_attn_slab.launches) == (
+        n_se + 1, n_ca + 1)
+    with pytest.raises(TypeError):
+        se_slab_pool(x.half())

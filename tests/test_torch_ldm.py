@@ -79,6 +79,7 @@ from diffusionmodel_tpu_torch.models.latent_diffusion.runner import (
 from diffusionmodel_tpu_torch.models.latent_diffusion.unet import (
     UNetModel,
     sinusoidal_time_emb,
+    time_frequencies,
 )
 from diffusionmodel_tpu_torch.models.latent_diffusion.util import set_seed
 from diffusionmodel_tpu_torch.nn.blocks import GroupNorm, channels_last
@@ -264,11 +265,40 @@ def test_vae_blocks_match_jax(tiny):
 
 
 def test_time_embedding_and_schedule_match_jax():
+    """The sinusoidal embedding, in three checks, then the schedule.
+
+    Both packages form the same float32 exponent -log(P) * k / half and
+    take exp of it; torch's and XLA's exp land within 1 ulp of the float64
+    exp of that exponent each, but not always on the same float32 (they
+    differ in some of the 32), so each is held to float64 within 1 ulp.
+    Given one float32 angle table, torch's and XLA's sin and cos agree
+    within 1e-6. The whole embedding then differs by the angle's
+    difference, t * (f_torch - f_jax), of at most t * 2 ulp(f), since
+    |d sin| <= |d angle|: at t = 999 up to ~1.2e-4, the bound per row is
+    1e-5 + t * 2 ulp(f)."""
+    half, period = 32, 10000
     t = np.array([0, 1, 17, 999])
-    np.testing.assert_allclose(
-        sinusoidal_time_emb(torch.from_numpy(t), 64).numpy(),
-        np.asarray(junet.sinusoidal_time_emb(jnp.asarray(t), 64)),
-        rtol=0, atol=ATOL_BLOCK)
+    # the exponent as both packages form it in float32 (the JAX package's
+    # sinusoidal_time_emb, unet.py:32-33, whose line this repeats)
+    arg = np.asarray(-np.log(period) * jnp.arange(half, dtype=jnp.float32)
+                     / half)
+    exact = np.exp(arg.astype(np.float64))
+    ulp = np.spacing(exact.astype(np.float32)).astype(np.float64)
+    mine = time_frequencies(2 * half, period).numpy().astype(np.float64)
+    theirs = np.asarray(jnp.exp(jnp.asarray(arg))).astype(np.float64)
+    assert np.all(np.abs(mine - exact) <= ulp), np.abs(mine - exact) / ulp
+    assert np.all(np.abs(theirs - exact) <= ulp), \
+        np.abs(theirs - exact) / ulp
+    ang = (t[:, None].astype(np.float32) * exact.astype(np.float32))
+    for tf, jf in ((torch.sin, jnp.sin), (torch.cos, jnp.cos)):
+        np.testing.assert_allclose(tf(torch.from_numpy(ang)).numpy(),
+                                   np.asarray(jf(jnp.asarray(ang))),
+                                   rtol=0, atol=1e-6)
+    got = sinusoidal_time_emb(torch.from_numpy(t), 2 * half).numpy()
+    want = np.asarray(junet.sinusoidal_time_emb(jnp.asarray(t), 2 * half))
+    bound = ATOL_BLOCK + t[:, None] * 2 * np.concatenate([ulp, ulp])
+    assert np.all(np.abs(got - want) <= bound), np.max(
+        np.abs(got - want) / bound)
     for n in (20, 1000):
         mine, ref = ldm_schedule(n, device="cpu"), jax_ldm_schedule(n)
         for a, b in zip(mine, ref):

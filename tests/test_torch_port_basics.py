@@ -298,8 +298,8 @@ def test_checkpoint_loader_stubs_unknown_classes(tmp_path):
 
 
 # Every mode is ported, for every preset and both editing families: what
-# stays unported is the 'model' and 'spatial' mesh axes (ROADMAP A12c,
-# A12b), which the CLI refuses before it starts; the invocations earlier
+# stays unported is the 'model' mesh axis (ROADMAP A12c), which the CLI
+# refuses before it starts; the invocations earlier
 # slices refused (the side presets, --family main) reach their own
 # argument checks.
 _UNPORTED_ARGS = {
