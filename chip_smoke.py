@@ -196,10 +196,14 @@ parallel (after train_bf16)  the data-parallel path (``parallel``) at
             ``make_sampler(mesh=)`` at DDIM-10 on 8 slots bit-identical to
             the plain sampler, with its SE and CoordAttn launches (the
             bf16 entries' ``parallel_launches``); then
-            ``SamplerService(mesh=)`` against the service without a mesh
+            ``SamplerService(mesh=)`` and the service without a mesh
             (DDIM-10, max_batch 4): a pinned request alone and batched
-            behind another, bit-identical in both and across them; the
-            NCCL version and the world size. No second card exists here:
+            behind another, bit-identical in each; the mesh service's
+            (cuDNN's heuristics, as every mesh worker runs) bit-identical
+            to the DDIM sampler it calls on the heuristics in a fresh
+            thread; its largest difference from the autotuned service
+            without a mesh, reported; the NCCL version and the world
+            size. No second card exists here:
             agreement across ranks is the CPU tests' (gloo) and the
             spatial phase's.
 spatial_kernels (after kernels_bf16)  the slab forms of SE and CoordAttn
@@ -227,8 +231,10 @@ spatial (after parallel)  first a probe: two processes on the one card
             the fp32 images lie within relative L2 1e-3 of one process's,
             the loss within 1e-4 relative, the parameters within 1% of
             the update's norm (over 2^20 sampled elements), and each
-            forward launches 5 slab SE and 4 slab CoordAttn kernels and no
-            whole-map one (the slab entries' ``launches``). It proves
+            forward calls each SE slab stage (pool, apply) 5 times and
+            each CoordAttn slab stage (pool, mix, apply) 4 times, each
+            stage counted where it launches, and no whole-map kernel
+            (the slab entries' ``launches`` and ``stage_launches``). It proves
             correctness only: two processes on one card say nothing of
             speed.
 
@@ -2415,7 +2421,10 @@ def phase_parallel(counters, out_dir, dataset) -> list:
     weight-gradient sums are not bit-reproducible). Then
     ``make_sampler(mesh=)`` at DDIM-10 on 8 slots against the same sampler
     without a mesh: bit for bit, with 5 SE and 4 CoordAttn launches per
-    forward counted in the mesh run alone. Returns those launches."""
+    forward counted in the mesh run alone. Then the services with and
+    without the mesh (``_pinned_service``), the mesh's held to the sampler
+    on the same cuDNN algorithms (``_pinned_reference``). Returns the
+    mesh sampler's launches."""
     import os
 
     import torch.distributed as dist
@@ -2517,11 +2526,15 @@ def phase_parallel(counters, out_dir, dataset) -> list:
             dist.all_gather_into_tensor(gathered, scattered)
             collectives_ok = torch.equal(gathered, probe)
         # the service's fan-out (broadcast of each batch, at one rank the
-        # whole batch in this process) against the service without a mesh
+        # whole batch in this process) against the sampler it calls, both
+        # on cuDNN's heuristics (as a mesh's workers run), and beside the
+        # service without a mesh (autotuned: other algorithms may sum in
+        # other orders)
         t0 = time.perf_counter()
         plain_svc = _pinned_service(model, cfg, sched, None)
         mesh_svc = _pinned_service(model, cfg, sched, mesh)
         service_s = time.perf_counter() - t0
+        service_want = _pinned_reference(model, cfg, sched)
         nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
         world = dist.get_world_size()
     finally:
@@ -2543,9 +2556,9 @@ def phase_parallel(counters, out_dir, dataset) -> list:
          service_pinned_alone_batched_equal=[
              bool(np.array_equal(*plain_svc)), bool(np.array_equal(
                  *mesh_svc))],
-         service_mesh_equals_plain=bool(np.array_equal(plain_svc[0],
-                                                       mesh_svc[0])),
-         service_mesh_vs_plain_max_abs=float(np.abs(
+         service_mesh_equals_sampler=bool(np.array_equal(service_want,
+                                                         mesh_svc[0])),
+         service_mesh_vs_plain_service_max_abs=float(np.abs(
              plain_svc[0] - mesh_svc[0]).max()),
          service_s=service_s)
     check(len(batches) == 2, f"{len(batches)} batches")
@@ -2557,9 +2570,9 @@ def phase_parallel(counters, out_dir, dataset) -> list:
     check(collectives_ok, "reduce_scatter_tensor / all_gather_into_tensor "
           "over one NCCL rank changed the tensor")
     check(np.array_equal(*plain_svc) and np.array_equal(*mesh_svc)
-          and np.array_equal(plain_svc[0], mesh_svc[0]),
+          and np.array_equal(service_want, mesh_svc[0]),
           "SamplerService(mesh=): a pinned request's images differ alone, "
-          "batched or from the service without a mesh")
+          "batched or from the sampler on the same cuDNN algorithms")
     check(launches == [SE_PER_FORWARD * PARALLEL_DDIM,
                        CA_PER_FORWARD * PARALLEL_DDIM],
           f"mesh sampler launches {launches}")
@@ -2872,25 +2885,35 @@ def _spatial_batch():
             "mask": rng.integers(0, 3, (a, b, 256, 256), dtype=np.uint8)}
 
 
+# the counted wrappers of the spatial path: each slab stage, then the
+# whole-map kernels (which the path on slabs must not call), and the calls
+# of each in one forward on slabs
+SPATIAL_COUNTERS = ("se_slab_pool", "se_slab_apply", "coord_attn_slab_pool",
+                    "coord_attn_slab_mix", "coord_attn_slab_apply",
+                    "se_block", "coord_attn")
+SPATIAL_PER_FORWARD = (SE_PER_FORWARD, SE_PER_FORWARD, CA_PER_FORWARD,
+                       CA_PER_FORWARD, CA_PER_FORWARD, 0, 0)
+
+
+def _spatial_counters() -> list:
+    import diffusionmodel_tpu_torch.kernels.coord_attn as ca
+    import diffusionmodel_tpu_torch.kernels.se_block as se
+
+    return [getattr(ca if n.startswith("coord") else se, n)
+            for n in SPATIAL_COUNTERS]
+
+
 def spatial_runs(mesh=None) -> dict:
     """The spatial main path at full width, or (``mesh`` None) the same
     calls in one process: a DDIM sampler (``make_sampler``, fp32 and
     bf16, ``use_pallas``) and one fp32 train step (``make_train_step``)
     from weights of torch seed 0, under cuDNN's heuristics.
-    On the mesh, the slab kernels' launches in the sampler calls (the
-    counts zeroed just before each)."""
+    The calls of each slab stage and of the whole-map kernels in the
+    sampler calls (``SPATIAL_COUNTERS``, zeroed just before each)."""
     import dataclasses as dc_
 
     from diffusionmodel_tpu_torch.device_check import fp32_compute
     from diffusionmodel_tpu_torch.diffusion import Schedule
-    from diffusionmodel_tpu_torch.kernels.coord_attn import (
-        coord_attn,
-        coord_attn_slab,
-    )
-    from diffusionmodel_tpu_torch.kernels.se_block import (
-        se_block,
-        se_block_slab,
-    )
     from diffusionmodel_tpu_torch.nn import build_model
     from diffusionmodel_tpu_torch.parallel import image_sharding
     from diffusionmodel_tpu_torch.train import (
@@ -2900,7 +2923,7 @@ def spatial_runs(mesh=None) -> dict:
     from diffusionmodel_tpu_torch.trainer import make_sampler
 
     dev = torch.device("cuda")
-    counters = [se_block_slab, coord_attn_slab, se_block, coord_attn]
+    counters = _spatial_counters()
     shards = SPATIAL_RANKS if mesh is not None else 0
     out = {"launches": {}, "sample_s": {}}
     with fp32_compute(dev, autotune=False):
@@ -3014,7 +3037,6 @@ def phase_spatial(out_dir) -> dict:
     got = [torch.load(os.path.join(out_dir, f"spatial_rank{r}.pt"),
                       weights_only=False) for r in range(SPATIAL_RANKS)]
     r0 = got[0]
-    per_forward = [SE_PER_FORWARD, CA_PER_FORWARD, 0, 0]
     row = dict(ranks=SPATIAL_RANKS, backend="gloo", mesh=r0["mesh"],
                cudnn="heuristics (no search: each process would pay it)",
                slots=SPATIAL_SLOTS, ddim=SPATIAL_DDIM,
@@ -3022,8 +3044,8 @@ def phase_spatial(out_dir) -> dict:
                ranks_s=ranks_s, one_process_s=one_s,
                rank_sample_s=r0["sample_s"],
                one_sample_s=one["sample_s"], rank_step_s=r0["step_s"],
-               one_step_s=one["step_s"], launches=r0["launches"],
-               one_launches=one["launches"],
+               one_step_s=one["step_s"], counted=SPATIAL_COUNTERS,
+               launches=r0["launches"], one_launches=one["launches"],
                jax_imported=any(r["jax_imported"] for r in got))
     for dtype in ("float32", "bfloat16"):
         a, b = r0[f"images_{dtype}"], one[f"images_{dtype}"]
@@ -3044,9 +3066,10 @@ def phase_spatial(out_dir) -> dict:
               f"{row[f'ranks_agree_{dtype}']}, finite "
               f"{row[f'finite_{dtype}']}")
         steps = SPATIAL_DDIM if dtype == "float32" else SPATIAL_BF16_DDIM
-        check(r0["launches"][dtype] == [n * steps for n in per_forward],
-              f"spatial {dtype} launches {r0['launches'][dtype]} (slab SE, "
-              "slab CoordAttn, whole-map SE, whole-map CoordAttn)")
+        check(r0["launches"][dtype] == [n * steps
+                                        for n in SPATIAL_PER_FORWARD],
+              f"spatial {dtype} launches {r0['launches'][dtype]} of "
+              f"{SPATIAL_COUNTERS}")
     check(row["images_rel_l2_float32"] <= SPATIAL_IMG_RTOL,
           f"spatial fp32 images off one process: relative L2 "
           f"{row['images_rel_l2_float32']}")
@@ -3060,23 +3083,64 @@ def phase_spatial(out_dir) -> dict:
     return r0["launches"]
 
 
+SERVICE_SLOTS, SERVICE_SEED, SERVICE_GUIDE = 4, 21, 2.0  # the pinned request
+
+
 def _pinned_service(model, cfg, sched, mesh) -> tuple:
     """A ``SamplerService`` (DDIM, max_batch 4) over ``mesh``: a pinned
-    request's images alone, then batched behind another request. cuDNN on
-    its heuristics in the worker: a searched choice is kept per thread,
-    so two autotuned services (two worker threads) may pick other
-    algorithms for a shape and give other bits."""
+    request's images alone (slots 0-1), then batched behind another
+    request (slots 2-3)."""
     from diffusionmodel_tpu_torch.serving import SamplerService
 
-    svc = SamplerService(model, cfg, sched, max_batch=4, sampler="ddim",
-                         max_wait_ms=1000, service_seed=3, mesh=mesh,
-                         autotune=False)
+    svc = SamplerService(model, cfg, sched, max_batch=SERVICE_SLOTS,
+                         sampler="ddim", max_wait_ms=1000, service_seed=3,
+                         mesh=mesh)
     try:
-        alone = svc.generate([0, 1], guide_w=2.0, seed=21)
+        alone = svc.generate([0, 1], guide_w=SERVICE_GUIDE,
+                             seed=SERVICE_SEED)
         svc.submit([2, 3], guide_w=3.0, seed=4)
-        return alone, svc.submit([0, 1], guide_w=2.0, seed=21).result()
+        return alone, svc.submit([0, 1], guide_w=SERVICE_GUIDE,
+                                 seed=SERVICE_SEED).result()
     finally:
         svc.close()
+
+
+def _pinned_reference(model, cfg, sched) -> np.ndarray:
+    """The pinned request of ``_pinned_service`` through the DDIM sampler
+    the service calls, in slots 0-1 of a batch of 4 (the start noise from
+    the request's seed, as the service draws it; the other slots zeros),
+    on cuDNN's heuristics in a thread of its own (cuDNN keeps a thread's
+    choices, searched or not, so a fresh thread takes the heuristics'
+    algorithm for every shape, as the mesh's worker does)."""
+    import threading
+
+    from diffusionmodel_tpu_torch.device_check import fp32_compute
+    from diffusionmodel_tpu_torch.diffusion import sample_cfg_ddim
+
+    mc, sc, dev = cfg.model, cfg.sample, sched.device
+    shape = (mc.img_size, mc.img_size, mc.in_ch)
+    x = np.zeros((SERVICE_SLOTS, *shape), np.float32)
+    x[:2] = np.random.default_rng(SERVICE_SEED).standard_normal(
+        (2, *shape), np.float32)
+    out = {}
+
+    def run():
+        with fp32_compute(dev, autotune=False), torch.no_grad():
+            out["imgs"] = sample_cfg_ddim(
+                model.eval(), torch.Generator(device=dev).manual_seed(0),
+                SERVICE_SLOTS, shape, mc.n_classes, sched, cfg.diffusion,
+                guide_w=torch.full((SERVICE_SLOTS,), SERVICE_GUIDE,
+                                   device=dev),
+                n_steps=sc.ddim_steps, eta=sc.ddim_eta,
+                discretize=sc.ddim_discretize,
+                classes=torch.tensor([0, 1, 0, 0], device=dev),
+                x_init=torch.from_numpy(x).to(dev))[:2].cpu().numpy()
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    check("imgs" in out, "the pinned request's reference sampler failed")
+    return out["imgs"]
 
 
 # DDIM-20 (DDIM-50 until the spatial phases needed the time)
@@ -3762,15 +3826,18 @@ def main() -> int:
                    "library_ms is the whole SDPA backward (dq, dk and dv)",
         }
 
-    def slab_entry(name, key, dtype, i, replaces):
+    def slab_entry(name, key, dtype, stages, replaces):
         sites = [r for r in slab_rows[dtype][key]
                  if r["shards"] == SPATIAL_RANKS]
+        counts = spatial_launches.get(dtype, [0] * len(SPATIAL_COUNTERS))
         return {
             "name": name, "route": "cuda",
             "source": "diffusionmodel_tpu_torch/kernels/csrc/"
                       f"{key.replace('_slab', '')}.cu",
             "replaces": replaces,
-            "launches": spatial_launches.get(dtype, [0, 0])[i],
+            "launches": min(counts[j] for j in stages),
+            "stage_launches": {SPATIAL_COUNTERS[j]: counts[j]
+                               for j in stages},
             "max_abs_err": max(r["max_abs_err"] for r in
                                slab_rows[dtype][key]),
             "max_abs_err_whole_map": max(r["max_abs_err_whole"] for r in
@@ -3786,7 +3853,9 @@ def main() -> int:
             "per": f"one process's share of a batch-{BATCH} forward at "
                    f"{SPATIAL_RANKS} slabs ({len(sites)} sites, back to "
                    "back); whole_map_ms the whole-map kernel on the whole "
-                   "map; launches on the two-rank spatial path",
+                   "map; launches on the two-rank spatial path: the calls "
+                   "of the stage called least, each stage's in "
+                   "stage_launches (counted where it launches)",
         }
 
     fwd = flash_entry(flash_rows, flash_launches)
@@ -3816,14 +3885,14 @@ def main() -> int:
         ca,
         se16,
         ca16,
-        slab_entry("se_block_slab", "se_block_slab", "float32", 0,
+        slab_entry("se_block_slab", "se_block_slab", "float32", (0, 1),
                    "diffusionmodel_tpu/kernels/se_block.py:202"),
-        slab_entry("coord_attn_slab", "coord_attn_slab", "float32", 1,
-                   "diffusionmodel_tpu/kernels/coord_attn.py:296"),
-        slab_entry("se_block_slab_bf16", "se_block_slab", "bfloat16", 0,
+        slab_entry("coord_attn_slab", "coord_attn_slab", "float32",
+                   (2, 3, 4), "diffusionmodel_tpu/kernels/coord_attn.py:296"),
+        slab_entry("se_block_slab_bf16", "se_block_slab", "bfloat16", (0, 1),
                    "diffusionmodel_tpu/kernels/se_block.py:202"),
-        slab_entry("coord_attn_slab_bf16", "coord_attn_slab", "bfloat16", 1,
-                   "diffusionmodel_tpu/kernels/coord_attn.py:296"),
+        slab_entry("coord_attn_slab_bf16", "coord_attn_slab", "bfloat16",
+                   (2, 3, 4), "diffusionmodel_tpu/kernels/coord_attn.py:296"),
         fwd,
         bwd_entry("flash_attn_dq", "dq", train_launches[1],
                   "diffusionmodel_tpu/kernels/flash_attn.py:268"),

@@ -15,9 +15,11 @@ batch: the JAX package's ``batch_sharding(mesh, 5, 1)``. With ``spatial``
 (the mesh's 'spatial' axis, for a model with the spatial hooks) each
 process keeps the H-block of its images and masks as well:
 ``image_sharding(mesh, 5, batch_axis=1, h_axis=2)``. The processes of one
-'spatial' group decode the same images, so there the loader draws the
-horizontal flips itself, in order from its own seeded generator, where
-the dataset would draw them in whatever order its worker threads run.
+'spatial' group decode the same images (their H-blocks, or, without
+``spatial``, the whole images: replicas), so on a mesh with a 'spatial'
+axis the loader draws the horizontal flips itself, in order from its own
+seeded generator, where the dataset would draw them in whatever order its
+worker threads run.
 """
 
 from __future__ import annotations
@@ -61,9 +63,10 @@ class BatchLoader:
             )
 
             self.rows = batch_sharding(mesh, 2, 1).block(1, batch_size)
-            if spatial and mesh.shape["spatial"] > 1:
-                self.h_rows = image_sharding(mesh, 5, 1, 2).block(
-                    2, dataset.img_size)
+            if mesh.shape["spatial"] > 1:
+                if spatial:
+                    self.h_rows = image_sharding(mesh, 5, 1, 2).block(
+                        2, dataset.img_size)
                 if augment:
                     self.flip_prob = getattr(dataset, "hflip_prob", 0.0)
 

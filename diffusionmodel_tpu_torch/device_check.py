@@ -48,7 +48,7 @@ def fp32_compute(device: torch.device, autotune: bool = True,
 
     ``trainer.fit`` and ``sample.gen_samples`` (``--mode train|generate``)
     run under it for the call, ``SamplerService``'s worker thread for the
-    service's lifetime; ``LdmRunner``'s txt2img / img2img / inpaint and
+    service's lifetime (on cuDNN's heuristics under a mesh); ``LdmRunner``'s txt2img / img2img / inpaint and
     ``ImageMetrics``' feature extraction run under it without autotuning
     (the search costs more than it saves there). A textbook-family
     service asks for ``deterministic``: cuDNN's default choice for the

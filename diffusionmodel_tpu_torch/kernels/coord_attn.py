@@ -538,7 +538,9 @@ coord_attn.launches = 0
 # column sums all-reduced; coord_attn_slab_mix -> the bottleneck's yn, yx
 # [B, 2, L, R] on the whole map (replicated); coord_attn_slab_apply -> the
 # slab times its gates. Each stage takes its kernel for a CUDA tensor and
-# its plain twin for a CPU tensor; :func:`coord_attn_slab` runs them with
+# its plain twin for a CPU tensor, and counts its kernel's calls in its own
+# ``launches`` (the pool call runs two kernels, the pass and the tile
+# fold); :func:`coord_attn_slab` runs them with
 # the collectives between, and :func:`coord_attn_slab_plain` runs the
 # twins on any device (differentiable: the train path).
 
@@ -613,20 +615,13 @@ def coord_attn_slab(x: torch.Tensor, wts: CoordAttnWeights,
     """CoordAttn on this process's slab x [B, h, L, C]: the pooling pass,
     the gather of the row means and the all_reduce of the column sums over
     ``group``'s slabs, the bottleneck on the whole map, the apply pass on
-    the slab's rows. CUDA tensors launch the slab kernels
-    (``coord_attn_slab.launches`` counts those calls), CPU tensors take the
-    twins."""
+    the slab's rows. CUDA tensors launch the slab kernels (each stage
+    counts its calls), CPU tensors take the twins."""
     rmean, colsum = coord_attn_slab_pool(x)
     yn, yx = coord_attn_slab_mix(group.gather(rmean, dim=1),
                                  group.all_reduce(colsum), wts, norm_kind,
                                  gn_groups)
-    out = coord_attn_slab_apply(x, yn, yx, wts, group.row0(x.shape[1]))
-    if x.device.type == "cuda":
-        coord_attn_slab.launches += 1
-    return out
-
-
-coord_attn_slab.launches = 0
+    return coord_attn_slab_apply(x, yn, yx, wts, group.row0(x.shape[1]))
 
 
 def _slab_lib() -> ctypes.CDLL:
@@ -694,7 +689,11 @@ def coord_attn_slab_pool(x: torch.Tensor):
     _build.check(lib, fn(x.data_ptr(), rmean.data_ptr(), cp.data_ptr(),
                          colsum.data_ptr(), ctypes.addressof(params), stream),
                  "coord_attn_slab_pool")
+    coord_attn_slab_pool.launches += 1
     return rmean, colsum
+
+
+coord_attn_slab_pool.launches = 0
 
 
 def coord_attn_slab_mix(rmean: torch.Tensor, colsum: torch.Tensor,
@@ -734,7 +733,11 @@ def coord_attn_slab_mix(rmean: torch.Tensor, colsum: torch.Tensor,
         scratch.data_ptr(), yn.data_ptr(), yx.data_ptr(),
         counters.data_ptr(), ctypes.addressof(params), stream),
         "coord_attn_slab_mix")
+    coord_attn_slab_mix.launches += 1
     return yn, yx
+
+
+coord_attn_slab_mix.launches = 0
 
 
 def coord_attn_slab_apply(x: torch.Tensor, yn: torch.Tensor,
@@ -769,4 +772,8 @@ def coord_attn_slab_apply(x: torch.Tensor, yn: torch.Tensor,
                          ctypes.addressof(ptrs),
                          out.data_ptr(), ctypes.addressof(params), stream),
                  "coord_attn_slab_apply")
+    coord_attn_slab_apply.launches += 1
     return out
+
+
+coord_attn_slab_apply.launches = 0

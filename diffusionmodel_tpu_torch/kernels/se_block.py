@@ -326,7 +326,9 @@ se_block.launches = 0
 # se_slab_pool -> this slab's sums [B, C] (float32), an all_reduce over the
 # slabs, then se_slab_apply -> the gate from the reduced sums, applied to
 # the slab's rows. Each stage takes its kernel for a CUDA tensor and its
-# plain twin for a CPU tensor; :func:`se_block_slab` runs the three.
+# plain twin for a CPU tensor, and counts its kernel's calls in its own
+# ``launches`` (one call runs two kernels: parts and fold, gate and
+# scale); :func:`se_block_slab` runs the three.
 SLAB_THREADS = 256
 SLAB_PIXELS_PER_LANE = 16
 SLAB_SCALE_BLOCKS = 2048
@@ -388,7 +390,11 @@ def se_slab_pool(x: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(lib, fn(x.data_ptr(), psum.data_ptr(), sums.data_ptr(),
                          ctypes.addressof(params), stream), "se_slab_pool")
+    se_slab_pool.launches += 1
     return sums
+
+
+se_slab_pool.launches = 0
 
 
 def se_slab_apply(x: torch.Tensor, sums: torch.Tensor, w1: torch.Tensor,
@@ -425,7 +431,11 @@ def se_slab_apply(x: torch.Tensor, sums: torch.Tensor, w1: torch.Tensor,
                          w2t.data_ptr(), gate.data_ptr(), out.data_ptr(),
                          ctypes.addressof(params), ctypes.c_float(count),
                          stream), "se_slab_apply")
+    se_slab_apply.launches += 1
     return out
+
+
+se_slab_apply.launches = 0
 
 
 def se_block_slab(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -434,17 +444,10 @@ def se_block_slab(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     ``group.shards`` equal slabs: the slab's sums, ``group.all_reduce``
     over the slabs, then the gate and the scale (``parallel.spatial.
     SpatialGroup`` is such a group). CUDA tensors launch the slab kernels
-    (``se_block_slab.launches`` counts those calls), CPU tensors take the
-    twins."""
+    (each stage counts its calls), CPU tensors take the twins."""
     sums = group.all_reduce(se_slab_pool(x))
-    out = se_slab_apply(x, sums, w1, w2,
-                        x.shape[1] * group.shards * x.shape[2])
-    if x.device.type == "cuda":
-        se_block_slab.launches += 1
-    return out
-
-
-se_block_slab.launches = 0
+    return se_slab_apply(x, sums, w1, w2,
+                         x.shape[1] * group.shards * x.shape[2])
 
 
 def _slab_lib() -> ctypes.CDLL:

@@ -26,7 +26,7 @@ reads ``state_dict()`` directly.
 
 ``spatial_shards`` > 0 gives the net the JAX package's spatial hooks:
 once ``parallel.spatial.attach`` has given it a 'spatial' group of that
-size, ``forward`` takes an H-slab (or a whole map) and returns the same
+size (which must divide ``img_size``), ``forward`` takes an H-slab (or a whole map) and returns the same
 layout, and between its layers applies ``constrain_spatial`` at the JAX
 sites (the stem, each down stage, up0 and each up stage): H stays split
 while a slab holds at least 8 rows and is gathered below that. The
@@ -79,6 +79,7 @@ class ContextUnet(nn.Module):
         super().__init__()
         dt = self.dtype = dtype
         self.spatial_shards = spatial_shards
+        self.img_size = img_size
         nf = n_feat
         d4 = img_size // 16
         pool = min(8, d4)

@@ -20,7 +20,9 @@ here it is spelled out, and every transport is an ``all_reduce`` or a
 - :func:`constrain_spatial`: the JAX package's rule for a map inside the
   sharded forward: H split while every slab holds at least ``min_rows``
   rows, gathered (replicated) below.
-- :func:`attach` gives a model's slab-aware layers the group.
+- :func:`runs_on_slabs` is the JAX package's condition for the layout,
+  and :func:`attach` gives a model's slab-aware layers the group where it
+  holds.
 
 Gradients follow the sum of the processes' losses: the backward of a sum
 over the group is a sum over the group, so each process's parameter
@@ -212,22 +214,33 @@ def match_layout(x: torch.Tensor, like: torch.Tensor,
     return t[:, 0] if squeeze else t
 
 
-def attach(model: nn.Module, mesh: Optional[Mesh]) -> bool:
-    """Give ``model``'s slab-aware layers the 'spatial' group of
-    ``mesh`` when the model carries the hooks (``spatial_shards`` equal to
-    the axis) and the mesh spans processes; otherwise take any group
-    away. Returns whether the model now runs on slabs."""
+def runs_on_slabs(model: nn.Module, mesh: Optional[Mesh]) -> bool:
+    """The JAX package's condition for the big-image layout
+    (``trainer.py:91,436``): a mesh over processes whose 'spatial' axis is
+    > 1 and divides the model's ``img_size``, and a model with the spatial
+    hooks (``spatial_shards`` > 0, here equal to the axis). Where the axis
+    does not divide ``img_size`` the processes along it hold whole images
+    (the batch is sharded over 'data' only)."""
     shards = getattr(model, "spatial_shards", 0)
-    on = (mesh is not None and mesh.distributed and shards > 1
-          and mesh.shape["spatial"] > 1)
-    if on and shards != mesh.shape["spatial"]:
+    if (mesh is None or not mesh.distributed or shards <= 1
+            or mesh.shape["spatial"] <= 1):
+        return False
+    if shards != mesh.shape["spatial"]:
         raise ValueError(f"the model carries {shards} spatial shards, the "
                          f"mesh's 'spatial' axis {mesh.shape['spatial']}")
-    sp = SpatialGroup(mesh) if on else None
+    return model.img_size % shards == 0
+
+
+def attach(model: nn.Module, mesh: Optional[Mesh]
+           ) -> Optional[SpatialGroup]:
+    """Give ``model``'s slab-aware layers the 'spatial' group of ``mesh``
+    where :func:`runs_on_slabs` holds; otherwise take any group away.
+    Returns the group the model now runs on slabs over, or None."""
+    sp = SpatialGroup(mesh) if runs_on_slabs(model, mesh) else None
     for m in model.modules():
         if hasattr(m, "spatial"):
             m.spatial = sp
-    return on
+    return sp
 
 
 # ------------------------------------------------ the JAX package's helpers

@@ -44,7 +44,10 @@ package replicates. Processes along 'spatial' run their data block
 alike. On the other ranks the worker thread is the follower loop, which
 ends when rank 0's ``close()`` broadcasts the stop; their ``close()``
 waits for it. A pinned request's images still depend only on its seed,
-classes and scale.
+classes and scale: under a mesh every worker keeps cuDNN on its
+heuristics, so a shape takes the same algorithm in every process,
+whichever rank's block the request's slots fall in (an autotuned
+search is per process and may pick another).
 """
 
 from __future__ import annotations
@@ -86,11 +89,7 @@ class _Request:
 
 class SamplerService:
     """Batched generation service over a denoiser (an ``nn.Module`` on the
-    schedule's device, put in eval mode here). ``autotune=False`` keeps
-    cuDNN on its heuristics in the worker (no search, and the same
-    algorithm for a shape in every service: cuDNN's searched choices are
-    per thread, so two autotuned services may sum a convolution in other
-    orders).
+    schedule's device, put in eval mode here).
 
     ``sampler``: "ddim" (default of the serve CLI), "dpmpp", or
     "ancestral" (the reference's full-T loop); a textbook-family config
@@ -99,8 +98,7 @@ class SamplerService:
     def __init__(self, model, cfg: Config, sched: Schedule,
                  max_batch: int = 8, sampler: Optional[str] = None,
                  max_wait_ms: float = 20.0,
-                 service_seed: Optional[int] = None, mesh=None,
-                 autotune: bool = True):
+                 service_seed: Optional[int] = None, mesh=None):
         mc, dc, sc = cfg.model, cfg.diffusion, cfg.sample
         kind = ("textbook" if dc.schedule_family == "textbook"
                 else sampler or sc.sampler)
@@ -170,7 +168,12 @@ class SamplerService:
             "slots_used": 0, "slots_dispatched": 0,
             "pinned_batches": 0, "busy_seconds": 0.0,
         }
-        self._autotune = autotune
+        # cuDNN searches its algorithms per thread, so the processes of a
+        # mesh could each pick another one for a shape and sum a request's
+        # convolutions in other orders, by which rank's block its slots
+        # fall in: under a mesh every worker takes cuDNN's heuristics,
+        # which pick the same algorithm for a shape in every process
+        self._autotune = self.mesh is None
         self._main = self.mesh is None or self.mesh.is_main
         self._worker = threading.Thread(
             target=self._serve if self._main else self._follow, daemon=True)
@@ -352,13 +355,14 @@ class SamplerService:
 
     def _serve(self) -> None:
         # fp32 with TF32 off for the service's lifetime, set by this thread
-        # alone (the flags are process settings). cuDNN autotuned: the slot
-        # batch has one shape, so one algorithm serves every request. cuDNN
-        # keeps its choices per thread, so each service searches once, in
-        # its first batch (~50 s), and saves 12.7% of every batch after it
-        # (DDIM-50 at max_batch 8: 34.7 -> 30.3 s; NVIDIA H100,
-        # tools/fp32_autotune_probe.py). The textbook kind also holds cuDNN
-        # to its deterministic algorithms (module docstring).
+        # alone (the flags are process settings). cuDNN autotuned without a
+        # mesh: the slot batch has one shape, so one algorithm serves every
+        # request. cuDNN keeps its choices per thread, so each service
+        # searches once, in its first batch (~50 s), and saves 12.7% of
+        # every batch after it (DDIM-50 at max_batch 8: 34.7 -> 30.3 s;
+        # NVIDIA H100, tools/fp32_autotune_probe.py). The textbook kind
+        # also holds cuDNN to its deterministic algorithms (module
+        # docstring).
         with fp32_compute(self.device, self._autotune,
                           deterministic=self._textbook):
             self._serve_loop()

@@ -37,8 +37,9 @@ early stopping (counterpart of ``diffusionmodel_tpu/train.py``).
   the loss are averaged over 'data' once a step, before the clip; with
   ``train.zero1`` each process keeps, clips and updates only its block of
   the moments the ZeRO-1 rule partitions (``_reduce_and_update_``). When
-  the mesh has a 'spatial' axis and the model carries the spatial hooks
-  (``build_model(spatial_shards=)``), the block is an H-slab of its
+  the mesh has a 'spatial' axis that divides the model's ``img_size`` and
+  the model carries the spatial hooks (``build_model(spatial_shards=)``;
+  ``parallel.spatial.runs_on_slabs``), the block is an H-slab of its
   samples (``image_sharding``), the loss is this slab's mean (equal slabs:
   their mean is the global mean), BatchNorm's statistics span data x
   spatial, and the gradients are summed over 'spatial' first; ZeRO-1
@@ -75,7 +76,7 @@ from diffusionmodel_tpu_torch.parallel.mesh import (
     image_sharding,
     opt_state_shardings,
 )
-from diffusionmodel_tpu_torch.parallel.spatial import attach
+from diffusionmodel_tpu_torch.parallel.spatial import attach, is_slab
 
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -434,12 +435,6 @@ def _local_draws(mesh: Optional[Mesh], dc, x: torch.Tensor, generator,
             for k, v in full.items()}
 
 
-def _is_slab(x: torch.Tensor) -> bool:
-    """Whether the NHWC batch ``x`` holds H-slabs (fewer rows than
-    columns; whole images are square)."""
-    return x.shape[1] < x.shape[2]
-
-
 def _spatial_mean_(mesh: Mesh, tensors: List[torch.Tensor]) -> None:
     """Each tensor replaced in place by its mean over 'spatial' (one
     flattened all_reduce; nothing without a 'spatial' axis)."""
@@ -558,10 +553,10 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
         for p in params:
             p.grad = None
         loss_sum = torch.zeros((), dtype=_F32, device=dev)
-        hooks = attach(model, mesh)
+        sp = attach(model, mesh)
         bn_group = None
         if mesh is not None:
-            bn_group = (mesh.data_spatial_group() if hooks
+            bn_group = (mesh.data_spatial_group() if sp is not None
                         else mesh.group("data"))
         model.train()
         try:
@@ -571,13 +566,13 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
                     _to(masks[i], dev) if masks is not None else None,
                     dc, normalize_u8)
                 c = _to(batch["c"][i], dev).long()
+                slab = is_slab(sp, x.movedim(3, 1))  # NHWC -> NCHW view
                 with global_batch_stats(model, bn_group):
                     loss = train_loss(net, x, c, mask, sched, dc,
                                       generator=generator,
                                       **_local_draws(mesh, dc, x, generator,
                                                      draws[i] if draws
-                                                     else None,
-                                                     hooks and _is_slab(x)))
+                                                     else None, slab))
                     loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 if acc is not None:
@@ -627,13 +622,13 @@ def make_eval_step(model: nn.Module, sched: Schedule, cfg: Config,
     def step(state: TrainState, batch: Dict, generator=None) -> torch.Tensor:
         dev = next(model.parameters()).device
         model.eval()
-        hooks = attach(model, mesh)
+        sp = attach(model, mesh)
         x, mask = decode_wire(_to(batch["x"], dev),
                               _to(batch.get("mask"), dev), dc, normalize_u8)
         loss = train_loss(model, x, _to(batch["c"], dev).long(), mask, sched,
                           dc, generator=generator,
                           **_local_draws(mesh, dc, x, generator, None,
-                                         hooks and _is_slab(x)))
+                                         is_slab(sp, x.movedim(3, 1))))
         if mesh is None:
             return loss
         return all_reduce_mean_(mesh, all_reduce_mean_(mesh, loss),

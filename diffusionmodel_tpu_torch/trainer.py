@@ -28,10 +28,12 @@ process per card) ``train.mesh_data`` processes split every batch
 averaged once a step (with ``train.zero1``, each keeps only its block of
 Adam's moments), validation losses and samples are the global batch's.
 With ``train.mesh_spatial`` > 1 the ContextUnet family is built with the
-spatial hooks and each process of a 'spatial' group holds an H-slab of
-its block (the batches, the validation batches and the samplers' images:
-the JAX package's ``image_sharding``); the other archs shard over 'data'
-only, as in the JAX package. Every process holds the same parameters and
+spatial hooks and, where the axis divides ``img_size``, each process of
+a 'spatial' group holds an H-slab of its block (the batches, the
+validation batches and the samplers' images: the JAX package's
+``image_sharding``); otherwise, and for the other archs, the batch is
+sharded over 'data' only and the processes along 'spatial' hold whole
+images, as in the JAX package (``parallel.spatial.runs_on_slabs``). Every process holds the same parameters and
 takes the same decisions; rank 0 alone prints, writes checkpoints,
 metrics and sample grids. The 'model' axis is refused (ROADMAP A12c).
 """
@@ -86,7 +88,7 @@ from diffusionmodel_tpu_torch.parallel import (
     make_mesh,
     mesh_shape,
 )
-from diffusionmodel_tpu_torch.parallel.spatial import attach
+from diffusionmodel_tpu_torch.parallel.spatial import attach, runs_on_slabs
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
     TrainState,
@@ -146,14 +148,11 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
     if not textbook and sc.sampler not in ("ancestral", "ddim", "dpmpp"):
         raise ValueError(f"unknown sample.sampler {sc.sampler!r} "
                          "(expected ancestral | ddim | dpmpp)")
-    fan_out = spatial = None
+    fan_out = None
     if mesh is not None and mesh.distributed:
         check_supported(mesh)
         if n_sample % mesh.shape["data"] == 0:
             fan_out = batch_sharding(mesh, 4)
-            if mesh.shape["spatial"] > 1 and \
-                    mc.img_size % mesh.shape["spatial"] == 0:
-                spatial = image_sharding(mesh, 4)
 
     def run(model, generator, n, guide_w, classes, x_init, noise_fn):
         if textbook:
@@ -179,8 +178,8 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
     def sampler(model, generator, guide_w, x_init=None) -> torch.Tensor:
         model = model.eval()
         layout = fan_out
-        if spatial is not None and attach(model, mesh):
-            layout = spatial  # the big-image layout
+        if fan_out is not None and attach(model, mesh) is not None:
+            layout = image_sharding(mesh, 4)  # the big-image layout
         else:
             attach(model, None)
         if layout is None:
@@ -338,10 +337,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     torch.manual_seed(tc.seed)
     model = build_model(mc, dc.high_thresh, spatial_shards=tc.mesh_spatial,
                         device=dev)
-    # the JAX package's condition for H-slab batches (trainer.py:433-436)
-    spatial = (mesh.shape["spatial"] > 1
-               and mc.img_size % mesh.shape["spatial"] == 0
-               and getattr(model, "spatial_shards", 0) > 0)
+    spatial = runs_on_slabs(model, mesh)  # H-slab batches
     wire_ok = _wire_format_ok(dataset, dc)
     train_loader = BatchLoader(dataset, train_idx, tc.batch_size,
                                tc.accum_steps, shuffle=True, augment=True,

@@ -1117,12 +1117,18 @@ def test_slab_forms_match_twins_and_whole_map_kernels(dev, shape, dtype):
 
 def test_slab_wrappers_count_launches_and_refuse_float16(dev):
     """``se_block_slab`` and ``coord_attn_slab`` (one group of one slab:
-    the collectives are identities) launch their kernels, add one to
-    their counts, equal the whole-map kernels, and refuse float16 x
-    rather than fall back to a twin."""
-    from diffusionmodel_tpu_torch.kernels.coord_attn import coord_attn_slab
+    the collectives are identities) launch their kernels, each stage
+    adding one to its count, equal the whole-map kernels, and refuse
+    float16 x rather than fall back to a twin."""
+    from diffusionmodel_tpu_torch.kernels.coord_attn import (
+        coord_attn_slab,
+        coord_attn_slab_apply,
+        coord_attn_slab_mix,
+        coord_attn_slab_pool,
+    )
     from diffusionmodel_tpu_torch.kernels.se_block import (
         se_block_slab,
+        se_slab_apply,
         se_slab_pool,
     )
 
@@ -1144,14 +1150,15 @@ def test_slab_wrappers_count_launches_and_refuse_float16(dev):
     x, w1, w2 = _se_inputs((2, 16, 16, 64), dev, seed=6)
     mod = _ca_module(64, "group", dev)
     wts = CoordAttnWeights.from_module(mod, "group")
-    n_se, n_ca = se_block_slab.launches, coord_attn_slab.launches
+    stages = (se_slab_pool, se_slab_apply, coord_attn_slab_pool,
+              coord_attn_slab_mix, coord_attn_slab_apply)
+    before = [f.launches for f in stages]
     with torch.no_grad():
         got = se_block_slab(x, w1, w2, One())
         assert (got - se_block(x, w1, w2)).abs().max().item() <= ATOL
         got = coord_attn_slab(x, wts, "group", 4, One())
         assert (got - coord_attn(x, wts, "group", 4)).abs().max().item() \
             <= ATOL
-    assert (se_block_slab.launches, coord_attn_slab.launches) == (
-        n_se + 1, n_ca + 1)
+    assert [f.launches for f in stages] == [n + 1 for n in before]
     with pytest.raises(TypeError):
         se_slab_pool(x.half())

@@ -13,7 +13,10 @@ forwards on its 8 CPU devices and its data x spatial train step):
   spatial 2 train step, ``make_sampler(mesh=)`` on both meshes, ``fit``
   with ``mesh_data=2, mesh_spatial=2``;
 - 2 ranks: the forward at 64 px over 2 slabs (data 1), then
-  ``SamplerService(mesh=)`` fanned out over data 2.
+  ``SamplerService(mesh=)`` fanned out over data 2;
+- 3 ranks: ``fit`` with ``mesh_spatial=3`` at 32 px, which 3 does not
+  divide (whole images on every process, as the JAX package falls back
+  to sharding over 'data').
 
 One-process references run single-threaded, as the ranks do. Bounds:
 JAX's for its spatial forward and mesh sampler (rtol 2e-4, atol 1e-5);
@@ -72,12 +75,17 @@ SAMPLER_RUNS = [
         "sample.sampler": "ddim", "sample.ddim_eta": 0.5}), 4, (2, 2)),
     ("ancestral_d1_s4", preset("full", **SAMPLE_OVER, **{
         "sample.sampler": "ancestral"}), 2, (1, 4))]
-FIT_CFG = preset("full", **{
+FIT_OVER = {
     "model.n_feat": 8, "model.img_size": 32, "diffusion.n_T": 4,
     "train.batch_size": 4, "train.accum_steps": 2, "train.n_epoch": 1,
     "train.eval_sample_count": 2, "train.eval_every": 1,
-    "train.min_save_ep": 100, "train.save_freq": 100,
-    "train.mesh_data": 2, "train.mesh_spatial": 2})
+    "train.min_save_ep": 100, "train.save_freq": 100}
+FIT_CFG = preset("full", **FIT_OVER, **{"train.mesh_data": 2,
+                                        "train.mesh_spatial": 2})
+# 3 does not divide 32 px: the JAX package shards such a batch over 'data'
+# only, and the processes along 'spatial' hold whole images
+FIT_S3_CFG = preset("full", **FIT_OVER, **{"train.mesh_data": 1,
+                                           "train.mesh_spatial": 3})
 SERVICE_CFG = preset("full", **{**TINY, "diffusion.n_T": 12,
                                 "sample.ddim_steps": 3})
 
@@ -137,7 +145,9 @@ def started(tmp_path_factory):
         "two": (pranks.spawn(
             ranks.pair_ranks, 2, base,
             {k: v for k, v in cases.items() if k not in FOUR_RANKS},
-            SERVICE_CFG), 2)}
+            SERVICE_CFG), 2),
+        "three": (pranks.spawn(ranks.fit_s3_ranks, 3, base, FIT_S3_CFG,
+                               str(base)), 3)}
     done = {}
 
     def get(name):
@@ -327,7 +337,18 @@ def test_spatial_sampler_matches_one_process(started, name):
         assert _within(imgs, want, JAX_RTOL, JAX_ATOL) <= 1, name
 
 
-def test_fit_over_data_and_spatial_matches_one_process(started, tmp_path):
+@pytest.fixture(scope="module")
+def one_fit_losses(tmp_path_factory):
+    """The epoch's (train, validation) losses of ``FIT_CFG`` in one
+    process."""
+    save = tmp_path_factory.mktemp("one_fit")
+    with one_thread():
+        ranks.one_fit(FIT_CFG, save)
+    return pranks._metrics_losses(save, 0)
+
+
+def test_fit_over_data_and_spatial_matches_one_process(started,
+                                                       one_fit_losses):
     """``fit`` with ``mesh_data=2, mesh_spatial=2`` (n_feat 8, 32 px, one
     epoch, in-loop sampling on the slabs): only rank 0 writes, and the
     epoch's train loss matches a one-process run within 1e-4 relative
@@ -341,11 +362,29 @@ def test_fit_over_data_and_spatial_matches_one_process(started, tmp_path):
     assert (base / "fit_rank0" / "metrics" / "metrics_ep0.json").exists()
     assert list((base / "fit_rank0").glob("img_ep0_w*.png"))
     assert not any((base / f"fit_rank{r}").exists() for r in (1, 2, 3))
-    with one_thread():
-        ranks.one_fit(FIT_CFG, tmp_path / "one")
-    (train, val), (one_train, one_val) = (
-        pranks._metrics_losses(d, 0) for d in (base / "fit_rank0",
-                                               tmp_path / "one"))
+    train, val = pranks._metrics_losses(base / "fit_rank0", 0)
+    one_train, one_val = one_fit_losses
+    np.testing.assert_allclose(train, one_train, rtol=1e-4)
+    np.testing.assert_allclose(val, one_val, rtol=1e-3)
+    for r in got[1:]:
+        assert all(torch.equal(r["fit"][n], p)
+                   for n, p in got[0]["fit"].items())
+
+
+def test_fit_over_spatial_that_does_not_divide_the_image(started,
+                                                         one_fit_losses):
+    """``fit`` with ``mesh_spatial=3`` at 32 px: 3 does not divide 32, so
+    the model keeps whole images on every process (the JAX package's
+    ``trainer.py:436`` condition, ``parallel.spatial.runs_on_slabs``) and
+    the batch is sharded over 'data' only; the losses match one process
+    within the bounds above and the replicas end on the same
+    parameters."""
+    base, get = started
+    got = get("three")
+    assert not any(r["jax_imported"] for r in got)
+    assert not any((base / f"fit_s3_rank{r}").exists() for r in (1, 2))
+    train, val = pranks._metrics_losses(base / "fit_s3_rank0", 0)
+    one_train, one_val = one_fit_losses
     np.testing.assert_allclose(train, one_train, rtol=1e-4)
     np.testing.assert_allclose(val, one_val, rtol=1e-3)
     for r in got[1:]:

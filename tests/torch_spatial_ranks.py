@@ -242,6 +242,15 @@ def pair_ranks(rank, world, init, out_dir, fwd_cases, service_cfg):
     _save(out_dir, rank, result)
 
 
+def fit_s3_ranks(rank, world, init, out_dir, fit_cfg, base):
+    """Three ranks: ``fit`` over spatial 3 at a size that 3 does not
+    divide, where the processes along 'spatial' hold whole images."""
+    _group(rank, world, init)
+    result = {"fit": fit_run(fit_cfg,
+                             os.path.join(base, f"fit_s3_rank{rank}"))}
+    _save(out_dir, rank, result)
+
+
 def one_fit(cfg, save_dir):
     """``fit`` in one process (``train.mesh_*`` back to one)."""
     cfg = cfg.replace(train=dataclasses.replace(
