@@ -61,10 +61,10 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             before it and PyTorch's TF32 defaults restored for the service
             (its worker must turn TF32 off itself: a forward pre-hook
             records the flags every denoiser forward sees, and the phase
-            fails unless both are off): ``SamplerService`` with DDIM-10
-            (``SERVE_DDIM_STEPS``: cut from DDIM-50, and the DPM++-20
+            fails unless both are off): ``SamplerService`` with DDIM-5
+            (``SERVE_DDIM_STEPS``: cut from DDIM-50 to 10, the DPM++-20
             service moved to serve_bf16, to make room for the editing and
-            side-family phases; mixed classes, two guidance scales, a
+            side-family phases, then to 5 for the model axis; mixed classes, two guidance scales, a
             pinned request alone and then batched with others, which must
             give the same images bit for bit, and one HTTP round trip),
             then the ancestral sampler over the last 10 steps. Every image
@@ -113,7 +113,9 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             (``use_pallas``, EMA 0.9995, batch 4 x 4 micro-batches, full
             remat, bf16 Adam moment, fp32) for 1 epoch on 25 in-memory
             synthetic crack images (5 classes; 20 train, 5 val), with
-            validation and DPM++-10 sampling every epoch: finite losses,
+            validation and DPM++-10 sampling of 2 images (a CFG batch of
+            4, the micro-batch's shape: 5 images paid a cuDNN search of
+            their own) every epoch: finite losses,
             5 SE and 4 CoordAttn launches per eval-mode forward and none in
             train-mode ones (counted per forward by module hooks, the
             counts zeroed just before), the best checkpoint reloaded into a
@@ -125,7 +127,7 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             included, and of the profiled step alone). ``fit`` scores every
             sampling epoch by default: its ``img_metrics`` must hold SSIM
             and PSNR (and fid_proxy where 10 eval images are collected;
-            this run collects 5), with the seconds the scoring took.
+            this run collects 2), with the seconds the scoring took.
 13. generate ``gen_samples`` on the final checkpoint: 5 classes x 1
             sample, guide scales 2.0 and 4.0 in one sweep batch, DPM++-20
             (after an untimed one-step call that autotunes its shapes)
@@ -133,13 +135,16 @@ metrics on the flagship's generated images (``metrics.ImageMetrics``,
             launches per forward, each scale scored against 4 dataset
             images into quality_metrics.json); the checkpoint's EMA
             weights in a kernel model and a plain one, eval forwards at
-            batches 4, 20, 10, 4 (validation, the sweep's and fit's CFG
-            batches; the kernel model's back to back on one stream), each
+            batches 4, 20, 4 (validation and fit's in-loop CFG batch, the
+            sweep's CFG batch; the kernel model's back to back on one
+            stream), each
             within relative L2 1e-4 of the plain path; then ``python -m
             diffusionmodel_tpu_torch.cli --mode generate`` (DPM++-10, one
-            guide scale) in a subprocess (its wall time includes the
-            process start, the checkpoint load and cuDNN's search); seconds
-            and images/s of both.
+            guide scale) in a subprocess on the same checkpoint in bf16
+            with the fused head, as the README runs the flagship (its wall
+            time includes the process start, the checkpoint load and
+            cuDNN's search, ~5x cheaper in bf16 than in fp32); seconds and
+            images/s of both.
 14. eval    the sweep's 10 images against the dataset's 25 through
             ``ImageMetrics()`` on the card (the proxy InceptionV3 at 299
             px, fp32, TF32 off): fid_proxy, kid_proxy_x1000, SSIM, PSNR,
@@ -168,7 +173,7 @@ forward_bf16 (after serve)  one set of weights at fp32 and bf16, fused
             launches per forward, bf16-vs-fp32 and fused-vs-unfused
             relative L2 (fused at fp32 <= 1e-5), each bf16 output unmoved
             when the batch is rolled.
-serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-10 at max_batch 8
+serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-5 at max_batch 8
             in bf16, under PyTorch's TF32 defaults as in serve: the first
             request (cuDNN's search included) and a batch of three, the
             pinned request bit-identical; then a DPM++-20 service
@@ -227,7 +232,10 @@ spatial (after parallel)  first a probe: two processes on the one card
             on 2 slots in fp32 and in bf16, and one fp32 train step (1 x
             2 at 256 px, no remat: the CPU tests run fit's remat on
             slabs) through ``make_train_step(mesh=)``, each process on
-            H-slabs; then the same calls in this process. The ranks must agree bit for bit,
+            H-slabs; the same two processes then run model_axis (below);
+            then (``mesh_reference``, after the ranks: the memory this
+            process caches for its run stays reserved) the same calls in
+            this process. The ranks must agree bit for bit,
             the fp32 images lie within relative L2 1e-3 of one process's,
             the loss within 1e-4 relative, the parameters within 1% of
             the update's norm (over 2^20 sampled elements), and each
@@ -237,6 +245,22 @@ spatial (after parallel)  first a probe: two processes on the one card
             (the slab entries' ``launches`` and ``stage_launches``). It proves
             correctness only: two processes on one card say nothing of
             speed.
+model_axis (in spatial's two processes, after its run)  a data 1 x
+            model 2 mesh (ROADMAP A12c: each wide layer's output channels
+            split between the two, ``parallel.tensor``) drives the same
+            calls as spatial (``make_sampler(mesh=)`` DDIM-2 on 2
+            slots in fp32 and bf16, one fp32 train step) on the whole
+            maps, held (``mesh_reference``) to the one-process run the
+            spatial phase is held to (the same seeds and config, no
+            hooks): the ranks agree bit for bit, the fp32 images within
+            relative L2 1e-3, the loss within 1e-4 relative, the
+            parameters (gathered) within 1% of the update's norm; each
+            rank holds half the rows of every leaf ``param_shardings``
+            plans and reports its parameter bytes against one process's
+            and the MB its gathers all_reduce per forward; each forward
+            calls the whole-map SE and CoordAttn kernels 5 and 4 times (on
+            gathered weights) and no slab stage (the kernel entries'
+            ``model_axis_launches``). Correctness only, as spatial.
 
 The flagship's editing, ``.pt`` checkpoints, the side families and CLIP:
 
@@ -266,7 +290,7 @@ side_families  the ``mnist`` (28 px, n_feat 128, BatchNorm), ``custom``
             peak GiB), the checkpoint reloaded into a fresh model (the
             same weights, and under cuDNN's deterministic algorithms the
             same output bit for bit), a ``gen_samples`` call (DDIM-50 for
-            mnist and custom; the textbook sampler, cut to 250 steps,
+            mnist and custom; the textbook sampler, cut to 100 steps,
             for 4 slots for labml), mnist's ancestral ``return_history`` written as a
             GIF, a pinned labml ``SamplerService`` request alone and then
             batched with another, bit-identical; mnist again at
@@ -316,7 +340,7 @@ BATCH = 16  # the sampler's doubled CFG batch at max_batch 8
 # the same reason the DPM++-20 service runs in serve_bf16 (its worker's
 # bf16 search takes seconds), no longer in serve (~65 s at fp32, most of it
 # that worker's own cuDNN search).
-SERVE_DDIM_STEPS = 10
+SERVE_DDIM_STEPS = 5
 # (B, N, M, H, D) flash-attention sites: the SD UNet's level 0 at 512 px
 # (CFG batch 4), 416 px (ragged: 52² tokens), D = 80 / 160 (SD levels 1
 # and 2 at larger sizes), M != N, and the tiny / mid head dims.
@@ -1621,8 +1645,12 @@ class _ForwardLaunches:
 def _flagship_train_cfg(out_dir):
     from diffusionmodel_tpu_torch.config import preset
 
+    # two in-loop samples: their CFG batch of 4 is the micro-batch's, whose
+    # convolutions the first step's cuDNN search has timed (5 samples, a
+    # CFG batch of 10, paid a search of their own: ~31 s on an H100)
     return preset("full", **{
         "model.use_pallas": True, "train.ema_decay": 0.9995,
+        "train.eval_sample_count": 2,
         "sample.sampler": "dpmpp", "sample.dpm_steps": 10,
         "train.n_epoch": FLAGSHIP_EPOCHS, "train.eval_every": 1,
         "train.min_save_ep": 0, "train.val_split": 0.2,
@@ -1721,7 +1749,7 @@ def phase_train(counters, out_dir) -> tuple:
                        CA_PER_FORWARD * seen["eval"]["forwards"]],
           f"train launches {launches} for {seen}")
     # quality scored every sampling epoch: SSIM and PSNR of the collected
-    # validation images (fid_proxy from 10 of them; this run collects 5)
+    # validation images (fid_proxy from 10 of them; this run collects 2)
     scored = log["img_metrics"]
     n_eval = min(tc.eval_sample_count, len(stratified_split(
         dataset.labels, tc.val_split, tc.split_seed)[1]))
@@ -1795,14 +1823,14 @@ def phase_train(counters, out_dir) -> tuple:
             launches, dataset)
 
 
-GENERATE_BATCHES = (4, 20, 10, 4)  # validation, sweep CFG, in-loop CFG
+GENERATE_BATCHES = (4, 20, 4)  # validation and in-loop CFG, sweep CFG
 
 
 def _generation_batches_match(cfg, ckpt) -> dict:
     """The checkpoint's EMA weights (what ``gen_samples`` samples with) in
     a kernel model and a plain one: eval forwards at the batches the
     generation paths give the kernels (the sweep's CFG batch of 20, fit's
-    in-loop CFG batch of 10, the batch-4 validation), the kernel model's
+    in-loop CFG batch and validation batch of 4), the kernel model's
     run back to back on one stream so each call reuses the workspace of a
     call at another batch; each output against the plain path's on the
     same inputs (relative L2)."""
@@ -1906,11 +1934,14 @@ def phase_generate(counters, cfg, ckpt, out_dir, dataset) -> tuple:
 
     cli_dir = f"{out_dir}/cli_samples"
     # one guide scale (a CFG batch of 10; two until the edit and side-family
-    # phases needed the time): the subprocess's cuDNN search is most of it
+    # phases needed the time), in bf16 as the README runs the flagship: the
+    # subprocess's cuDNN search is most of it, and the fp32 one took ~45 s
+    # more (the in-process sweep above is fp32)
     cmd = [_sys.executable, "-m", "diffusionmodel_tpu_torch.cli", "--mode",
            "generate", "--ckpt", ckpt, "--sampler", "dpmpp", "--steps", "10",
            "--samples", "1", "--guide_scales", "2.0", "--no_eval",
            "--device", "cuda", "-o", "model.use_pallas=true",
+           "-o", "model.dtype=bfloat16", "-o", "model.fused_upsample=true",
            "-o", f"sample.sample_dir={cli_dir}"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -2199,7 +2230,7 @@ def phase_forward_bf16(counters) -> None:
 
 def phase_serve_bf16(counters, env) -> list:
     """The README's serve command in bf16 (``-o model.dtype=bfloat16``,
-    with ``use_pallas``): ``SamplerService`` DDIM-10 (``SERVE_DDIM_STEPS``,
+    with ``use_pallas``): ``SamplerService`` DDIM-5 (``SERVE_DDIM_STEPS``,
     50 until the edit and side-family phases) at max_batch 8, the
     launch counts zeroed just before and PyTorch's TF32 defaults restored
     (the worker turns TF32 off itself; the denoiser's bf16 convolutions
@@ -2402,7 +2433,13 @@ PARALLEL_SLOTS, PARALLEL_DDIM = 8, 10  # the mesh sampler's batch and depth
 
 
 def _flat_params(model) -> torch.Tensor:
-    return torch.cat([p.detach().flatten() for p in model.parameters()])
+    """Every parameter, flattened in order; whole where the model holds
+    blocks over 'model' (a collective then)."""
+    from diffusionmodel_tpu_torch.parallel.tensor import full_state_dict
+
+    sd = full_state_dict(model)
+    return torch.cat([sd[n].detach().flatten()
+                      for n, _ in model.named_parameters()])
 
 
 def phase_parallel(counters, out_dir, dataset) -> list:
@@ -2904,18 +2941,27 @@ def _spatial_counters() -> list:
 
 
 def spatial_runs(mesh=None) -> dict:
-    """The spatial main path at full width, or (``mesh`` None) the same
-    calls in one process: a DDIM sampler (``make_sampler``, fp32 and
-    bf16, ``use_pallas``) and one fp32 train step (``make_train_step``)
-    from weights of torch seed 0, under cuDNN's heuristics.
+    """The spatial main path at full width (``mesh`` with a 'spatial'
+    axis: the model with the spatial hooks, on H-slabs), the model-axis
+    path (``mesh`` with a 'model' axis: ``make_sampler`` cuts the model to
+    this process's blocks), or (``mesh`` None) the same calls in one
+    process: a DDIM sampler (``make_sampler``, fp32 and bf16,
+    ``use_pallas``) and one fp32 train step (``make_train_step``) from
+    weights of torch seed 0, under cuDNN's heuristics.
     The calls of each slab stage and of the whole-map kernels in the
-    sampler calls (``SPATIAL_COUNTERS``, zeroed just before each)."""
+    sampler calls (``SPATIAL_COUNTERS``, zeroed just before each), the
+    fp32 model's parameter bytes in this process, and on a 'model' axis
+    whether each leaf ``param_shardings`` plans holds half its rows."""
     import dataclasses as dc_
 
     from diffusionmodel_tpu_torch.device_check import fp32_compute
     from diffusionmodel_tpu_torch.diffusion import Schedule
     from diffusionmodel_tpu_torch.nn import build_model
-    from diffusionmodel_tpu_torch.parallel import image_sharding
+    from diffusionmodel_tpu_torch.parallel import (
+        image_sharding,
+        param_shardings,
+    )
+    from diffusionmodel_tpu_torch.parallel.tensor import gathered_bytes
     from diffusionmodel_tpu_torch.train import (
         create_train_state,
         make_train_step,
@@ -2924,7 +2970,8 @@ def spatial_runs(mesh=None) -> dict:
 
     dev = torch.device("cuda")
     counters = _spatial_counters()
-    shards = SPATIAL_RANKS if mesh is not None else 0
+    shards = (mesh.shape["spatial"] if mesh is not None
+              and mesh.shape["spatial"] > 1 else 0)
     out = {"launches": {}, "sample_s": {}}
     with fp32_compute(dev, autotune=False):
         for dtype, steps in (("float32", SPATIAL_DDIM),
@@ -2941,14 +2988,32 @@ def spatial_runs(mesh=None) -> dict:
                 % cfg.model.n_classes
             sampler = make_sampler(cfg, sched, SPATIAL_SLOTS,
                                    classes=classes, mesh=mesh)
+            plan = {}
+            if mesh is not None and mesh.shape["model"] > 1:
+                plan = {n: (sh.dims[0][0], tuple(p.shape)) for (n, sh), p
+                        in zip(param_shardings(mesh, model).items(),
+                               model.parameters())
+                        if not sh.is_replicated}
             for f in counters:
                 f.launches = 0
+            gathered_bytes(reset=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             imgs = sampler(model, torch.Generator(device=dev).manual_seed(
                 13), 2.0)
             torch.cuda.synchronize()
             out["sample_s"][dtype] = time.perf_counter() - t0
+            out.setdefault("gathered_mb", {})[dtype] = gathered_bytes() / 1e6
+            if dtype == "float32":
+                held = dict(model.named_parameters())
+                out["param_bytes"] = sum(p.numel() * p.element_size()
+                                         for p in held.values())
+                out["planned"] = len(plan)
+                out["halves"] = all(
+                    held[n].shape[d] * 2 == shape[d] and all(
+                        held[n].shape[i] == k
+                        for i, k in enumerate(shape) if i != d)
+                    for n, (d, shape) in plan.items())
             out["launches"][dtype] = _counts(counters)
             out[f"images_{dtype}"] = imgs.cpu()
             if dtype == "float32":
@@ -2979,10 +3044,16 @@ def spatial_runs(mesh=None) -> dict:
     return out
 
 
-def spatial_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+# the two rank groups' meshes, (data, model, spatial) at world size 2
+MESH_RUNS = {"spatial": (1, 1, SPATIAL_RANKS),
+             "model": (1, SPATIAL_RANKS, 1)}
+
+
+def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     """A rank of the spatial phase: the gloo probe, then (where gloo took
-    the CUDA tensors) ``spatial_runs`` on the mesh (data 1, spatial
-    ``world``), its results saved."""
+    the CUDA tensors) ``spatial_runs`` on each mesh of ``MESH_RUNS`` in
+    turn (the spatial path on H-slabs, then the model axis), each run's
+    results saved with its seconds."""
     import os
 
     import torch.distributed as dist
@@ -2994,29 +3065,31 @@ def spatial_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     try:
         if not gloo_cuda_probe(rank, world, out_dir):
             return
-        mesh = make_mesh(data=1, model=1, spatial=world)
-        result = spatial_runs(mesh)
-        result["mesh"] = mesh.shape
+        for name, (d, m, sp) in MESH_RUNS.items():
+            t0 = time.perf_counter()
+            mesh = make_mesh(data=d, model=m, spatial=sp)
+            result = spatial_runs(mesh)
+            result["mesh"] = mesh.shape
+            result["run_s"] = time.perf_counter() - t0
+            result["jax_imported"] = "jax" in sys.modules
+            torch.save(result, os.path.join(out_dir, f"{name}{rank}.pt"))
     finally:
         dist.destroy_process_group()
-    result["jax_imported"] = "jax" in sys.modules
-    torch.save(result, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
 
 
-def phase_spatial(out_dir) -> dict:
+def phase_spatial(out_dir):
     """Two processes on the one card over gloo: the probe, then the
-    spatial main path (``spatial_runs`` on a data 1 x spatial 2 mesh);
-    then the same calls in this process. Returns the ranks' slab-kernel
-    launches per dtype ({} where gloo refused CUDA tensors)."""
+    spatial main path (``spatial_runs`` on a data 1 x spatial 2 mesh)
+    and the model axis (the same calls on a data 1 x model 2 mesh), one
+    after the other in the same two processes. Returns {run: the ranks'
+    results}, or None where gloo refused CUDA tensors;
+    ``phase_mesh_reference`` holds both to one process."""
     import os
 
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    codes, tails = _wait_ranks(_start_ranks("spatial_rank", out_dir),
-                               "spatial_rank", out_dir,
-                               SPATIAL_RANK_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0
+    codes, tails = _wait_ranks(_start_ranks("mesh_rank", out_dir),
+                               "mesh_rank", out_dir, SPATIAL_RANK_TIMEOUT_S)
     probe = []
     for rank in range(SPATIAL_RANKS):
         path = os.path.join(out_dir, f"probe{rank}.json")
@@ -3027,26 +3100,20 @@ def phase_spatial(out_dir) -> dict:
     if not all(p["ok"] for p in probe):
         emit("spatial", ran=False, exit_codes=codes, log_tails=tails,
              reason="gloo refused CUDA tensors on this card: the spatial "
-             "path's on-card run waits for two cards")
-        return {}
+             "and model-axis paths' on-card runs wait for two cards")
+        return None
     check(codes == [0] * SPATIAL_RANKS,
-          f"spatial ranks exited {codes}: {tails}")
-    t0 = time.perf_counter()
-    one = spatial_runs()  # this process's reference, after the ranks
-    one_s = time.perf_counter() - t0
-    got = [torch.load(os.path.join(out_dir, f"spatial_rank{r}.pt"),
-                      weights_only=False) for r in range(SPATIAL_RANKS)]
+          f"spatial / model-axis ranks exited {codes}: {tails}")
+    return {name: [torch.load(os.path.join(out_dir, f"{name}{r}.pt"),
+                              weights_only=False)
+                   for r in range(SPATIAL_RANKS)] for name in MESH_RUNS}
+
+
+def _compare(got: list, one: dict) -> dict:
+    """The ranks' results against the one-process run: images, loss and
+    sampled parameters, and whether the ranks agree."""
     r0 = got[0]
-    row = dict(ranks=SPATIAL_RANKS, backend="gloo", mesh=r0["mesh"],
-               cudnn="heuristics (no search: each process would pay it)",
-               slots=SPATIAL_SLOTS, ddim=SPATIAL_DDIM,
-               bf16_ddim=SPATIAL_BF16_DDIM, batch=list(SPATIAL_TRAIN_BATCH),
-               ranks_s=ranks_s, one_process_s=one_s,
-               rank_sample_s=r0["sample_s"],
-               one_sample_s=one["sample_s"], rank_step_s=r0["step_s"],
-               one_step_s=one["step_s"], counted=SPATIAL_COUNTERS,
-               launches=r0["launches"], one_launches=one["launches"],
-               jax_imported=any(r["jax_imported"] for r in got))
+    row = {}
     for dtype in ("float32", "bfloat16"):
         a, b = r0[f"images_{dtype}"], one[f"images_{dtype}"]
         row[f"images_rel_l2_{dtype}"] = ((a - b).norm() / b.norm()).item()
@@ -3055,32 +3122,101 @@ def phase_spatial(out_dir) -> dict:
         row[f"finite_{dtype}"] = bool(torch.isfinite(a).all())
     row["loss"], row["one_loss"] = r0["loss"], one["loss"]
     row["loss_rel"] = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    row["ranks_agree_loss_params"] = all(
+        r["loss"] == r0["loss"] and torch.equal(r["params"], r0["params"])
+        for r in got)
     # over the same sampled elements
     row["param_diff_norm"] = (r0["params"] - one["params"]).norm().item()
     row["param_update_norm"] = one["update_norm"]
-    emit("spatial", **row)
-    check(not row["jax_imported"], "a spatial rank imported jax")
+    row["jax_imported"] = any(r["jax_imported"] for r in got)
+    return row
+
+
+def _check_against_one(name: str, row: dict, launches: dict,
+                       per_forward: list) -> None:
+    check(not row["jax_imported"], f"a {name} rank imported jax")
+    check(row["ranks_agree_loss_params"], f"{name} ranks' loss or "
+          "parameters differ")
     for dtype in ("float32", "bfloat16"):
         check(row[f"ranks_agree_{dtype}"] and row[f"finite_{dtype}"],
-              f"spatial {dtype} images: ranks agree "
+              f"{name} {dtype} images: ranks agree "
               f"{row[f'ranks_agree_{dtype}']}, finite "
               f"{row[f'finite_{dtype}']}")
         steps = SPATIAL_DDIM if dtype == "float32" else SPATIAL_BF16_DDIM
-        check(r0["launches"][dtype] == [n * steps
-                                        for n in SPATIAL_PER_FORWARD],
-              f"spatial {dtype} launches {r0['launches'][dtype]} of "
+        check(launches[dtype] == [n * steps for n in per_forward],
+              f"{name} {dtype} launches {launches[dtype]} of "
               f"{SPATIAL_COUNTERS}")
     check(row["images_rel_l2_float32"] <= SPATIAL_IMG_RTOL,
-          f"spatial fp32 images off one process: relative L2 "
+          f"{name} fp32 images off one process: relative L2 "
           f"{row['images_rel_l2_float32']}")
     check(row["loss_rel"] <= SPATIAL_LOSS_RTOL,
-          f"spatial step loss {r0['loss']} against {one['loss']}")
+          f"{name} step loss {row['loss']} against {row['one_loss']}")
     check(row["param_diff_norm"] <= SPATIAL_PARAM_SHARE
           * row["param_update_norm"],
-          f"spatial step parameters {row['param_diff_norm']} off one "
+          f"{name} step parameters {row['param_diff_norm']} off one "
           f"process (update norm {row['param_update_norm']}, both over "
           f"{SPATIAL_PARAM_SAMPLES} sampled elements)")
-    return r0["launches"]
+
+
+# the model-axis path runs on whole maps: the whole-map kernels only
+MODEL_PER_FORWARD = (0, 0, 0, 0, 0, SE_PER_FORWARD, CA_PER_FORWARD)
+
+
+def phase_mesh_reference(runs) -> tuple:
+    """The spatial and model-axis paths' calls in this process
+    (``spatial_runs()``, after the ranks: the memory this process's
+    caching allocator holds for its run stays reserved), and each rank
+    group held to it: the ranks agree bit for bit, fp32 images within
+    relative L2 ``SPATIAL_IMG_RTOL``, the loss within
+    ``SPATIAL_LOSS_RTOL``, the sampled parameters within
+    ``SPATIAL_PARAM_SHARE`` of the update's norm, the launches per
+    forward (slab stages on the spatial path, the whole-map kernels on
+    the model axis, whose ranks must each hold half the rows of every
+    planned leaf). Returns each group's launches per dtype ({} where the
+    ranks did not run)."""
+    if runs is None:
+        return {}, {}
+    t0 = time.perf_counter()
+    one = spatial_runs()  # this process's reference, after the ranks
+    one_s = time.perf_counter() - t0
+    common = dict(ranks=SPATIAL_RANKS, backend="gloo",
+                  cudnn="heuristics (no search: each process would pay "
+                  "it)", slots=SPATIAL_SLOTS, ddim=SPATIAL_DDIM,
+                  bf16_ddim=SPATIAL_BF16_DDIM,
+                  batch=list(SPATIAL_TRAIN_BATCH), one_process_s=one_s,
+                  one_sample_s=one["sample_s"], one_step_s=one["step_s"],
+                  counted=SPATIAL_COUNTERS)
+
+    def row_of(got):
+        r0 = got[0]
+        return dict(common, mesh=r0["mesh"], ranks_s=r0["run_s"],
+                    rank_sample_s=r0["sample_s"], rank_step_s=r0["step_s"],
+                    launches=r0["launches"], **_compare(got, one))
+
+    got = runs["spatial"]
+    row = dict(row_of(got), one_launches=one["launches"])
+    emit("spatial", **row)
+    _check_against_one("spatial", row, got[0]["launches"],
+                       SPATIAL_PER_FORWARD)
+    got = runs["model"]
+    r0 = got[0]
+    row = dict(row_of(got),
+               gathered_mb_per_forward={
+                   dt: mb / (SPATIAL_DDIM if dt == "float32"
+                             else SPATIAL_BF16_DDIM)
+                   for dt, mb in r0["gathered_mb"].items()},
+               planned_leaves=r0["planned"],
+               halves=[r["halves"] for r in got],
+               rank_param_bytes=[r["param_bytes"] for r in got],
+               one_param_bytes=one["param_bytes"])
+    row["param_bytes_share"] = (max(row["rank_param_bytes"])
+                                / one["param_bytes"])
+    emit("model_axis", **row)
+    check(row["planned_leaves"] > 0 and all(row["halves"]),
+          f"model-axis blocks: {row['planned_leaves']} planned leaves, "
+          f"half their rows held {row['halves']}")
+    _check_against_one("model-axis", row, r0["launches"], MODEL_PER_FORWARD)
+    return runs["spatial"][0]["launches"], r0["launches"]
 
 
 SERVICE_SLOTS, SERVICE_SEED, SERVICE_GUIDE = 4, 21, 2.0  # the pinned request
@@ -3299,8 +3435,9 @@ def _planted_gate_rel_l2(plain, imgs, x0, cfg, sched, noise) -> float:
 
 def phase_edit_cli(ckpt, out_dir, dataset) -> None:
     """``python -m diffusionmodel_tpu_torch.cli --mode inpaint --family
-    main`` on the checkpoint in a subprocess, batch 1 (its time includes
-    the process start, the checkpoint load and cuDNN's search)."""
+    main`` on the checkpoint in a subprocess, batch 1, the edit phase's
+    DDIM-20 (its time includes the process start, the checkpoint load and
+    cuDNN's search)."""
     import os
     import sys as _sys
 
@@ -3308,8 +3445,9 @@ def phase_edit_cli(ckpt, out_dir, dataset) -> None:
     cli_dir = os.path.join(out_dir, "edit_cli")
     cmd = [_sys.executable, "-m", "diffusionmodel_tpu_torch.cli", "--mode",
            "inpaint", "--family", "main", "--ckpt", ckpt, "--orig_img", src,
-           "--batch_size", "1", "--device", "cuda",
-           "--out_dir", cli_dir, "-o", "model.use_pallas=true"]
+           "--batch_size", "1", "--steps", str(EDIT_STEPS),
+           "--device", "cuda", "--out_dir", cli_dir,
+           "-o", "model.use_pallas=true"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -3378,13 +3516,13 @@ def phase_pt_checkpoint(cfg, ckpt, out_dir) -> None:
 
 # the side presets at their own widths; datasets, epochs and sampler depth
 # cut (mnist, custom: DDIM-50 for their 400 / 500-step ancestral loop;
-# labml: a 250-step textbook chain for its 1000 steps, to fit the run's
+# labml: a 100-step textbook chain for its 1000 steps, to fit the run's
 # time limit)
 SIDE = {
     "mnist": {"train.n_epoch": 1, "sample.sampler": "ddim"},
     "custom": {"train.n_epoch": 1, "sample.sampler": "ddim",
                "model.n_classes": FLAGSHIP_CLASSES, "train.val_split": 0.2},
-    "labml": {"train.n_epoch": 1, "diffusion.n_T": 250},
+    "labml": {"train.n_epoch": 1, "diffusion.n_T": 100},
 }
 
 
@@ -3513,7 +3651,7 @@ def phase_side_families(out_dir) -> None:
     presets at their own widths on the card: one ``fit`` epoch of one or
     two steps on a synthetic dataset (finite losses; step seconds, peak
     GiB), the checkpoint reloaded bit-identically, a ``gen_samples`` call
-    (mnist and custom DDIM-50, labml the textbook sampler, 250 steps, for
+    (mnist and custom DDIM-50, labml the textbook sampler, 100 steps, for
     4 slots); mnist's ancestral ``return_history`` trajectory written as a
     GIF; a pinned labml ``SamplerService`` request alone, then batched
     with another, bit-identical; mnist once more at bf16,
@@ -3733,10 +3871,12 @@ def main() -> int:
                               dataset)
     shutil.rmtree(os.path.join(out_root, "chip_smoke_parallel"),
                   ignore_errors=True)
-    spatial_launches = timed("spatial", phase_spatial,
-                             os.path.join(out_root, "chip_smoke_spatial"))
-    shutil.rmtree(os.path.join(out_root, "chip_smoke_spatial"),
-                  ignore_errors=True)
+    mesh_dir = os.path.join(out_root, "chip_smoke_spatial")
+    mesh_runs = timed("spatial", phase_spatial, mesh_dir)
+    spatial_launches, model_launches = timed(
+        "mesh_reference", phase_mesh_reference, mesh_runs)
+    del mesh_runs
+    shutil.rmtree(mesh_dir, ignore_errors=True)
     base = _flagship_train_cfg(bf16_dir)
     cfg16 = base.replace(model=dataclasses.replace(
         base.model, dtype="bfloat16", fused_upsample=True))
@@ -3864,10 +4004,15 @@ def main() -> int:
                "diffusionmodel_tpu/kernels/se_block.py:202")
     ca = entry("coord_attn", "coord_attn", launches[1],
                "diffusionmodel_tpu/kernels/coord_attn.py:296")
+    # the whole-map kernels' calls on the two-rank model-axis path
+    model_counts = {dt: dict(zip(SPATIAL_COUNTERS, c))
+                    for dt, c in model_launches.items()}
     for row, i in ((se, 0), (ca, 1)):
         row["train_launches"] = fit_launches[i]
         row["generate_launches"] = gen_launches[i]
         row["edit_launches"] = edit_launches[i]
+        row["model_axis_launches"] = model_counts.get("float32", {}).get(
+            row["name"])
     # the bf16 forms: launches on the bf16 serving path (and bf16 fit)
     se16 = entry("se_block_bf16", "se_block", bf16_launches[0],
                  "diffusionmodel_tpu/kernels/se_block.py:202", bf16_rows)
@@ -3877,6 +4022,8 @@ def main() -> int:
         row["train_launches"] = bf16_fit_launches[i]
         row["edit_launches"] = edit16_launches[i]
         row["parallel_launches"] = parallel_launches[i]
+        row["model_axis_launches"] = model_counts.get("bfloat16", {}).get(
+            "se_block" if i == 0 else "coord_attn")
         row["dtype"] = "bfloat16"
         row["rel_l2"] = max(s["rel_l2"] for s in bf16_rows[
             "se_block" if i == 0 else "coord_attn"])

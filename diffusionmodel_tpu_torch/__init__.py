@@ -22,9 +22,9 @@ train_ldm``), ``.pt`` checkpoints, the quality metrics, and data
 parallelism over ``torch.distributed`` for training and generation
 (``parallel``: the 'data' axis and ZeRO-1, one process per card under
 ``torchrun``), the spatially sharded forward through training and the
-samplers (the 'spatial' axis: H-slabs with halo exchange) and
-``SamplerService(mesh=)``'s fan-out. The 'model' axis (ROADMAP A12c) is
-not ported.
+samplers (the 'spatial' axis: H-slabs with halo exchange), output-channel
+tensor parallelism (the 'model' axis) and ``SamplerService(mesh=)``'s
+fan-out.
 """
 
 __version__ = "0.1.0"

@@ -31,16 +31,19 @@ Every mode of the JAX CLI is ported, for every preset (``full``, ``old``,
 families. ``--mode train|generate`` run data-parallel on N cards under
 ``torchrun`` (one process per card, ``cuda:{LOCAL_RANK}``; NCCL, or gloo
 with ``--device cpu``), and ``--mode train`` also spatially sharded (each
-process an H-slab of every large feature map)::
+process an H-slab of every large feature map) and over a 'model' axis
+(each process a block of every wide layer's output channels; ``--mode
+generate`` too)::
 
     torchrun --nproc_per_node N -m diffusionmodel_tpu_torch.cli \
         --mode train -o train.mesh_data=N -o train.zero1=true
     torchrun --nproc_per_node S -m diffusionmodel_tpu_torch.cli \
         --mode train -o train.mesh_spatial=S
+    torchrun --nproc_per_node M -m diffusionmodel_tpu_torch.cli \
+        --mode train -o train.mesh_model=M
 
-A 'model' axis (``-o train.mesh_model=2``, ROADMAP A12c), a mesh larger
-than the process group, and any ``train.mesh_*`` > 1 or ``torchrun`` in
-the other modes print why and return 1: those modes run in one process,
+A mesh larger than the process group, and any ``train.mesh_*`` > 1 or
+``torchrun`` in the other modes print why and return 1: those modes run in one process,
 as the JAX CLI runs them (its ``--mode serve`` passes no mesh). ``--preset mnist`` trains on
 the MNIST IDX files under ``--data_root`` or a synthetic set, ``labml`` on
 an image folder or a synthetic one, as the JAX CLI does.
@@ -320,7 +323,7 @@ def _run_train_or_generate(args) -> int:
     cfg = _config(args)
     try:
         check_train_mesh(cfg.train)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         print(e)
         return 1
     metrics_impl = _metrics(args)

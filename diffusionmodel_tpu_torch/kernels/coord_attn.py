@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusionmodel_tpu_torch.kernels import _build, per_sample_matmul
+from diffusionmodel_tpu_torch.parallel.tensor import full_weight
 
 # The pooling pass reads x in chunks of 8 vectors of 16 bytes (32 float32
 # or 64 bf16 channels), as a tile of at most 16 rows per block; a warp
@@ -228,8 +229,9 @@ class CoordAttnWeights:
     def from_module(cls, mod, norm_kind: str = "group") -> "CoordAttnWeights":
         """Pack the parameters of an ``nn.coord_attn.CoordAttn``."""
 
-        def kern(conv):  # torch [O, I, 1, 1] -> [I, O]
-            return conv.weight.reshape(conv.out_channels, conv.in_channels).t()
+        def kern(conv):  # torch [O, I, 1, 1] -> [I, O], whole over 'model'
+            return full_weight(conv).reshape(conv.out_channels,
+                                             conv.in_channels).t()
 
         def fold(conv):
             return torch.cat([kern(conv), conv.bias[None, :]], dim=0)

@@ -8,7 +8,9 @@ single-head self-attention over the H*W tokens, ``ch_mults`` levels with
 structure is the JAX package's, which differs from labml's in two places:
 a level's width is ``n_channels * mult`` (labml multiplies cumulatively)
 and the extra up block of each level has no attention. GroupNorm uses
-flax's epsilon (1e-6), every layer computes in float32.
+flax's epsilon (1e-6), every layer computes in float32. The layers are
+``nn.blocks``' (PyTorch's at float32), which run on blocks of their
+output channels on a 'model' axis (``parallel.tensor``).
 
 Attribute names are labml's where the structure is the same:
 ``image_proj``, ``time_emb.lin1`` / ``lin2``, ``down.{k}.res.{norm1,
@@ -32,7 +34,14 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from diffusionmodel_tpu_torch.nn.blocks import GroupNorm, channels_last, gn_groups
+from diffusionmodel_tpu_torch.nn.blocks import (
+    Conv2d,
+    ConvTranspose2d,
+    GroupNorm,
+    Linear,
+    channels_last,
+    gn_groups,
+)
 
 _EPS = 1e-6  # flax GroupNorm's default epsilon
 
@@ -47,8 +56,8 @@ class TimeEmbedding(nn.Module):
     def __init__(self, n_channels: int):
         super().__init__()
         self.n_channels = n_channels
-        self.lin1 = nn.Linear(n_channels // 4, n_channels)
-        self.lin2 = nn.Linear(n_channels, n_channels)
+        self.lin1 = Linear(n_channels // 4, n_channels)
+        self.lin2 = Linear(n_channels, n_channels)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         half = self.n_channels // 8
@@ -65,12 +74,12 @@ class ResidualBlock(nn.Module):
                  n_groups: int = 32, dropout: float = 0.1):
         super().__init__()
         self.norm1 = GroupNorm(gn_groups(in_ch, n_groups), in_ch, eps=_EPS)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.time_emb = nn.Linear(time_ch, out_ch)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb = Linear(time_ch, out_ch)
         self.norm2 = GroupNorm(gn_groups(out_ch, n_groups), out_ch, eps=_EPS)
         self.dropout = nn.Dropout(dropout)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.shortcut = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        self.shortcut = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
                          else nn.Identity())
 
     def forward(self, x, t_emb):
@@ -89,8 +98,8 @@ class AttentionBlock(nn.Module):
         super().__init__()
         self.n_heads = n_heads
         self.d_k = d_k or n_channels // n_heads
-        self.projection = nn.Linear(n_channels, n_heads * self.d_k * 3)
-        self.output = nn.Linear(n_heads * self.d_k, n_channels)
+        self.projection = Linear(n_channels, n_heads * self.d_k * 3)
+        self.output = Linear(n_heads * self.d_k, n_channels)
         self.scale = self.d_k ** -0.5
 
     def forward(self, x):
@@ -124,7 +133,7 @@ class _ResAttn(nn.Module):
 class _Downsample(nn.Module):
     def __init__(self, n_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(n_channels, n_channels, 3, stride=2, padding=1)
+        self.conv = Conv2d(n_channels, n_channels, 3, stride=2, padding=1)
 
     def forward(self, x, t_emb):
         return self.conv(x)
@@ -135,7 +144,7 @@ class _Upsample(nn.Module):
 
     def __init__(self, n_channels: int):
         super().__init__()
-        self.conv = nn.ConvTranspose2d(n_channels, n_channels, 4, stride=2,
+        self.conv = ConvTranspose2d(n_channels, n_channels, 4, stride=2,
                                        padding=1)
 
     def forward(self, x, t_emb):
@@ -168,7 +177,7 @@ class DdpmUNet(nn.Module):
                        "is_attn": tuple(bool(a) for a in is_attn),
                        "n_blocks": n_blocks}
         time_ch = n_channels * 4
-        self.image_proj = nn.Conv2d(image_channels, n_channels, 3, padding=1)
+        self.image_proj = Conv2d(image_channels, n_channels, 3, padding=1)
         self.time_emb = TimeEmbedding(time_ch)
         down, skips, ch = [], [n_channels], n_channels
         for i, mult in enumerate(ch_mults):
@@ -197,7 +206,7 @@ class DdpmUNet(nn.Module):
                 up.append(_Upsample(ch))
         self.up = nn.ModuleList(up)
         self.norm = GroupNorm(8, ch, eps=_EPS)
-        self.final = nn.Conv2d(ch, image_channels, 3, padding=1)
+        self.final = Conv2d(ch, image_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         t = torch.as_tensor(t, device=x.device).reshape(-1)

@@ -34,6 +34,12 @@ slabs, :class:`UpsampleBilinear2x` and the fused head read their source
 rows by global index (one halo row each side), and BatchNorm takes the
 data x spatial group the train step gives it. Without a group, or on a
 whole map, every layer is the one above.
+
+Tensor parallelism (``parallel.tensor``): in a model cut over 'model'
+(``attach_model_axis``), :class:`Conv2d`, :class:`ConvTranspose2d`,
+:class:`Linear` and the fused head hold a block of their output channels,
+compute those, gather the whole map and add the bias to it; SE gathers
+its weights whole. Everything else runs replicated.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from diffusionmodel_tpu_torch.ops.resize import (
     upsample_bilinear_align_corners_nchw,
 )
 from diffusionmodel_tpu_torch.parallel.spatial import is_slab
+from diffusionmodel_tpu_torch.parallel.tensor import full_weight
 
 _F32 = torch.float32
 
@@ -123,13 +130,35 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return channels_last(x).permute(0, 2, 3, 1)
 
 
-class Conv2d(nn.Conv2d):
+class _OutputBlocks:
+    """The forward of a layer whose weight may hold a block of its output
+    channels (``model_shard``, a ``parallel.tensor.ModelShard``): without
+    one, ``_product`` with the bias; with one, this process's channels
+    (its input's gradient summed over 'model'), gathered whole, then the
+    bias added to the whole map. ``_out_dim``: the output's channel dim
+    (1: NCHW; -1: a dense layer's features)."""
+
+    model_shard = None
+    _out_dim = 1
+
+    def forward(self, x):
+        tp = self.model_shard
+        if tp is None:
+            return self._product(x, self.bias)
+        y = self._product(tp.enter(x), None)
+        return add_bias(tp.gather(y, self._out_dim % y.dim()), self.bias,
+                        self._out_dim)
+
+
+class Conv2d(_OutputBlocks, nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` (flax's ``nn.Conv``
     with ``dtype``): input and weight cast at use, the product rounded,
     then the bias added in ``compute_dtype``. Without gradients a bf16
     convolution runs one sample at a time (``kernels.per_sample_conv``:
     cuDNN would otherwise let a sample's result depend on its batch
-    position)."""
+    position). With a ``model_shard`` the weight is this process's block
+    of output channels: the layer computes those, gathers the whole map
+    over 'model' and adds the bias to it (``parallel.tensor``)."""
 
     spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
 
@@ -137,18 +166,18 @@ class Conv2d(nn.Conv2d):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def _product(self, x, bias):
         if is_slab(self.spatial, x):
-            return self._slab_forward(x)
+            return self._slab_forward(x, bias)
         dt = self.compute_dtype
         if dt == _F32:
-            return super().forward(x)
+            return self._conv_forward(x, self.weight, bias)
         w = self.weight.to(dt)
         y = per_sample_conv(lambda a: self._conv_forward(a, w, None),
                             x.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+        return add_bias(y, bias, 1)
 
-    def _slab_forward(self, x):
+    def _slab_forward(self, x, bias):
         """This slab's rows of the convolution of the whole map: the slab
         with ``pad`` halo rows above and ``kernel - stride - pad`` below,
         convolved without padding along H (3x3 pad 1: one each side; the
@@ -162,48 +191,64 @@ class Conv2d(nn.Conv2d):
         xh = self.spatial.halo(x, p, k - st - p)
         pad, dt = (0, self.padding[1]), self.compute_dtype
         if dt == _F32:
-            return F.conv2d(xh, self.weight, self.bias, self.stride, pad,
+            return F.conv2d(xh, self.weight, bias, self.stride, pad,
                             self.dilation, self.groups)
         w = self.weight.to(dt)
         y = per_sample_conv(lambda a: F.conv2d(
             a, w, None, self.stride, pad, self.dilation, self.groups),
             xh.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+        return add_bias(y, bias, 1)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
+def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], dim: int
+             ) -> torch.Tensor:
+    """``y`` plus ``bias`` along ``dim`` (1: NCHW channels; -1: a dense
+    layer's features), the bias cast to y's dtype (flax adds it in the
+    compute dtype)."""
+    if bias is None:
+        return y
+    b = bias.to(y.dtype)
+    return y + (b[:, None, None] if dim == 1 else b)
+
+
+class ConvTranspose2d(_OutputBlocks, nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` computing in ``compute_dtype``, as
-    :class:`Conv2d`."""
+    :class:`Conv2d` (its ``model_shard`` splits the weight's dim 1, the
+    output channels)."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = _F32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def _product(self, x, bias):
         dt = self.compute_dtype
         if dt == _F32:
-            return super().forward(x)
+            return F.conv_transpose2d(x, self.weight, bias, self.stride,
+                                      self.padding, self.output_padding,
+                                      self.groups, self.dilation)
         y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
                                self.stride, self.padding,
                                self.output_padding, self.groups,
                                self.dilation)
-        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+        return add_bias(y, bias, 1)
 
 
-class Linear(nn.Linear):
+class Linear(_OutputBlocks, nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` (flax's ``nn.Dense``
-    with ``dtype``): the product rounded, then the bias added."""
+    with ``dtype``): the product rounded, then the bias added; on the
+    'model' axis as :class:`Conv2d`."""
+
+    _out_dim = -1
 
     def __init__(self, *args, compute_dtype: torch.dtype = _F32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def _product(self, x, bias):
         dt = self.compute_dtype
         if dt == _F32:
-            return super().forward(x)
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)
+            return F.linear(x, self.weight, bias)
+        return add_bias(F.linear(x.to(dt), self.weight.to(dt)), bias, -1)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -219,6 +264,7 @@ class GroupNorm(nn.GroupNorm):
     take one call for the batch."""
 
     spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+    precast = False  # the affine rounded to bf16 (``precast_params``)
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  compute_dtype: torch.dtype = _F32):
@@ -229,16 +275,18 @@ class GroupNorm(nn.GroupNorm):
         dt = self.compute_dtype
         if dt != _F32:
             x = x.float()
+        w, b = _affine(self)
         if is_slab(self.spatial, x):
-            y = self._slab_forward(x)
+            y = self._slab_forward(x, w, b)
         elif x.device.type == "cpu" and x.shape[0] > 1:
-            y = torch.cat([channels_last(super(GroupNorm, self).forward(s))
-                           for s in x.split(1)])
+            y = torch.cat([channels_last(F.group_norm(
+                s, self.num_groups, w, b, self.eps)) for s in x.split(1)])
         else:
-            y = channels_last(super().forward(x))
+            y = channels_last(F.group_norm(x, self.num_groups, w, b,
+                                           self.eps))
         return y if dt == _F32 else y.to(dt)
 
-    def _slab_forward(self, x):
+    def _slab_forward(self, x, weight, bias):
         """GroupNorm of the whole map from this slab (float32 x): per
         sample and group, the sums of x and x^2 over the slab in float64,
         summed over the slabs (one all_reduce), the variance their mean
@@ -258,8 +306,39 @@ class GroupNorm(nn.GroupNorm):
         mean_c = mean.repeat_interleave(c // g, dim=1).reshape(shape)
         inv_c = invstd.repeat_interleave(c // g, dim=1).reshape(shape)
         y = (x - mean_c) * inv_c
-        return channels_last(y * self.weight[:, None, None]
-                             + self.bias[:, None, None])
+        return channels_last(y * weight[:, None, None]
+                             + bias[:, None, None])
+
+
+def _affine(norm: nn.Module) -> tuple:
+    """A norm's (weight, bias): float32, rounded to bf16 first under
+    :func:`precast_params`, as the JAX package's bf16 sampler casts the
+    parameters (its norms compute in float32 with the bf16 values)."""
+    w, b = norm.weight, norm.bias
+    if norm.precast:
+        w, b = (t.to(torch.bfloat16).float() for t in (w, b))
+    return w, b
+
+
+@contextlib.contextmanager
+def precast_params(model: nn.Module):
+    """Inside the block, ``model`` computes as the JAX package's bf16
+    sampler does (``trainer.make_sampler``'s ``_precast``: every float32
+    parameter cast to bf16 once per call). Where a layer casts its
+    parameters at use that changes nothing; it changes the layers that use
+    float32 parameters as they are: the norms' affine is rounded to bf16
+    (:class:`GroupNorm`, :class:`BatchNorm2d` in eval mode), and
+    CoordAttn's plain path takes its four scalars in bf16, so its mix
+    and weighting round to bf16 instead of promoting to float32. For a
+    model computing in bf16 only (JAX leaves a float32 model as it is)."""
+    mods = [m for m in model.modules() if hasattr(type(m), "precast")]
+    for m in mods:
+        m.precast = True
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.precast = False
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -327,6 +406,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     data group (``_GlobalBatchNorm``), as flax's BatchNorm does over the
     logical batch under GSPMD, and the running statistics follow them."""
 
+    precast = False  # the affine rounded to bf16 (``precast_params``)
+
     def __init__(self, num_features: int, compute_dtype: torch.dtype = _F32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = compute_dtype
@@ -340,7 +421,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _forward_f32(self, x):
         if not self.training:
-            return channels_last(super().forward(x))
+            w, b = _affine(self)
+            return channels_last(F.batch_norm(
+                x, self.running_mean, self.running_var, w, b, False, 0.0,
+                self.eps))
         if self.group is not None:
             out, mean, var = _GlobalBatchNorm.apply(
                 x, self.weight, self.bias, self.eps, self.group)
@@ -444,7 +528,9 @@ class SEBlock(nn.Module):
     both paths compute with their weights, one product per sample. The
     kernel reads ``fc[0].weight`` and ``fc[2].weight`` in place (it takes
     ``w1``/``w2`` as their transposed views), so an eval call launches the
-    one kernel and no copy."""
+    one kernel and no copy. A layer cut over 'model' is gathered whole
+    first (``parallel.tensor.full_weight``), as GSPMD gathers a Pallas
+    call's sharded operands: the block then runs replicated."""
 
     spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
 
@@ -454,13 +540,13 @@ class SEBlock(nn.Module):
         red = max(1, channels // reduction)
         self.use_pallas = use_pallas
         self.dtype = dtype
-        self.fc = nn.Sequential(nn.Linear(channels, red, bias=False),
+        self.fc = nn.Sequential(Linear(channels, red, bias=False),
                                 GELU(),
-                                nn.Linear(red, channels, bias=False),
+                                Linear(red, channels, bias=False),
                                 nn.Sigmoid())
 
     def forward(self, x):
-        w1, w2 = self.fc[0].weight.t(), self.fc[2].weight.t()
+        w1, w2 = full_weight(self.fc[0]).t(), full_weight(self.fc[2]).t()
         sp = self.spatial if is_slab(self.spatial, x) else None
         if self.use_pallas and not self.training:
             out = (se_block(to_nhwc(x), w1, w2) if sp is None
@@ -603,13 +689,19 @@ class UnetUp(nn.Module):
         if not self.fused_upsample:
             return self.model(x)
         dt, c = self.dtype, self.model[0][1]
+        tp = c.model_shard  # a block of Cout: the bias after the gather
+        bias = c.bias.to(dt) if tp is None else None
+        if tp is not None:
+            x = tp.enter(x)
         if is_slab(self.spatial, x):
             sp = self.spatial
             x = up2_conv3x3_align_corners_nchw(
-                sp.halo(x, 1, 1).to(dt), c.weight.to(dt), c.bias.to(dt),
+                sp.halo(x, 1, 1).to(dt), c.weight.to(dt), bias,
                 rows=(sp.row0(x.shape[2]), x.shape[2],
                       x.shape[2] * sp.shards))
         else:
-            x = up2_conv3x3_align_corners_nchw(
-                x.to(dt), c.weight.to(dt), c.bias.to(dt))
+            x = up2_conv3x3_align_corners_nchw(x.to(dt), c.weight.to(dt),
+                                               bias)
+        if tp is not None:
+            x = add_bias(tp.gather(x, 1), c.bias, 1)
         return self.model[2](self.model[1](x))

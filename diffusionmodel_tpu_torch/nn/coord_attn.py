@@ -18,7 +18,15 @@ With a bf16 ``dtype`` the plain path computes as the JAX module does:
 the directional means in float32 rounded to bf16, the 1x1 convs, norms
 and GELU in bf16, then the cross mix, the weighting and the product with
 x promoted to float32 by the float32 scalars (gamma, alpha, beta): the
-block returns float32, which the next layer rounds.
+block returns float32, which the next layer rounds. Under
+``nn.blocks.precast_params`` (the JAX package's bf16 sampler, which casts
+every parameter to bf16) the scalars are bf16, and the mix, the weighting
+and the product stay in bf16.
+
+On the 'model' axis (``parallel.tensor``) ``conv_h`` and ``conv_w``
+hold blocks of their output channels: the plain path runs them as
+tensor-parallel layers, and the packing gathers them whole, so the
+kernels and their twins take whole weights.
 
 On an H-slab of a spatially sharded forward (``parallel.spatial``) the
 W-pool is the sum of the slabs' column sums (one all_reduce) and the
@@ -55,6 +63,7 @@ from diffusionmodel_tpu_torch.parallel.spatial import is_slab
 
 class CoordAttn(nn.Module):
     spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
+    precast = False  # the scalars in bf16 (``nn.blocks.precast_params``)
 
     def __init__(self, channels: int, reduction: int = 16,
                  norm: str = "group", use_pallas: bool = False,
@@ -101,15 +110,22 @@ class CoordAttn(nn.Module):
         # adaptive_avg_pool2d realigns length H -> W (and W -> H).
         h2w_adapted = adaptive_avg_pool_axis(h2w.transpose(2, 3), w, axis=3)
         w2h_adapted = adaptive_avg_pool_axis(w2h.transpose(2, 3), h, axis=2)
-        x_h = x_h + torch.sigmoid(self.gamma_h) * w2h_adapted
-        x_w = x_w + torch.sigmoid(self.gamma_w) * h2w_adapted
+        # float32 scalars promote the mix and the weighting to float32; the
+        # JAX package's bf16 sampler casts them to bf16 (precast_params)
+        gh, gw, al, be = self.gamma_h, self.gamma_w, self.alpha, self.beta
+        act = torch.sigmoid
+        if self.precast:
+            gh, gw, al, be = (p.to(dt) for p in (gh, gw, al, be))
+            act = sigmoid
+        x_h = x_h + act(gh) * w2h_adapted
+        x_w = x_w + act(gw) * h2w_adapted
 
         a_h = sigmoid(self.conv_h(x_h))
         a_w = sigmoid(self.conv_w(x_w))
         if sp is not None:  # this slab's rows
             a_h = a_h.narrow(2, sp.row0(x.shape[2]), x.shape[2])
-        alpha = torch.sigmoid(self.alpha)
-        beta = torch.sigmoid(self.beta)
+        alpha = act(al)
+        beta = act(be)
         s = alpha + beta + 1e-8
         return x * ((alpha / s) * a_h + (beta / s) * a_w)
 
@@ -119,7 +135,11 @@ class CoordAttn(nn.Module):
         packed again only when a parameter or buffer has moved or changed
         (its ``data_ptr`` or ``_version``: ``load_state_dict``, ``.to()``,
         an in-place update). In training, or with gradients on, every call
-        packs anew, so that gradients reach the parameters."""
+        packs anew, so that gradients reach the parameters. On the 'model'
+        axis the packing gathers ``conv_h`` / ``conv_w`` whole from their
+        blocks, which are the parameters the key reads: a step's in-place
+        update of a block repacks, on every process of the group alike
+        (the gather is a collective)."""
         if self.training or torch.is_grad_enabled():
             return CoordAttnWeights.from_module(self, "group")
         key = tuple((t.data_ptr(), t._version)

@@ -1,7 +1,8 @@
-"""Data and spatial parallelism over ``torch.distributed`` (counterpart
-of ``diffusionmodel_tpu/parallel``): the process mesh, the sharding rules
-(ZeRO-1 included) and the transport of H-sharded activations
-(``parallel.spatial``)."""
+"""Data, spatial and tensor parallelism over ``torch.distributed``
+(counterpart of ``diffusionmodel_tpu/parallel``): the process mesh, the
+sharding rules (ZeRO-1 included), the transport of H-sharded activations
+(``parallel.spatial``) and of output-channel blocks over 'model'
+(``parallel.tensor``)."""
 
 from diffusionmodel_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -9,7 +10,6 @@ from diffusionmodel_tpu_torch.parallel.mesh import (  # noqa: F401
     all_reduce_mean_,
     batch_sharding,
     broadcast_object,
-    check_supported,
     image_sharding,
     init_from_env,
     make_mesh,

@@ -22,13 +22,14 @@ which contiguous block of a tensor axis this process holds:
   [kh,kw,I,O], dense [I,O]; ``compat.flax_bridge.flax_axes``), so it
   picks the same dim as JAX's, ties included, and maps it to the port's
   layout.
-- :func:`param_shardings` keeps JAX's output-channel rule for the
-  'model' axis as a plan: nothing runs a mesh with ``model > 1`` yet
-  (ROADMAP A12c), and :func:`check_supported` refuses one.
+- :func:`param_shardings` is JAX's output-channel rule for the 'model'
+  axis: the layout every process holds its parameters, EMA and moments
+  in once ``parallel.tensor.attach_model_axis`` has cut them.
 
-The 'data' and 'spatial' axes run: the train step, the loader, the
-samplers and ``fit`` shard over both (``parallel.spatial`` holds the
-spatially sharded forward's transport).
+The three axes run: the train step, the loader, the samplers and ``fit``
+shard over 'data' and 'spatial' (``parallel.spatial`` holds the spatially
+sharded forward's transport) and split wide layers' output channels over
+'model' (``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class Mesh:
     def __init__(self, shape: Dict[str, int], device_mesh=None):
         self.shape = dict(shape)
         self.device_mesh = device_mesh
+        self._data_spatial = None
+        if device_mesh is not None and self.shape.get("model", 1) > 1:
+            self._data_spatial = _data_spatial_groups(self.shape)[
+                self.rank("model")]
 
     @property
     def distributed(self) -> bool:
@@ -70,10 +75,12 @@ class Mesh:
         return self.device_mesh.get_local_rank(axis)
 
     def data_spatial_group(self):
-        """The group of 'data' x 'spatial': every process, since
-        :func:`check_supported` refuses a 'model' axis."""
-        check_supported(self)
-        return dist.group.WORLD
+        """The group of 'data' x 'spatial' that holds this process: the
+        processes that share its 'model' coordinate (every process when
+        the axis is 1)."""
+        if self._data_spatial is None:
+            return dist.group.WORLD
+        return self._data_spatial
 
     @property
     def is_main(self) -> bool:
@@ -123,12 +130,13 @@ def make_mesh(data: int = -1, model: int = 1, spatial: int = 1) -> Mesh:
                                         mesh_dim_names=AXES))
 
 
-def check_supported(mesh: Mesh) -> None:
-    """Refuse the axis that is not ported yet, naming its ROADMAP item."""
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"mesh_model={mesh.shape['model']}: the 'model' axis (output-"
-            "channel tensor parallelism) is not ported yet: ROADMAP A12c")
+def _data_spatial_groups(shape: Dict[str, int]) -> list:
+    """One group per 'model' coordinate i: the processes ``d*(m*s) + i*s
+    + j`` of every (d, j). Every process creates every group, in the same
+    order (``dist.new_group`` is a collective over the default group)."""
+    d, m, s = (shape[a] for a in AXES)
+    return [dist.new_group([a * m * s + i * s + j for a in range(d)
+                            for j in range(s)]) for i in range(m)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,10 +174,11 @@ class Sharding:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global tensor from every process's block ``x`` (a
-        collective: every process of each axis calls it): per axis, an
-        ``all_reduce`` of a zero buffer in which this process's block
-        stands at its place (float32 for bf16, which it holds exactly)."""
-        for dim, axis in self.dims:
+        collective: every process of each axis calls it): per axis, last
+        split first, an ``all_reduce`` of a zero buffer in which this
+        process's block stands at its place (float32 for bf16, which it
+        holds exactly)."""
+        for dim, axis in reversed(self.dims):
             n = self.mesh.shape[axis]
             if not self.mesh.distributed:
                 continue
@@ -257,9 +266,11 @@ def _leaf_spec(path: str, shape, model_size: int, min_channels: int
 
 def param_shardings(mesh: Mesh, model: nn.Module,
                     min_channels: int = 256) -> Dict[str, Sharding]:
-    """The 'model' axis plan by parameter name: output-channel
+    """The 'model' axis layout by parameter name: output-channel
     parallelism on wide conv / dense kernels (JAX's ``kernel`` leaves),
-    biases and scales replicated. A plan only (ROADMAP A12c)."""
+    biases and scales replicated. Read from the shapes ``model`` holds:
+    call it on the whole model, before ``parallel.tensor.attach_model_axis``
+    cuts it."""
     size = mesh.shape["model"]
     out = {}
     for name, p in model.named_parameters():

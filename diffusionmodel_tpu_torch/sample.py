@@ -20,7 +20,10 @@ run under ``device_check.fp32_compute``.
 ``gen_samples`` samples over ``parallel.make_mesh()``, as the JAX package
 does: under a process group (``torchrun``) each process denoises its
 block of the batch and rank 0 writes the files and scores them; one
-process alone samples the whole batch.
+process alone samples the whole batch. With ``train.mesh_model`` > 1 the
+processes along 'model' split every wide layer's output channels
+(``trainer.make_sampler`` cuts the loaded model to their blocks) and the
+rest of the group splits the batch.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ def gen_samples(cfg: Config, ckpt_path: str,
     (``device_check.fp32_compute``). Under a process group every process
     calls it and gets the results; rank 0 alone writes and scores."""
     dev = resolve_device(device)
-    mesh = make_mesh()
+    mesh = make_mesh(model=cfg.train.mesh_model)
     verbose = verbose and mesh.is_main
     sc, mc, dc = cfg.sample, cfg.model, cfg.diffusion
     n_per = n_samples_per_class or sc.samples_per_class

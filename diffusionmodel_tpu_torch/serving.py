@@ -41,7 +41,10 @@ when the data size divides ``max_batch``), and the blocks return to rank
 0 by an ``all_reduce`` of zero-padded buffers. When the data size does not
 divide ``max_batch`` every process runs the whole batch, as the JAX
 package replicates. Processes along 'spatial' run their data block
-alike. On the other ranks the worker thread is the follower loop, which
+alike; on a 'model' axis the service cuts the model to this process's
+blocks (``parallel.tensor.attach_model_axis``) and the processes along
+'model' run their data block together, each layer's output channels
+split between them. On the other ranks the worker thread is the follower loop, which
 ends when rank 0's ``close()`` broadcasts the stop; their ``close()``
 waits for it. A pinned request's images still depend only on its seed,
 classes and scale: under a mesh every worker keeps cuDNN on its
@@ -120,12 +123,12 @@ class SamplerService:
         # data size divides max_batch, else all of them
         self._block = slice(0, max_batch)
         if self.mesh is not None:
-            from diffusionmodel_tpu_torch.parallel import (
-                batch_sharding,
-                check_supported,
+            from diffusionmodel_tpu_torch.parallel import batch_sharding
+            from diffusionmodel_tpu_torch.parallel.tensor import (
+                attach_model_axis,
             )
 
-            check_supported(self.mesh)
+            attach_model_axis(model, self.mesh)
             if max_batch % self.mesh.shape["data"] == 0:
                 self._block = batch_sharding(self.mesh, 1).block(0, max_batch)
         if kind == "textbook":

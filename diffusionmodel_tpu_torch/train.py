@@ -43,7 +43,13 @@ early stopping (counterpart of ``diffusionmodel_tpu/train.py``).
   samples (``image_sharding``), the loss is this slab's mean (equal slabs:
   their mean is the global mean), BatchNorm's statistics span data x
   spatial, and the gradients are summed over 'spatial' first; ZeRO-1
-  stays over 'data'.
+  stays over 'data'. On a 'model' axis (``parallel.tensor``: the model
+  cut by ``attach_model_axis`` before ``create_train_state``) each
+  process holds, updates and averages (over 'data' x 'spatial' only) its
+  block of every planned leaf, with that leaf's moments and EMA; the
+  clip's global norm counts each replicated leaf once and sums the
+  blocks' squares over 'model' (and over 'data' under ZeRO-1, which
+  partitions the block).
 
 PyTorch updates the model and the optimizer state in place, so a step
 returns only its loss (a float32 scalar tensor on the device).
@@ -62,7 +68,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from diffusionmodel_tpu_torch.compat.flax_bridge import flax_trees
+from diffusionmodel_tpu_torch.compat.flax_bridge import flax_from_state_dict
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.diffusion import Schedule, loss_draws, train_loss
 from diffusionmodel_tpu_torch.lr_schedules import build_schedule
@@ -72,11 +78,14 @@ from diffusionmodel_tpu_torch.parallel.mesh import (
     Sharding,
     all_reduce_mean_,
     batch_sharding,
-    check_supported,
     image_sharding,
     opt_state_shardings,
 )
 from diffusionmodel_tpu_torch.parallel.spatial import attach, is_slab
+from diffusionmodel_tpu_torch.parallel.tensor import (
+    full_state_dict,
+    model_shardings,
+)
 
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -253,9 +262,11 @@ def _ema_copy(model: nn.Module) -> nn.Module:
 def create_train_state(model: nn.Module, cfg: Config, steps_per_epoch: int,
                        mesh: Optional[Mesh] = None) -> tuple:
     """(TrainState, Optimizer) over ``model`` as it is (the port's
-    ``build_model`` draws the initial weights from the torch seed). With
-    ``train.zero1`` and a mesh, each process keeps only its block of the
-    moments the ZeRO-1 rule partitions over 'data'."""
+    ``build_model`` draws the initial weights from the torch seed): on a
+    'model' axis, the model already cut (its blocks are the leaves, and
+    the EMA copy is cut alike). With ``train.zero1`` and a mesh, each
+    process keeps only its block of the moments the ZeRO-1 rule
+    partitions over 'data' (of the 'model' block, where there is one)."""
     opt = build_optimizer(cfg, steps_per_epoch)
     shardings = None
     if cfg.train.zero1 and mesh is not None:
@@ -270,24 +281,29 @@ def create_train_state(model: nn.Module, cfg: Config, steps_per_epoch: int,
 
 def host_trees(model: nn.Module) -> tuple:
     """(params, batch_stats) of ``model`` as the JAX package's numpy trees
-    (the walk of its arch, ``model.layout``)."""
-    return flax_trees(model)
+    (the walk of its arch, ``model.layout``), whole: a model cut over
+    'model' gathers its blocks first (a collective: every process of the
+    group calls it)."""
+    return flax_from_state_dict(full_state_dict(model), **model.layout)
 
 
 def opt_state_to_host(model: nn.Module, st: OptState) -> Dict:
     """The port's optimizer state as numpy copies: ``count`` and ``mu`` /
     ``nu`` by parameter name (``mu`` widened to float32, which is exact).
-    ZeRO-1 blocks are gathered first (a collective: every process of the
-    data group calls it, and only rank 0 gets the copies; the others get
-    None), so the layout does not depend on the world size."""
+    ZeRO-1 blocks are gathered over 'data', then 'model' blocks over
+    'model' (collectives: every process calls it, and only rank 0 gets
+    the copies; the others get None), so the layout does not depend on
+    the mesh."""
     names = [n for n, _ in model.named_parameters()]
-    if st.shardings is not None:
-        mu = [sh.gather(m) for sh, m in zip(st.shardings, st.mu)]
-        nu = [sh.gather(v) for sh, v in zip(st.shardings, st.nu)]
-        if not st.shardings[0].mesh.is_main:
-            return None  # only rank 0 writes checkpoints
-    else:
-        mu, nu = st.mu, st.nu
+    zero1 = st.shardings or [None] * len(names)
+    cut = model_shardings(model)
+    mu, nu = list(st.mu), list(st.nu)
+    for i, (name, sh) in enumerate(zip(names, zero1)):
+        for each in (sh, cut.get(name)):
+            if each is not None:
+                mu[i], nu[i] = each.gather(mu[i]), each.gather(nu[i])
+    if (st.shardings or cut) and dist.get_rank() != 0:
+        return None  # only rank 0 writes checkpoints
 
     def host(x):
         return x.detach().float().cpu().numpy().copy()
@@ -299,9 +315,9 @@ def opt_state_to_host(model: nn.Module, st: OptState) -> Dict:
 
 def opt_state_from_host(model: nn.Module, st: OptState, host) -> None:
     """Restore :func:`opt_state_to_host`'s layout in place, each moment
-    cast to the dtype the run keeps it in (under ZeRO-1, this process's
-    block of it). Raises on any other layout (the JAX package's optax
-    state)."""
+    cast to the dtype the run keeps it in (this process's block of it on
+    the 'model' axis, then under ZeRO-1). Raises on any other layout (the
+    JAX package's optax state)."""
     if not (isinstance(host, dict) and {"count", "mu", "nu"} <= set(host)
             and isinstance(host["mu"], dict)):
         raise ValueError(f"not the port's optimizer layout: "
@@ -311,15 +327,19 @@ def opt_state_from_host(model: nn.Module, st: OptState, host) -> None:
     if missing:
         raise ValueError(f"optimizer state lacks {missing[:3]}")
     shardings = st.shardings or [None] * len(names)
+    cut = model_shardings(model)
 
-    def block(x, sh):
+    def block(x, name, sh):
         x = np.asarray(x)
-        return torch.from_numpy(x if sh is None else sh.local(x))
+        for each in (cut.get(name), sh):
+            if each is not None:
+                x = each.local(x)
+        return torch.from_numpy(np.ascontiguousarray(x))
 
     with torch.no_grad():
         for n, m, v, sh in zip(names, st.mu, st.nu, shardings):
-            m.copy_(block(host["mu"][n], sh))
-            v.copy_(block(host["nu"][n], sh))
+            m.copy_(block(host["mu"][n], n, sh))
+            v.copy_(block(host["nu"][n], n, sh))
     st.count = int(host["count"])
 
 
@@ -410,7 +430,6 @@ def _data_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
     one process runs the plain step."""
     if mesh is None or not mesh.distributed:
         return None
-    check_supported(mesh)
     return mesh
 
 
@@ -448,6 +467,53 @@ def _spatial_mean_(mesh: Mesh, tensors: List[torch.Tensor]) -> None:
         t.copy_(seg.view(t.shape))
 
 
+def _clip_norm(mesh: Mesh, grads: List[torch.Tensor], part: List[int],
+               on_model: List[bool]) -> torch.Tensor:
+    """optax.global_norm of gradients that are blocks: the squares of
+    the ZeRO-1 blocks (``part``) summed over 'data', those of the 'model'
+    blocks (``on_model``) over 'model', every other leaf counted once, as
+    every process holds it whole. The same value on every process."""
+    def sq(idx):
+        ts = [grads[i] for i in idx]
+        return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
+                else grads[0].new_zeros(()))
+
+    rep = [i for i in range(len(grads)) if i not in part]
+    total = sq([i for i in part if not on_model[i]])
+    if any(on_model):
+        both = torch.stack([total, sq([i for i in part if on_model[i]])])
+        if part:
+            dist.all_reduce(both, group=mesh.group("data"))
+        total, over_model = both[0], both[1]
+        over_model = over_model + sq([i for i in rep if on_model[i]])
+        dist.all_reduce(over_model, group=mesh.group("model"))
+        total = total + over_model
+    elif part:
+        dist.all_reduce(total, group=mesh.group("data"))
+    whole = [i for i in rep if not on_model[i]]
+    if whole:
+        total = total + sq(whole)
+    return torch.sqrt(total)
+
+
+def _model_mean_(mesh: Mesh, grads: List[torch.Tensor],
+                 on_model: List[bool], loss: torch.Tensor) -> torch.Tensor:
+    """The gradients of the leaves every 'model' process holds whole (or
+    the same ZeRO-1 block of), and the loss, replaced by their mean over
+    'model' (one flattened ``all_reduce``). The processes compute them
+    from the same gathered maps, but a backward that is not deterministic
+    (cuDNN's atomics) gives them other bits, and the replicas would drift
+    apart; the mean of equal values is the value."""
+    same = [i for i, m in enumerate(on_model) if not m]
+    flat = torch.cat([grads[i].reshape(-1) for i in same] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=mesh.group("model"))
+    flat.div_(mesh.shape["model"])
+    for i, seg in zip(same, flat[:-1].split([grads[i].numel()
+                                              for i in same])):
+        grads[i].copy_(seg.view(grads[i].shape))
+    return flat[-1]
+
+
 @torch.no_grad()
 def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
                         grads: List[torch.Tensor], loss: torch.Tensor
@@ -458,14 +524,19 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
     loss go through one flattened ``all_reduce``; under ZeRO-1 the
     partitioned
     leaves go through one ``reduce_scatter`` into this process's blocks,
-    the clip takes the global norm (the blocks' squares summed over the
-    group, the replicated leaves counted once), AdamW updates the blocks
-    and one ``all_gather`` puts the new parameters back together.
-    Returns the global mean loss."""
+    AdamW updates the blocks and one ``all_gather`` puts the new
+    parameters back together. The groups are this process's 'data' and
+    'spatial' ones: on a 'model' axis each process averages its blocks
+    with the processes that hold the same ones, and the leaves they all
+    hold alike are averaged over 'model' too (:func:`_model_mean_`). The
+    clip takes the global norm (:func:`_clip_norm`). Returns the global
+    mean loss."""
     loss = loss.reshape(1).clone()
     _spatial_mean_(mesh, grads + [loss])
     group, n = mesh.group("data"), mesh.shape["data"]
     params = state.params
+    cut = model_shardings(state.model)
+    on_model = [name in cut for name, _ in state.model.named_parameters()]
     shardings = state.opt_state.shardings or [None] * len(params)
     part = [i for i, sh in enumerate(shardings)
             if sh is not None and not sh.is_replicated]
@@ -495,14 +566,10 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
             grads[i] = seg.view(moved[0] // n, *moved[1:]).movedim(
                 0, dims[i])
             upd[i] = shardings[i].local(params[i])
-        if opt.grad_clip > 0:
-            sq = torch.stack(torch._foreach_norm([grads[i] for i in part])
-                             ).square().sum()
-            dist.all_reduce(sq, group=group)
-            if rep:
-                sq = sq + torch.stack(torch._foreach_norm(
-                    [grads[i] for i in rep])).square().sum()
-            norm = torch.sqrt(sq)
+    if any(on_model):
+        loss = _model_mean_(mesh, grads, on_model, loss)
+    if opt.grad_clip > 0 and (part or any(on_model)):
+        norm = _clip_norm(mesh, grads, part, on_model)
     apply_updates_(opt, state.opt_state, upd, grads, norm)
     if part:
         mine = torch.cat([upd[i].movedim(dims[i], 0).reshape(-1)

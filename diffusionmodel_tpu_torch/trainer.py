@@ -35,11 +35,16 @@ validation batches and the samplers' images: the JAX package's
 sharded over 'data' only and the processes along 'spatial' hold whole
 images, as in the JAX package (``parallel.spatial.runs_on_slabs``). Every process holds the same parameters and
 takes the same decisions; rank 0 alone prints, writes checkpoints,
-metrics and sample grids. The 'model' axis is refused (ROADMAP A12c).
+metrics and sample grids. With ``train.mesh_model`` > 1 the processes
+along 'model' split the output channels of every wide layer
+(``parallel.tensor.attach_model_axis``, JAX's ``param_shardings`` at 256
+channels): each holds its block of those parameters, their EMA and their
+moments, and checkpoints gather them whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -56,7 +61,7 @@ from diffusionmodel_tpu_torch.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from diffusionmodel_tpu_torch.compat.flax_bridge import load_flax
+from diffusionmodel_tpu_torch.compat.flax_bridge import state_dict_from_flax
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.data import (
     BatchLoader,
@@ -79,16 +84,21 @@ from diffusionmodel_tpu_torch.models.annotated_ddpm.diffusion import (
     textbook_schedule,
 )
 from diffusionmodel_tpu_torch.nn import build_model
+from diffusionmodel_tpu_torch.nn.blocks import precast_params
 from diffusionmodel_tpu_torch.parallel import (
     Mesh,
     batch_sharding,
     broadcast_object,
-    check_supported,
     image_sharding,
     make_mesh,
     mesh_shape,
 )
 from diffusionmodel_tpu_torch.parallel.spatial import attach, runs_on_slabs
+from diffusionmodel_tpu_torch.parallel.tensor import (
+    attach_model_axis,
+    local_state_dict,
+    model_shardings,
+)
 from diffusionmodel_tpu_torch.train import (
     EarlyStop,
     TrainState,
@@ -123,7 +133,9 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
     configured sampler (``sample.sampler``: ancestral over all n_T steps,
     ddim, or dpmpp). ``guide_w`` is a scalar or one scale per sample.
     ``fit`` and ``gen_samples`` call it under ``device_check.fp32_compute``;
-    another caller sets the precision flags it wants.
+    another caller sets the precision flags it wants. A model computing in
+    bf16 samples as the JAX package's bf16 sampler, whose parameters are
+    cast to bf16 once per call (``nn.blocks.precast_params``).
 
     The textbook family samples unconditionally with the textbook
     ancestral sampler over t = n_T-1..0 (reference/ddpm/__init__.py:
@@ -135,7 +147,10 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
     so every process returns the whole batch. Every process draws the
     global start noise and per-step noise from ``generator`` and takes its
     block, so the images are the one-process run's (up to the batch
-    size's effect on the network's sums). The big-image layout, under the
+    size's effect on the network's sums). On a 'model' axis the sampler
+    cuts the model it is given to this process's blocks
+    (``attach_model_axis``; nothing when it already is) and the processes
+    along 'model' denoise the same slots. The big-image layout, under the
     JAX package's conditions (a 'spatial' axis that divides img_size, a
     model with the spatial hooks, ``build_model(spatial_shards=)``): each
     process holds the H-slab of its block of the slots
@@ -150,7 +165,6 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
                          "(expected ancestral | ddim | dpmpp)")
     fan_out = None
     if mesh is not None and mesh.distributed:
-        check_supported(mesh)
         if n_sample % mesh.shape["data"] == 0:
             fan_out = batch_sharding(mesh, 4)
 
@@ -177,6 +191,12 @@ def make_sampler(cfg: Config, sched: Schedule, n_sample: int, classes=None,
 
     def sampler(model, generator, guide_w, x_init=None) -> torch.Tensor:
         model = model.eval()
+        attach_model_axis(model, mesh)
+        with (precast_params(model) if mc.dtype == "bfloat16"
+              else contextlib.nullcontext()):
+            return sample(model, generator, guide_w, x_init)
+
+    def sample(model, generator, guide_w, x_init):
         layout = fan_out
         if fan_out is not None and attach(model, mesh) is not None:
             layout = image_sharding(mesh, 4)  # the big-image layout
@@ -274,22 +294,20 @@ class _CkptWriter:
 
 
 def _load_params(model, params, batch_stats=None) -> None:
-    """Load a flax parameter tree into ``model``; BatchNorm statistics from
+    """Load a whole flax parameter tree into ``model`` (cut to this
+    process's blocks on a 'model' axis); BatchNorm statistics from
     ``batch_stats``, else the model's own."""
     if not batch_stats:
         batch_stats = host_trees(model)[1]
-    load_flax(model, params, batch_stats)
+    model.load_state_dict(local_state_dict(model, state_dict_from_flax(
+        params, batch_stats, **model.layout)))
 
 
 def check_train_mesh(tc) -> None:
     """Whether ``fit`` can run the mesh of ``train.mesh_data`` /
-    ``mesh_model`` / ``mesh_spatial`` over the process group. Raises
-    NotImplementedError for the axis not ported (``mesh_model > 1``:
-    ROADMAP A12c) and ValueError for a mesh the group cannot hold
-    (``mesh_data`` or ``mesh_spatial`` > 1 with no group included): no
-    mesh runs on one process silently."""
-    check_supported(Mesh({"data": tc.mesh_data, "model": tc.mesh_model,
-                          "spatial": tc.mesh_spatial}))
+    ``mesh_model`` / ``mesh_spatial`` over the process group: ValueError
+    for a mesh the group cannot hold (any axis > 1 with no group
+    included): no mesh runs on one process silently."""
     mesh_shape(tc.mesh_data, tc.mesh_model, tc.mesh_spatial)
 
 
@@ -337,6 +355,7 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
     torch.manual_seed(tc.seed)
     model = build_model(mc, dc.high_thresh, spatial_shards=tc.mesh_spatial,
                         device=dev)
+    attach_model_axis(model, mesh)  # this process's blocks over 'model'
     spatial = runs_on_slabs(model, mesh)  # H-slab batches
     wire_ok = _wire_format_ok(dataset, dc)
     train_loader = BatchLoader(dataset, train_idx, tc.batch_size,
@@ -434,14 +453,21 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
 
     ckpt_writer = _CkptWriter(verbose=verbose)
 
+    # blocks over 'model' or ZeRO-1 moments: every process takes part in
+    # gathering a checkpoint
+    gathered = bool(model_shardings(model) or state.opt_state.shardings)
+
     def save_ckpt(epoch, loss, is_best=False, host_state=None):
-        """Rank 0 queues the checkpoint; under ZeRO-1 every process takes
-        part in gathering the moments."""
+        """Rank 0 queues the checkpoint; every process takes part in
+        gathering blocks (``gathered``)."""
         name = "best_model" if is_best else f"ckpt_ep{epoch}"
         t0 = time.time()
-        opt_host = None
-        if host_state is None and (main or state.opt_state.shardings):
+        opt_host = trees = ema_params = None
+        if host_state is None and (main or gathered):
             opt_host = opt_state_to_host(state.model, state.opt_state)
+            trees = host_trees(state.model)
+            if state.ema is not None:
+                ema_params = host_trees(state.ema)[0]
         if not main:
             return
         if host_state is not None:
@@ -454,13 +480,13 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
             if host_state.get("ema_params") is not None:
                 payload["ema_params"] = host_state["ema_params"]
         else:
-            params, batch_stats = host_trees(state.model)
+            params, batch_stats = trees
             payload = {"epoch": epoch, "params": params,
                        "batch_stats": batch_stats,
                        "opt_state": opt_host,
                        "loss": float(loss)}
-            if state.ema is not None:
-                payload["ema_params"] = host_trees(state.ema)[0]
+            if ema_params is not None:
+                payload["ema_params"] = ema_params
         sidecar = None
         if is_best:
             sidecar = (best_sidecar, {"epoch": epoch,

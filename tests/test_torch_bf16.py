@@ -32,6 +32,7 @@ The kernels' bf16 twins are held to the Pallas kernels in interpret mode
 form): one bf16 ulp of |y|, except where a float32 sum rounds the other
 way."""
 
+import contextlib
 import copy
 
 import numpy as np
@@ -164,11 +165,11 @@ BLOCKS = ["ResConvBlock", "UnetDown", "UnetUp", "UnetUp_fused", "CoordAttn",
           "SEBlock", "LocalEnhancer"]
 
 
-@pytest.mark.parametrize("name", BLOCKS)
-def test_bf16_block_matches_jax(name):
-    """Each block at bf16 (train mode: SE's own path, not the kernel's)
-    within 0.25 g of the JAX block at bf16, in JAX's output type (float32
-    for CoordAttn, whose float32 scalars promote; bf16 elsewhere)."""
+def _block_runs(name, precast=False, train=True):
+    """(JAX at bf16, JAX at fp32, the port at bf16) for one block on the
+    same randomized weights and inputs. ``precast``: JAX's parameters
+    cast to bf16 first (its bf16 sampler's ``_precast``) and the port
+    under ``precast_params``."""
     make, jmake, fill, shapes = _block_case(name)
     torch.manual_seed(7)
     port32 = make(torch.float32)
@@ -188,23 +189,53 @@ def test_bf16_block_matches_jax(name):
         args = [jnp.asarray(a).astype(dt) for a in inputs]
         kw = {k: jnp.asarray(v) for k, v in extra.items()}
         if name not in ("LocalEnhancer",):
-            kw["train"] = True
+            kw["train"] = train
+        p = params
+        if precast and dt == jnp.bfloat16:
+            p = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), p)
         return _jit(lambda p, *a: mod.apply({"params": p}, *a, **kw),
-                    params, *args)
+                    p, *args)
 
-    j32, j16 = run_jax(jnp.float32), run_jax(jnp.bfloat16)
-    g = _gap(_f32(j16), _f32(j32))
     port = make(BF16)
     port.load_state_dict(port32.state_dict())
-    port.train()
-    with torch.no_grad():
+    port.train(train)
+    with torch.no_grad(), (tb.precast_params(port) if precast
+                           else contextlib.nullcontext()):
         kw = {k: torch.from_numpy(v) for k, v in extra.items()}
         got = port(*[_nchw(a, BF16) for a in inputs], **kw)
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    return run_jax(jnp.bfloat16), run_jax(jnp.float32), got
+
+
+@pytest.mark.parametrize("name", BLOCKS)
+def test_bf16_block_matches_jax(name):
+    """Each block at bf16 (train mode: SE's own path, not the kernel's)
+    within 0.25 g of the JAX block at bf16, in JAX's output type (float32
+    for CoordAttn, whose float32 scalars promote; bf16 elsewhere)."""
+    j16, j32, got = _block_runs(name)
+    g = _gap(_f32(j16), _f32(j32))
     want_dtype = torch.float32 if j16.dtype == jnp.float32 else BF16
     assert got.dtype == want_dtype
-    assert all(p.dtype == torch.float32 for p in port.parameters())
     err = _rel(_nhwc(got), _f32(j16))
     assert err <= BLOCK_FACTOR * g, (err, g)
+
+
+@pytest.mark.parametrize("name", ["CoordAttn", "ResConvBlock"])
+def test_bf16_precast_block_matches_jax(name):
+    """Under ``precast_params`` (what the port's bf16 ``make_sampler``
+    runs in) a block follows the JAX block whose parameters are cast to
+    bf16 first, as JAX's bf16 sampler casts them (eval mode): within
+    0.25 g, in JAX's output type (bf16: CoordAttn's bf16 scalars no longer
+    promote); the norms' affine rounded to bf16 in ResConvBlock. Without
+    the precast CoordAttn lands further from it (float32 scalars)."""
+    j16, j32, got = _block_runs(name, precast=True, train=False)
+    g = _gap(_f32(j16), _f32(j32))
+    assert j16.dtype == jnp.bfloat16 and got.dtype == BF16
+    err = _rel(_nhwc(got), _f32(j16))
+    assert err <= BLOCK_FACTOR * g, (err, g)
+    if name == "CoordAttn":
+        _, _, plain = _block_runs(name, precast=False, train=False)
+        assert _rel(_nhwc(plain), _f32(j16)) > err
 
 
 # --- the whole model --------------------------------------------------------

@@ -258,14 +258,14 @@ def _check_same_blocks(leaves, jdims, mine, sd, name_of, n) -> int:
 
 
 def test_unported_axes_and_meshes_are_refused(tmp_path):
-    """No mesh setting runs silently on one process: the 'model' axis
-    names its ROADMAP item, a data or spatial axis larger than the process
-    group (none here) is an error."""
+    """No mesh setting runs silently on one process: a data, model or
+    spatial axis larger than the process group (none here) is an
+    error."""
     from diffusionmodel_tpu_torch.trainer import fit
 
     base = {**TINY, "train.save_dir": str(tmp_path)}
-    for over, err, said in (({"train.mesh_model": 2}, NotImplementedError,
-                             "A12c"),
+    for over, err, said in (({"train.mesh_model": 2}, ValueError,
+                             "needs 2 processes"),
                             ({"train.mesh_spatial": 2}, ValueError,
                              "needs 2 processes"),
                             ({"train.mesh_data": 2}, ValueError,

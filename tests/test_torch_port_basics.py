@@ -297,14 +297,14 @@ def test_checkpoint_loader_stubs_unknown_classes(tmp_path):
         load_checkpoint(str(tmp_path / "missing"))
 
 
-# Every mode is ported, for every preset and both editing families: what
-# stays unported is the 'model' mesh axis (ROADMAP A12c), which the CLI
-# refuses before it starts; the invocations earlier
+# Every mode is ported, for every preset and both editing families, with
+# every mesh axis: a 'model' axis without a process group is refused
+# before anything starts, as the other axes are; the invocations earlier
 # slices refused (the side presets, --family main) reach their own
 # argument checks.
 _UNPORTED_ARGS = {
     "train": (["--preset", "mnist", "-o", "train.mesh_model=2"],
-              "not ported yet: ROADMAP A12c"),
+              "needs 2 processes"),
     "generate": (["--preset", "labml"], "Checkpoint path required"),
     "img2img": (["--family", "main"], "--ckpt and --orig_img required")}
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""The spatial phases of ``chip_smoke.py`` alone, on one card:
+"""The spatial and model-axis phases of ``chip_smoke.py`` alone, on one
+card:
 
     python3 tools/spatial_probe.py [--kernels] [--ranks] [--out FILE]
 
 ``--kernels`` runs ``spatial_kernels`` (the SE and CoordAttn slab forms
 against the whole-map kernels and the twins at every flagship site, fp32
 and bf16, 2 and 4 slabs, with one process's share timed); ``--ranks``
-runs ``spatial`` (two processes on the card over gloo against one).
-Both when neither is given. Every line also goes to ``--out`` (the tool
-returns only the tail of a long output)."""
+runs ``spatial`` (two processes on the card over gloo, on a data 1 x
+spatial 2 mesh and then a data 1 x model 2 mesh) and ``mesh_reference``
+(both against one process). Both when neither is given. Every line also
+goes to ``--out``, where a long output can be read whole."""
 
 import argparse
 import contextlib
@@ -51,8 +53,9 @@ def main() -> int:
         if args.ranks or both:
             here = os.path.dirname(os.path.dirname(os.path.abspath(
                 __file__)))
-            c.timed("spatial", c.phase_spatial,
+            runs = c.timed("spatial", c.phase_spatial,
                     os.path.join(here, "chiprun_out", "spatial_probe"))
+            c.timed("mesh_reference", c.phase_mesh_reference, runs)
     return 0
 
 
