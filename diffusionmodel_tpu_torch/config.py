@@ -172,8 +172,11 @@ class TrainConfig:
     # second moment stays fp32 (b2=0.999 increments underflow bf16's
     # 8-bit mantissa). Resume casts restored moments to this dtype.
     moment_dtype: str = "bfloat16"
-    # Observability (SURVEY 5.1/5.2): capture a jax.profiler trace of one
-    # early epoch into this directory; debug_nans enables jax's NaN checker
+    # Observability (SURVEY 5.1/5.2): capture a torch.profiler trace (CPU
+    # and CUDA activity) of the training steps of epoch profile_epoch into
+    # this directory (trace_ep{n}.json), with the port's spans and
+    # counters of those steps beside it on the same clock
+    # (spans_ep{n}.json); debug_nans turns on autograd's anomaly detection
     # (the reference has neither — it only prints wall-clock per epoch).
     profile_dir: str = ""
     profile_epoch: int = 1

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.config import DiffusionConfig
 from diffusionmodel_tpu_torch.schedules import ddpm_schedules
 
@@ -259,13 +260,14 @@ def sample_cfg(eps_fn: EpsFn, generator: Optional[torch.Generator],
     hist = []
     for i in (int(s) for s in steps):
         if i >= 1:
-            e = _cfg_eps(eps_fn, x, c2, mask2, i, dc.n_T, gw)
-            x_new = sched.oneover_sqrta[i] * (x - e
-                                              * sched.mab_over_sqrtmab[i])
-            if i > 1:
-                z = _step_noise(i, x, noise_fn, slot_seeds, generator)
-                x_new = x_new + sched.sqrt_beta_t[i] * z
-            x = x_new
+            with tracing.span("sample.step"):
+                e = _cfg_eps(eps_fn, x, c2, mask2, i, dc.n_T, gw)
+                x_new = sched.oneover_sqrta[i] * (
+                    x - e * sched.mab_over_sqrtmab[i])
+                if i > 1:
+                    z = _step_noise(i, x, noise_fn, slot_seeds, generator)
+                    x_new = x_new + sched.sqrt_beta_t[i] * z
+                x = x_new
         if return_history:
             hist.append(x)
     if return_history:
@@ -320,17 +322,20 @@ def _ddim_scan(eps_fn, generator, x, taus, taus_prev, c2, mask2, gw, ab, dc,
     :func:`sample_cfg_edit` passes ``blend(x, tau_prev)``, applied after
     each update (the inpaint keep-region re-projection)."""
     for tau, tau_p in zip(taus, taus_prev):
-        e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
-        a, a_prev = ab[tau], ab[tau_p]
-        x0 = (x - torch.sqrt(1.0 - a) * e) / torch.sqrt(a)
-        sigma = eta * torch.sqrt((1 - a_prev) / (1 - a) * (1 - a / a_prev))
-        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)) * e
-        x = torch.sqrt(a_prev) * x0 + dir_xt
-        if eta > 0 and tau_p > 0:
-            x = x + sigma * _step_noise(tau, x, noise_fn, slot_seeds,
-                                        generator)
-        if blend is not None:
-            x = blend(x, tau_p)
+        with tracing.span("sample.step"):
+            e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
+            a, a_prev = ab[tau], ab[tau_p]
+            x0 = (x - torch.sqrt(1.0 - a) * e) / torch.sqrt(a)
+            sigma = eta * torch.sqrt((1 - a_prev) / (1 - a)
+                                     * (1 - a / a_prev))
+            dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2,
+                                            min=0.0)) * e
+            x = torch.sqrt(a_prev) * x0 + dir_xt
+            if eta > 0 and tau_p > 0:
+                x = x + sigma * _step_noise(tau, x, noise_fn, slot_seeds,
+                                            generator)
+            if blend is not None:
+                x = blend(x, tau_p)
     return x
 
 
@@ -451,9 +456,10 @@ def sample_cfg_dpmpp(eps_fn: EpsFn, generator: Optional[torch.Generator],
         torch.from_numpy(v).to(dev) for v in terms)
     x0_prev = torch.zeros_like(x)
     for k, tau in enumerate(int(t) for t in taus):
-        e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
-        x0 = (x - si_c[k] * e) / al_c[k]
-        d = (1.0 + inv2r[k]) * x0 - inv2r[k] * x0_prev
-        x = ratio[k] * x - al_n[k] * em1[k] * d
-        x0_prev = x0
+        with tracing.span("sample.step"):
+            e = _cfg_eps(eps_fn, x, c2, mask2, tau, dc.n_T, gw)
+            x0 = (x - si_c[k] * e) / al_c[k]
+            d = (1.0 + inv2r[k]) * x0 - inv2r[k] * x0_prev
+            x = ratio[k] * x - al_n[k] * em1[k] * d
+            x0_prev = x0
     return x

@@ -11,6 +11,8 @@ Sources live in ``csrc/`` and are built by ``_build`` at first use.
 
 import torch
 
+from diffusionmodel_tpu_torch import tracing
+
 
 def per_sample_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` for a: [B, ..., K], w: [K, N], one product per sample.
@@ -39,8 +41,10 @@ def per_sample_conv(conv, x: torch.Tensor) -> torch.Tensor:
     NVIDIA H100 at 700 W (``tools/bf16_batch_invariance_probe.py``, two
     runs; ``chip_smoke.py``'s ``forward_bf16`` checks the invariance).
     float32 convolutions were invariant already, and training keeps one
-    call for the batch."""
+    call for the batch. With ``tracing`` on, a call that splits adds its
+    batch size to the counter ``conv.per_sample_calls``."""
     if x.dtype == torch.float32 or torch.is_grad_enabled() \
             or x.shape[0] == 1:
         return conv(x)
+    tracing.count("conv.per_sample_calls", x.shape[0])
     return torch.cat([conv(s) for s in x.split(1)])

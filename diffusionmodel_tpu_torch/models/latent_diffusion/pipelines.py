@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.models.latent_diffusion.samplers import (
     DDIMSampler,
     DDPMSampler,
@@ -45,7 +46,8 @@ def _as(x, model):
 
 
 class Txt2Img:
-    """cond/uncond -> sampler -> VAE decode."""
+    """cond/uncond -> sampler -> VAE decode (with ``tracing`` on, the spans
+    ``ldm.sample``, with a ``sample.step`` a step, and ``ldm.decode``)."""
 
     def __init__(self, model, sampler: str = "ddim", n_steps: int = 50,
                  ddim_eta: float = 0.0):
@@ -69,11 +71,13 @@ class Txt2Img:
             kw["skip_steps"] = skip_steps
         if noise_fn is not None:
             kw["noise_fn"] = noise_fn
-        x = self.sampler.sample((batch_size, h // 8, w // 8, 4), cond,
-                                generator=generator, x_last=x_last,
-                                uncond_scale=uncond_scale,
-                                uncond_cond=uncond, **kw)
-        return self.model.autoencoder_decode(x)
+        with tracing.span("ldm.sample"):
+            x = self.sampler.sample((batch_size, h // 8, w // 8, 4), cond,
+                                    generator=generator, x_last=x_last,
+                                    uncond_scale=uncond_scale,
+                                    uncond_cond=uncond, **kw)
+        with tracing.span("ldm.decode", images=batch_size):
+            return self.model.autoencoder_decode(x)
 
 
 class Img2Img:

@@ -26,6 +26,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.checkpoint import _unpickle
 from diffusionmodel_tpu_torch.compat.flax_bridge import (
     autoencoder_state_dict_from_flax,
@@ -158,11 +159,12 @@ class LdmRunner:
             print(msg)
 
     def cond(self, prompts) -> torch.Tensor:
-        if self.embedder is not None:
-            return self.embedder(list(prompts)).to(self.device,
-                                                   torch.float32)
-        return torch.from_numpy(_hash_embedding(list(prompts), self.d_cond)
-                                ).to(self.device)
+        with tracing.span("ldm.cond"):
+            if self.embedder is not None:
+                return self.embedder(list(prompts)).to(self.device,
+                                                       torch.float32)
+            return torch.from_numpy(_hash_embedding(
+                list(prompts), self.d_cond)).to(self.device)
 
     def _generator(self, generator):
         if generator is not None:
@@ -171,17 +173,21 @@ class LdmRunner:
 
     @staticmethod
     def _out(x: torch.Tensor) -> np.ndarray:
-        return x.float().cpu().numpy()
+        with tracing.span("ldm.out"):
+            return x.float().cpu().numpy()
 
     def txt2img(self, prompt: str, batch_size: int = 1, h: int = 512,
                 w: int = 512, uncond_scale: float = 7.5,
                 generator: Optional[torch.Generator] = None,
                 skip_steps: int = 0) -> np.ndarray:
         """prompt -> [B, h, w, 3] images in about [-1, 1]. ``skip_steps``
-        (DDIM, DDPM) runs only the last steps of the schedule."""
+        (DDIM, DDPM) runs only the last steps of the schedule. With
+        ``tracing`` on, the call records ``ldm.txt2img`` around
+        ``ldm.cond`` (twice), the pipeline's spans and ``ldm.out``."""
         pipe = Txt2Img(self.model, sampler=self.sampler_name,
                        n_steps=self.steps, ddim_eta=self.ddim_eta)
-        with fp32_compute(self.device, autotune=False):
+        with tracing.span("ldm.txt2img", images=batch_size), \
+                fp32_compute(self.device, autotune=False):
             return self._out(pipe(
                 self.cond([prompt] * batch_size), batch_size=batch_size,
                 h=h, w=w, uncond_scale=uncond_scale,

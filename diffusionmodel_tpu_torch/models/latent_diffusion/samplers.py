@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.diffusion import dpmpp_terms
 
 NoiseFn = Callable[[int], object]
@@ -101,15 +102,17 @@ class DDIMSampler:
 
     def _step(self, x, index, cond, uncond_scale, uncond_cond, temperature,
               generator, noise_fn, repeat_noise=False):
-        t = _steps(x.shape[0], self.time_steps[index], x.device)
-        eps = cfg_eps(self.model.eps_fn, x, t, cond, uncond_cond,
-                      uncond_scale)
-        noise = None
-        if self.sigma[index] > 0:
-            shape = (1,) + tuple(x.shape[1:]) if repeat_noise else x.shape
-            noise = _noise(noise_fn, index, shape, generator, x.device)
-        return self.get_x_prev_and_pred_x0(eps, index, x, temperature,
-                                           noise)[0]
+        with tracing.span("sample.step"):
+            t = _steps(x.shape[0], self.time_steps[index], x.device)
+            eps = cfg_eps(self.model.eps_fn, x, t, cond, uncond_cond,
+                          uncond_scale)
+            noise = None
+            if self.sigma[index] > 0:
+                shape = ((1,) + tuple(x.shape[1:]) if repeat_noise
+                         else x.shape)
+                noise = _noise(noise_fn, index, shape, generator, x.device)
+            return self.get_x_prev_and_pred_x0(eps, index, x, temperature,
+                                               noise)[0]
 
     @torch.inference_mode()
     def sample(self, shape, cond, generator=None, repeat_noise: bool = False,
@@ -170,14 +173,15 @@ class DPMPPSampler:
         x = _start(x_last, shape, generator, cond.device)
         x0_prev = torch.zeros_like(x)
         for k, tau in enumerate(self.time_steps):
-            ac, sc, an, rt, e1m, i2r = (float(v[k]) for v in self.terms)
-            eps = cfg_eps(self.model.eps_fn, x, _steps(x.shape[0], tau,
-                                                       x.device),
-                          cond, uncond_cond, uncond_scale)
-            x0 = (x - sc * eps) / ac
-            d = (1.0 + i2r) * x0 - i2r * x0_prev
-            x = rt * x - (an * e1m) * d
-            x0_prev = x0
+            with tracing.span("sample.step"):
+                ac, sc, an, rt, e1m, i2r = (float(v[k]) for v in self.terms)
+                eps = cfg_eps(self.model.eps_fn, x,
+                              _steps(x.shape[0], tau, x.device),
+                              cond, uncond_cond, uncond_scale)
+                x0 = (x - sc * eps) / ac
+                d = (1.0 + i2r) * x0 - i2r * x0_prev
+                x = rt * x - (an * e1m) * d
+                x0_prev = x0
         return x
 
 
@@ -207,14 +211,15 @@ class DDPMSampler:
                skip_steps: int = 0, noise_fn: Optional[NoiseFn] = None):
         x = _start(x_last, shape, generator, cond.device)
         for t in range(self.n_steps - 1 - skip_steps, -1, -1):
-            eps = cfg_eps(self.model.eps_fn, x, _steps(x.shape[0], t,
-                                                       x.device),
-                          cond, uncond_cond, uncond_scale)
-            x0 = float(self.sqrt_recip_ab[t]) * x \
-                - float(self.sqrt_recip_m1_ab[t]) * eps
-            x = float(self.mean_x0_coef[t]) * x0 \
-                + float(self.mean_xt_coef[t]) * x
-            if t > 0:
-                z = _noise(noise_fn, t, x.shape, generator, x.device)
-                x = x + float(self.std[t]) * (z * temperature)
+            with tracing.span("sample.step"):
+                eps = cfg_eps(self.model.eps_fn, x,
+                              _steps(x.shape[0], t, x.device),
+                              cond, uncond_cond, uncond_scale)
+                x0 = float(self.sqrt_recip_ab[t]) * x \
+                    - float(self.sqrt_recip_m1_ab[t]) * eps
+                x = float(self.mean_x0_coef[t]) * x0 \
+                    + float(self.mean_xt_coef[t]) * x
+                if t > 0:
+                    z = _noise(noise_fn, t, x.shape, generator, x.device)
+                    x = x + float(self.std[t]) * (z * temperature)
         return x

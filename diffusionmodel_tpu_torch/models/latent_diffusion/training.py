@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.compat.flax_bridge import (
     autoencoder_flax_from_state_dict,
     ldm_unet_flax_from_state_dict,
@@ -124,6 +125,11 @@ def make_ldm_train_step(unet: nn.Module, opt: torch.optim.Optimizer,
 
     def step(batch, cond, uncond_cond=None, generator=None, *, z_noise=None,
              t=None, eps=None, drop=None) -> torch.Tensor:
+        with tracing.span("train.step"):
+            return _step(batch, cond, uncond_cond, generator, z_noise, t,
+                         eps, drop)
+
+    def _step(batch, cond, uncond_cond, generator, z_noise, t, eps, drop):
         with torch.no_grad():
             if ae is not None:
                 z0 = latent_scaling * ae.encode(batch).sample(generator,
@@ -137,11 +143,13 @@ def make_ldm_train_step(unet: nn.Module, opt: torch.optim.Optimizer,
             else:
                 z0 = batch
         opt.zero_grad(set_to_none=True)
-        loss = ldm_loss(unet_apply, z0, cond, sched, uncond_cond,
-                        uncond_prob, t=t, eps=eps, drop=drop,
-                        generator=generator)
-        loss.backward()
-        opt.step()
+        with tracing.span("train.fwd_bwd"):
+            loss = ldm_loss(unet_apply, z0, cond, sched, uncond_cond,
+                            uncond_prob, t=t, eps=eps, drop=drop,
+                            generator=generator)
+            loss.backward()
+        with tracing.span("train.optimizer"):
+            opt.step()
         return loss.detach()
 
     return step

@@ -55,6 +55,7 @@ search is per process and may pick another).
 
 from __future__ import annotations
 
+import itertools
 import operator
 import queue
 import threading
@@ -67,6 +68,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.device_check import fp32_compute
 from diffusionmodel_tpu_torch.diffusion import (
@@ -87,6 +89,7 @@ class _Request:
     classes: np.ndarray
     guide_w: float
     seed: Optional[int]
+    queued: Optional[object] = None  # its open ``serve.queue`` span
     future: Future = field(default_factory=Future)
 
 
@@ -166,6 +169,13 @@ class SamplerService:
         self._closed = False
         # observability: written by the worker thread only; read from
         # /healthz and tests. slot_occupancy = slots used / dispatched.
+        # With ``tracing`` on, each request's ``serve.queue`` span runs
+        # from submit to the start of its batch's run, and each batch
+        # records ``serve.idle`` (the wait for its head), ``serve.collect``,
+        # ``serve.pack``, ``serve.run`` and ``serve.unpack``, all with the
+        # batch's id.
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self.stats = {
             "requests": 0, "batches": 0,
             "slots_used": 0, "slots_dispatched": 0,
@@ -211,7 +221,8 @@ class SamplerService:
         if not self._main:
             raise RuntimeError("submit goes to rank 0 of the service's "
                                "group; this process follows it")
-        req = _Request(classes, float(guide_w), seed)
+        req = _Request(classes, float(guide_w), seed, tracing.begin(
+            "serve.queue", request=next(self._request_ids)))
         self._q.put(req)
         return req.future
 
@@ -373,38 +384,52 @@ class SamplerService:
     def _serve_loop(self) -> None:
         pending: Optional[_Request] = None  # held batch head (FIFO)
         while True:
-            req, pending = (pending, None) if pending is not None \
-                else (self._q.get(), None)
+            bid = next(self._batch_ids)
+            if pending is not None:
+                req, pending = pending, None
+            else:
+                with tracing.span("serve.idle", batch=bid):
+                    req = self._q.get()
             if req is None:
                 if self.mesh is not None:
                     self._exchange(None)  # the followers stop
                 break
-            batch, slots, pending = self._collect(req)
+            with tracing.span("serve.collect", batch=bid):
+                batch, slots, pending = self._collect(req)
             try:
-                packed = self._pack(batch)
-                t_run = time.monotonic()
-                if self.mesh is not None:
-                    imgs = self._run_block(*self._exchange(packed))
-                else:
-                    flat, gw, x_init, slot_seeds = packed
-                    imgs = self._run_block(
-                        torch.from_numpy(flat).to(self.device),
-                        torch.from_numpy(gw).to(self.device),
-                        torch.from_numpy(x_init).to(self.device),
-                        slot_seeds)
-                imgs = imgs.cpu().numpy()
+                with tracing.span("serve.pack", batch=bid):
+                    packed = self._pack(batch)
+                # one pair of clock reads times the run for the stats and
+                # for its span
+                t_run = tracing.now()
+                for r in batch:
+                    tracing.end(r.queued, t_run, batch=bid)
+                with tracing.span_from(t_run, "serve.run", batch=bid) as run:
+                    if self.mesh is not None:
+                        imgs = self._run_block(*self._exchange(packed))
+                    else:
+                        flat, gw, x_init, slot_seeds = packed
+                        imgs = self._run_block(
+                            torch.from_numpy(flat).to(self.device),
+                            torch.from_numpy(gw).to(self.device),
+                            torch.from_numpy(x_init).to(self.device),
+                            slot_seeds)
+                    imgs = imgs.cpu().numpy()
+                    t_end = tracing.now()
+                    run.close(t_end)
                 st = self.stats
-                st["busy_seconds"] += time.monotonic() - t_run
+                st["busy_seconds"] += (t_end - t_run) / 1e9
                 st["batches"] += 1
                 st["requests"] += len(batch)
                 st["slots_used"] += slots  # == images generated
                 st["slots_dispatched"] += self.max_batch
                 if any(r.seed is not None for r in batch):
                     st["pinned_batches"] += 1
-                off = 0
-                for r in batch:
-                    r.future.set_result(imgs[off:off + len(r.classes)])
-                    off += len(r.classes)
+                with tracing.span("serve.unpack", batch=bid):
+                    off = 0
+                    for r in batch:
+                        r.future.set_result(imgs[off:off + len(r.classes)])
+                        off += len(r.classes)
             except Exception as e:  # the worker outlives a failed batch
                 for r in batch:
                     if not r.future.done():

@@ -53,6 +53,12 @@ early stopping (counterpart of ``diffusionmodel_tpu/train.py``).
 
 PyTorch updates the model and the optimizer state in place, so a step
 returns only its loss (a float32 scalar tensor on the device).
+
+With ``tracing`` on, a step records ``train.step``; per micro-batch
+``train.feed`` (the copy to the device and the wire decode),
+``train.fwd_bwd`` and ``train.accum``; then ``train.optimizer`` (the clip
+and the update, with ``train.reduce`` inside it on a mesh) and
+``train.ema``.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.compat.flax_bridge import flax_from_state_dict
 from diffusionmodel_tpu_torch.config import Config
 from diffusionmodel_tpu_torch.diffusion import Schedule, loss_draws, train_loss
@@ -531,8 +538,6 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
     hold alike are averaged over 'model' too (:func:`_model_mean_`). The
     clip takes the global norm (:func:`_clip_norm`). Returns the global
     mean loss."""
-    loss = loss.reshape(1).clone()
-    _spatial_mean_(mesh, grads + [loss])
     group, n = mesh.group("data"), mesh.shape["data"]
     params = state.params
     cut = model_shardings(state.model)
@@ -541,33 +546,36 @@ def _reduce_and_update_(opt: Optimizer, state: TrainState, mesh: Mesh,
     part = [i for i, sh in enumerate(shardings)
             if sh is not None and not sh.is_replicated]
     rep = sorted(set(range(len(params))) - set(part))
-
-    flat = torch.cat([grads[i].reshape(-1) for i in rep] + [loss.reshape(1)])
-    dist.all_reduce(flat, group=group)
-    flat.div_(n)
-    for i, seg in zip(rep, flat[:-1].split([grads[i].numel() for i in rep])):
-        grads[i].copy_(seg.view(grads[i].shape))
-    loss = flat[-1]
-
-    norm = None
     upd = list(params)
-    if part:
-        dims = {i: shardings[i].dims[0][0] for i in part}
-        rows = torch.cat([grads[i].movedim(dims[i], 0).reshape(n, -1)
-                          for i in part], dim=1)
-        blocks = torch.empty(rows.shape[1], dtype=rows.dtype,
-                             device=rows.device)
-        dist.reduce_scatter_tensor(blocks, rows.reshape(-1), group=group)
-        del rows
-        blocks.div_(n)
-        sizes = [params[i].numel() // n for i in part]
-        for i, seg in zip(part, blocks.split(sizes)):
-            moved = params[i].movedim(dims[i], 0).shape
-            grads[i] = seg.view(moved[0] // n, *moved[1:]).movedim(
-                0, dims[i])
-            upd[i] = shardings[i].local(params[i])
-    if any(on_model):
-        loss = _model_mean_(mesh, grads, on_model, loss)
+    with tracing.span("train.reduce"):
+        loss = loss.reshape(1).clone()
+        _spatial_mean_(mesh, grads + [loss])
+        flat = torch.cat([grads[i].reshape(-1) for i in rep]
+                         + [loss.reshape(1)])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        for i, seg in zip(rep, flat[:-1].split([grads[i].numel()
+                                                for i in rep])):
+            grads[i].copy_(seg.view(grads[i].shape))
+        loss = flat[-1]
+        if part:
+            dims = {i: shardings[i].dims[0][0] for i in part}
+            rows = torch.cat([grads[i].movedim(dims[i], 0).reshape(n, -1)
+                              for i in part], dim=1)
+            blocks = torch.empty(rows.shape[1], dtype=rows.dtype,
+                                 device=rows.device)
+            dist.reduce_scatter_tensor(blocks, rows.reshape(-1), group=group)
+            del rows
+            blocks.div_(n)
+            sizes = [params[i].numel() // n for i in part]
+            for i, seg in zip(part, blocks.split(sizes)):
+                moved = params[i].movedim(dims[i], 0).shape
+                grads[i] = seg.view(moved[0] // n, *moved[1:]).movedim(
+                    0, dims[i])
+                upd[i] = shardings[i].local(params[i])
+        if any(on_model):
+            loss = _model_mean_(mesh, grads, on_model, loss)
+    norm = None
     if opt.grad_clip > 0 and (part or any(on_model)):
         norm = _clip_norm(mesh, grads, part, on_model)
     apply_updates_(opt, state.opt_state, upd, grads, norm)
@@ -611,6 +619,10 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
 
     def step(state: TrainState, batch: Dict, generator=None,
              draws: Optional[Sequence[Dict]] = None) -> torch.Tensor:
+        with tracing.span("train.step"):
+            return _step(state, batch, generator, draws)
+
+    def _step(state, batch, generator, draws) -> torch.Tensor:
         params = state.params
         dev = params[0].device
         a = int(batch["x"].shape[0])
@@ -628,26 +640,29 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
         model.train()
         try:
             for i in range(a):
-                x, mask = decode_wire(
-                    _to(batch["x"][i], dev),
-                    _to(masks[i], dev) if masks is not None else None,
-                    dc, normalize_u8)
-                c = _to(batch["c"][i], dev).long()
+                with tracing.span("train.feed"):
+                    x, mask = decode_wire(
+                        _to(batch["x"][i], dev),
+                        _to(masks[i], dev) if masks is not None else None,
+                        dc, normalize_u8)
+                    c = _to(batch["c"][i], dev).long()
                 slab = is_slab(sp, x.movedim(3, 1))  # NHWC -> NCHW view
-                with global_batch_stats(model, bn_group):
+                with tracing.span("train.fwd_bwd"), \
+                        global_batch_stats(model, bn_group):
                     loss = train_loss(net, x, c, mask, sched, dc,
                                       generator=generator,
                                       **_local_draws(mesh, dc, x, generator,
                                                      draws[i] if draws
                                                      else None, slab))
                     loss.backward()
-                loss_sum = loss_sum + loss.detach()
-                if acc is not None:
-                    with torch.no_grad():
-                        for s, p in zip(acc, params):
-                            if p.grad is not None:
-                                s.add_(p.grad.to(acc_dtype))
-                            p.grad = None
+                with tracing.span("train.accum"):
+                    loss_sum = loss_sum + loss.detach()
+                    if acc is not None:
+                        with torch.no_grad():
+                            for s, p in zip(acc, params):
+                                if p.grad is not None:
+                                    s.add_(p.grad.to(acc_dtype))
+                                p.grad = None
         finally:
             model.eval()
         if acc is None:
@@ -660,12 +675,14 @@ def make_train_step(model: nn.Module, sched: Schedule, cfg: Config,
             p.grad = None
         torch._foreach_div_(grads, float(a))
         loss = loss_sum / a
-        if mesh is None:
-            apply_updates_(opt, state.opt_state, params, grads)
-        else:
-            loss = _reduce_and_update_(opt, state, mesh, grads, loss)
+        with tracing.span("train.optimizer"):
+            if mesh is None:
+                apply_updates_(opt, state.opt_state, params, grads)
+            else:
+                loss = _reduce_and_update_(opt, state, mesh, grads, loss)
         if state.ema is not None:
-            update_ema_(state, tc.ema_decay)
+            with tracing.span("train.ema"):
+                update_ema_(state, tc.ema_decay)
         state.step += 1
         return loss
 

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.checkpoint import (
     extract_params,
     load_checkpoint,
@@ -512,6 +513,8 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                     acts = [ProfilerActivity.CPU] + (
                         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
                     prof = profile(activities=acts)
+                    tracing.drain()  # spans from before the epoch
+                    tracing.enable()
                     prof.start()
                 losses = []
                 nsteps = 0
@@ -522,9 +525,12 @@ def fit(cfg: Config, dataset=None, metrics_impl=None, verbose: bool = True,
                 losses = [float(l) for l in losses]  # sync once per epoch
                 if prof is not None:
                     prof.stop()
+                    tracing.disable()
                     os.makedirs(tc.profile_dir, exist_ok=True)
                     trace = os.path.join(tc.profile_dir, f"trace_ep{ep}.json")
                     prof.export_chrome_trace(trace)
+                    tracing.write_json(os.path.join(tc.profile_dir,
+                                                    f"spans_ep{ep}.json"))
                     if verbose:
                         print(f"Saved profiler trace to {trace}")
                 steps_per_sec = nsteps / max(time.time() - t_steps, 1e-9)
