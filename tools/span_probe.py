@@ -14,6 +14,9 @@ result line; to standard error, the share of the sub-window's busy time
 attributed to program spans, the device seconds by span, and the spans
 that lie wholly in the sub-window.
 
+``--gc`` (with ``run``) also times Python's garbage collections and
+names, for each of the ten longest idle gaps, those that overlap it.
+
 ``cost``: one set-up and warm-up, then ``2K`` windows of ``--seconds`` in
 turns with the recorder off and on (off, on, on, off, ...), the profiler
 off and no check; one JSON line a window with its end-to-end metrics.
@@ -22,8 +25,10 @@ off and no check; one JSON line a window with its end-to-end metrics.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,6 +77,7 @@ def _report(read):
                 "span_s": dict(top),
                 "whole": t["whole"],
                 "counters": t["program"]["counters"],
+                "gc_gaps": t.get("gc_gaps"), "gc_ms": t.get("gc_ms"),
                 "host_s": {k: [len(v), sum(v)] for k, v in
                            t["program"]["durations"].items()}}),
                 file=sys.stderr)
@@ -79,10 +85,44 @@ def _report(read):
     return read_metrics
 
 
+def _with_gc_pauses(reduce):
+    """``reduce_with_spans`` that also names, for each of the ten longest
+    idle gaps, the garbage collections (generation, ms) that overlap it."""
+    pauses = []
+    t0 = [0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.time_ns()
+        else:
+            pauses.append((t0[0], time.time_ns(), info["generation"]))
+
+    gc.callbacks.append(on_gc)
+
+    def reduce_with_spans(events, spans_, counts0, counts1):
+        from bench_gpu import spans, trace
+
+        red = reduce(events, spans_, counts0, counts1)
+        plain = [e[:4] for e in events]
+        start, stop = trace.edges(plain)
+        red["gc_gaps"] = [
+            [g / 1e6, [[gen, (e - s) / 1e6] for s, e, gen in pauses
+                       if s < g1 and e > g0]]
+            for g, g0, g1 in spans.gap_intervals(plain, start, stop)]
+        inside = [(e - s) / 1e6 for s, e, _ in pauses
+                  if start <= s and e <= stop]
+        red["gc_ms"] = {"n": len(inside), "total": sum(inside),
+                        "max": max(inside, default=0.0)}
+        return red
+    return reduce_with_spans
+
+
 def run(args) -> int:
     from bench_gpu import run as bench_run, spans, trace
 
     trace.Tracer = spans.SpanTracer
+    if args.gc:
+        spans.reduce_with_spans = _with_gc_pauses(spans.reduce_with_spans)
     harness.load_spec = _with_pending(harness.load_spec)
     harness.read_metrics = _report(harness.read_metrics)
     return bench_run.main(["--workload", args.workload, "--seed",
@@ -122,6 +162,9 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, default=51.0)
     p.add_argument("--pairs", type=int, default=3)
+    p.add_argument("--gc", action="store_true",
+                   help="run: time Python's garbage collections and name "
+                        "those that overlap the longest idle gaps")
     args = p.parse_args(argv)
     return run(args) if args.mode == "run" else cost(args)
 
