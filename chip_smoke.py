@@ -168,9 +168,19 @@ kernels_bf16 (after kernels)  the bf16 forms of the SE and CoordAttn
             kernel and twin ms, the bytes bound and its share (SE as in
             ``kernels``, and no byte of x re-read); float16 and C % 8 != 0
             refused.
+group_norm (after kernels_bf16)  the GroupNorm + activation kernel at
+            each of the 13 (H, C, activation) sites of a bf16 flagship
+            sampling forward (36 calls) at batch 16 against its twin: the
+            normalised output within one bf16 ulp (2**-16 near 0) and
+            identical on >= 99% of elements, the activation bit for bit the
+            twin's bf16 activation of it; kernel ms over rotating copies of
+            x of >= 200 MB, twin ms, the bound of x read once and out
+            written once at 3.35 TB/s and the kernel's share of it; the
+            per-forward sums weight each site by its calls.
 forward_bf16 (after serve)  one set of weights at fp32 and bf16, fused
             upsample off and on, batch 16: forward ms, 5 SE / 4 CoordAttn
-            launches per forward, bf16-vs-fp32 and fused-vs-unfused
+            launches per forward (and 36 GroupNorm + activation launches
+            in bf16, none in fp32), bf16-vs-fp32 and fused-vs-unfused
             relative L2 (fused at fp32 <= 1e-5), each bf16 output unmoved
             when the batch is rolled.
 serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-5 at max_batch 8
@@ -179,7 +189,8 @@ serve_bf16 (after forward_bf16)  ``SamplerService`` DDIM-5 at max_batch 8
             pinned request bit-identical; then a DPM++-20 service
             (``--sampler dpmpp``), a pinned request alone and batched with
             another, bit-identical; every forward of both with TF32 off,
-            finite images, images/s, launches per forward.
+            finite images, images/s, launches per forward (SE, CoordAttn
+            and GroupNorm + activation, zeroed before).
 train_bf16 (last)  ``trainer.fit`` with the README's training settings
             (bf16, fused upsample) and the train phase's others, one
             epoch: finite losses, launches per forward by mode, fp32
@@ -360,6 +371,16 @@ GRAD_RTOL = 1e-4  # relative L2 of a whole UNet gradient, kernels vs plain
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 2, 2
 # (H, C) of each site in one flagship forward, in forward order.
 SE_SITES = [(256, 192), (256, 192), (128, 384), (64, 768), (32, 1536)]
+# (H, C, activation, calls) of each GroupNorm site in one bf16 sampling
+# forward (36 calls, 8 groups each): the stem, the down stages' compress,
+# downsample-conv and ResConvBlock norms, up0, the up stages' ResConvBlocks
+# and the head.
+GN_SITES = [(256, 192, "gelu", 9), (256, 192, "relu", 1), (256, 48, "gelu", 1),
+            (128, 48, "gelu", 1), (128, 384, "gelu", 3), (64, 96, "gelu", 1),
+            (64, 768, "gelu", 3), (32, 192, "gelu", 1),
+            (32, 1536, "gelu", 3), (16, 1536, "relu", 1),
+            (32, 768, "gelu", 4), (64, 384, "gelu", 4),
+            (128, 192, "gelu", 4)]
 CA_SITES = [(128, 192), (64, 384), (32, 768), (16, 1536)]
 CA_KERNELS_PER_CALL = 3  # ca_pool, ca_bottleneck, ca_apply
 SE_KERNELS_PER_CALL = 1  # se_fused: one cooperative launch
@@ -556,7 +577,7 @@ def phase_build() -> None:
     regs, spills = {}, {}
     for r in report.values():  # ptxas -v: registers and spills per kernel
         for chunk in r["log"].split("Function properties for ")[1:]:
-            fn = re.search(r"((?:se|ca)_[a-z_]+)(?:I(f|13__nv_bfloat16)"
+            fn = re.search(r"((?:se|ca|gn)_[a-z_]+)(?:I(f|13__nv_bfloat16)?"
                            r"(?:Li(\d+)E)?E)?(?=E)", chunk)
             flash = re.search(_FLASH_MANGLED, chunk)
             used = re.search(r"Used (\d+) registers", chunk)
@@ -564,7 +585,7 @@ def phase_build() -> None:
             if flash and used:
                 regs[_flash_name(flash)] = int(used.group(1))
                 spills[_flash_name(flash)] = int(spill.group(1)) if spill else 0
-            elif fn and used:  # e.g. ca_pool<bf16, 4>, se_apply<fp32>
+            elif fn and used:  # e.g. ca_pool<bf16, 4>, se_apply<fp32>, gn_act<1>
                 args = [{"f": "fp32"}.get(fn.group(2), "bf16")] \
                     if fn.group(2) else []
                 args += [fn.group(3)] if fn.group(3) else []
@@ -1572,6 +1593,7 @@ FLAGSHIP_PER_CLASS = 5  # 25 in-memory images: 20 train, 5 val
 # one epoch: the whole run must fit its time limit on a slower host too
 FLAGSHIP_EPOCHS = 1
 SE_PER_FORWARD, CA_PER_FORWARD = len(SE_SITES), len(CA_SITES)
+GN_PER_FORWARD = sum(calls for *_, calls in GN_SITES)  # bf16 inference
 
 
 def _synthetic_crack_dataset(img_size: int, mask_values):
@@ -2147,6 +2169,85 @@ def phase_kernels_bf16(counts: dict) -> dict:
     return rows
 
 
+def _bf16_ulps(got, want) -> torch.Tensor:
+    """|got - want| in bf16 ulps (bit patterns in the order of values)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits & 0x7FFF)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def gn_site_row(h: int, c: int, act: str, iters: int = 20) -> dict:
+    """The GroupNorm + activation kernel at one site at batch 16 (bf16 x
+    with a mean and a scale per channel, a random affine, 8 groups)
+    against its twin: the normalised output's largest ulp difference (and
+    how many differ by more than one ulp and more than 2**-16), the share
+    of identical outputs, whether the activation is the twin's bf16
+    activation of the kernel's normalised output bit for bit; the kernel's
+    ms over rotating copies of x, the twin's ms, the bound of x read once
+    and out written once, and the kernel's share of it."""
+    from diffusionmodel_tpu_torch.kernels.group_norm import (
+        activation,
+        group_norm_act,
+        group_norm_act_plain,
+        launch_plan,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(h + c)
+    scale = 0.5 + 1.5 * torch.rand(c, generator=g, device="cuda")
+    shift = 2 * torch.rand(c, generator=g, device="cuda") - 1
+    x = (torch.randn((BATCH, h, h, c), generator=g, device="cuda") * scale
+         + shift).bfloat16()
+    w = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    b = 0.2 * torch.randn(c, generator=g, device="cuda")
+    y = group_norm_act(x, w, b, 8)
+    want = group_norm_act_plain(x, w, b, 8)
+    ulps = _bf16_ulps(y, want)
+    far = (ulps > 1) & ((y.float() - want.float()).abs() > 2.0 ** -16)
+    got = group_norm_act(x, w, b, 8, 1e-5, act)
+    row = dict(shape=list(x.shape), act=act, max_ulps=int(ulps.max()),
+               over_one_ulp=int(far.sum()),
+               same_share=(got == group_norm_act_plain(
+                   x, w, b, 8, 1e-5, act)).float().mean().item(),
+               act_exact=bool(torch.equal(got, activation(y, act))),
+               rerun_identical=bool(torch.equal(
+                   group_norm_act(x, w, b, 8, 1e-5, act), got)))
+    del y, want, ulps, far, got
+    ms, copies = rotating_ms(lambda a: group_norm_act(a, w, b, 8, 1e-5, act),
+                             x, iters)
+    nbytes = 2 * x.numel() * x.element_size()
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plan = launch_plan(*x.shape, 8)
+    row.update(ms=ms, copies=copies, bound_ms=b_ms, bound_share=b_ms / ms,
+               plain_ms=cuda_ms(lambda: group_norm_act_plain(
+                   x, w, b, 8, 1e-5, act), 5),
+               parts=plan.parts, part_pixels=plan.part_pixels,
+               threads=plan.threads)
+    return row
+
+
+def phase_group_norm() -> dict:
+    """The GroupNorm + activation kernel at every GroupNorm site of a bf16
+    flagship sampling forward at batch 16 (``GN_SITES``) against its twin,
+    and the per-forward sums (each site times its calls)."""
+    rows = []
+    with torch.no_grad():
+        for h, c, act, calls in GN_SITES:
+            row = gn_site_row(h, c, act)
+            row["calls"] = calls
+            rows.append(row)
+            emit("group_norm", **row)
+            check(row["over_one_ulp"] == 0 and row["same_share"] >= 0.99
+                  and row["act_exact"] and row["rerun_identical"],
+                  f"group_norm {row['shape']} {act}: {row}")
+            torch.cuda.empty_cache()
+    total = {k: sum(r[k] * r["calls"] for r in rows)
+             for k in ("ms", "bound_ms", "plain_ms")}
+    emit("group_norm", per_forward=total, calls=sum(r["calls"] for r in rows),
+         bound_share=total["bound_ms"] / total["ms"])
+    return {"rows": rows, **total}
+
+
 def _flagship_bf16_cfg(**over):
     from diffusionmodel_tpu_torch.config import preset
 
@@ -2158,8 +2259,9 @@ def phase_forward_bf16(counters) -> None:
     """``preset("full")`` at full width and depth with ``use_pallas``, one
     set of weights (torch seed 0, as ``phase_forward``) at fp32 and at
     bf16, fused upsample off and on, batch 16: forward ms (host clock
-    around a synchronised call, best of 3 after a first one), SE and
-    CoordAttn launches per forward (5 and 4 in bf16 too), the relative L2
+    around a synchronised call, best of 3 after a first one), SE,
+    CoordAttn and GroupNorm + activation launches per forward (``counters``
+    in that order: 5, 4, and 36 in bf16 or none in fp32), the relative L2
     of bf16 against fp32 and of fused against unfused (fp32 within 1e-5;
     bf16 printed), and each bf16 output unmoved when the batch is rolled
     by 3 slots."""
@@ -2207,7 +2309,8 @@ def phase_forward_bf16(counters) -> None:
             check(bool(torch.isfinite(y.float()).all())
                   and tuple(y.shape) == (BATCH, 256, 256, 3),
                   f"{key} forward output")
-            check(launched == [SE_PER_FORWARD, CA_PER_FORWARD],
+            check(launched == [SE_PER_FORWARD, CA_PER_FORWARD,
+                               GN_PER_FORWARD if dt == "bfloat16" else 0],
                   f"{key}: launches per forward {launched}")
             check(y.dtype == (torch.bfloat16 if dt == "bfloat16"
                               else torch.float32), f"{key}: {y.dtype}")
@@ -2239,7 +2342,8 @@ def phase_serve_bf16(counters, env) -> list:
     bit-identical; then a DPM++-20 service (``--sampler dpmpp``), a pinned
     request alone and batched with another, bit-identical; every
     denoiser forward of both services seen with TF32 off; latencies and
-    images/s."""
+    images/s; the SE, CoordAttn and GroupNorm + activation launches
+    (``counters`` in that order), one set a forward."""
     from diffusionmodel_tpu_torch.diffusion import Schedule
     from diffusionmodel_tpu_torch.nn import build_model
     from diffusionmodel_tpu_torch.serving import SamplerService
@@ -2301,7 +2405,7 @@ def phase_serve_bf16(counters, env) -> list:
          batched_images_per_s=8 / batched_s, stats=st,
          seconds=time.perf_counter() - t_serve, forwards=forwards,
          se_launches=launches[0], ca_launches=launches[1],
-         precision=flags.summary())
+         gn_launches=launches[2], precision=flags.summary())
     flags.check("serve_bf16")
     check(_finite(alone, 3) and all(_finite(o, len(o)) for o in outs),
           "bf16 DDIM images finite, [n,256,256,3]")
@@ -2313,7 +2417,8 @@ def phase_serve_bf16(counters, env) -> list:
           f"two DPM++ requests took {dpm_st['batches'] - 1} batches")
     check(dpm_pin_err == 0.0,
           f"bf16 DPM++: pinned request moved by {dpm_pin_err}")
-    check(launches == [SE_PER_FORWARD * forwards, CA_PER_FORWARD * forwards],
+    check(launches == [SE_PER_FORWARD * forwards, CA_PER_FORWARD * forwards,
+                       GN_PER_FORWARD * forwards],
           f"bf16 serving launches {launches} for {forwards} forwards")
     del model
     torch.cuda.empty_cache()
@@ -3820,22 +3925,27 @@ def main() -> int:
         flash_attention_dkv,
         flash_attention_dq,
     )
+    from diffusionmodel_tpu_torch.kernels.group_norm import group_norm_act
     from diffusionmodel_tpu_torch.kernels.se_block import se_block
 
     counters = [se_block, coord_attn]
+    # the bf16 sampling phases also count the GroupNorm + activation kernel
+    bf16_counters = counters + [group_norm_act]
     env = timed("env", phase_env)
     timed("build", phase_build)
     counts = timed("counts", fresh_kernel_counts)
     rows = timed("kernels", phase_kernels, counts)
     bf16_rows = timed("kernels_bf16", phase_kernels_bf16, counts)
+    gn_rows = timed("group_norm", phase_group_norm)
     slab_rows = timed("spatial_kernels", phase_spatial_kernels)
     flash_rows = timed("flash", phase_flash)
     cfg, model = timed("forward", phase_forward, counters, counts)
     launches = timed("serve", phase_serve, cfg, model, counters, env)
     del model
     torch.cuda.empty_cache()
-    timed("forward_bf16", phase_forward_bf16, counters)
-    bf16_launches = timed("serve_bf16", phase_serve_bf16, counters, env)
+    timed("forward_bf16", phase_forward_bf16, bf16_counters)
+    bf16_launches = timed("serve_bf16", phase_serve_bf16, bf16_counters,
+                          env)
     timed("ldm_forward", phase_ldm_forward, flash_attention)
     flash_launches = timed("ldm", phase_ldm, flash_attention, env)
     flash_counters = [flash_attention, flash_attention_dq, flash_attention_dkv]
@@ -3998,6 +4108,23 @@ def main() -> int:
                    "stage_launches (counted where it launches)",
         }
 
+    gn_entry = {
+        "name": "group_norm_act", "route": "cuda",
+        "source": "diffusionmodel_tpu_torch/kernels/csrc/group_norm.cu",
+        "replaces": None, "dtype": "bfloat16",
+        "launches": bf16_launches[2],
+        "max_ulps": max(r["max_ulps"] for r in gn_rows["rows"]),
+        "ms": gn_rows["ms"], "plain_ms": gn_rows["plain_ms"],
+        "bound_ms": gn_rows["bound_ms"], "bound_by": "bytes",
+        "bound_share": gn_rows["bound_ms"] / gn_rows["ms"],
+        "library_ms": None,
+        "per": f"one bf16 batch-{BATCH} sampling forward ("
+               f"{len(GN_SITES)} sites, {GN_PER_FORWARD} calls); launches "
+               "on the bf16 serving path",
+        "site_ms": [r["ms"] for r in gn_rows["rows"]],
+        "timed_over": f">= {ROTATE_BYTES / 1e6:.0f} MB of rotating "
+                      "copies of x",
+    }
     fwd = flash_entry(flash_rows, flash_launches)
     fwd["train_launches"] = train_launches[0]
     se = entry("se_block", "se_block", launches[0],
@@ -4032,6 +4159,7 @@ def main() -> int:
         ca,
         se16,
         ca16,
+        gn_entry,
         slab_entry("se_block_slab", "se_block_slab", "float32", (0, 1),
                    "diffusionmodel_tpu/kernels/se_block.py:202"),
         slab_entry("coord_attn_slab", "coord_attn_slab", "float32",

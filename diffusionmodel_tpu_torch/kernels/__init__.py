@@ -4,7 +4,9 @@
 - ``coord_attn``: coordinate attention (replaces ``coord_attn_fused``);
 - ``flash_attn``: the flash-attention forward (replaces ``_flash_forward``);
 - ``flash_attn_bwd``: its two backward passes (replace ``_flash_dq_kernel``
-  and ``_flash_dkv_kernel``), behind ``flash_attn.FlashAttentionFunction``.
+  and ``_flash_dkv_kernel``), behind ``flash_attn.FlashAttentionFunction``;
+- ``group_norm``: GroupNorm + activation in bf16 (replaces no TPU kernel:
+  XLA fuses it there), reached from ``nn.blocks.GroupNorm`` in inference.
 
 Sources live in ``csrc/`` and are built by ``_build`` at first use.
 """

@@ -9,7 +9,8 @@ are the keys ``diffusionmodel_tpu/compat/torch_convert.py`` reads.
 
 Mode follows PyTorch's ``module.training``, the JAX package's ``train``
 argument: SEBlock takes the CUDA kernel only with ``use_pallas`` and in
-eval mode, and BatchNorm uses its running statistics in eval mode.
+eval mode, a bf16 GroupNorm only with ``use_pallas`` and without
+gradients, and BatchNorm uses its running statistics in eval mode.
 
 Compute type follows flax's policy, not ``torch.autocast``: every block
 takes ``dtype`` (float32 or bfloat16), parameters stay float32, and each
@@ -56,6 +57,14 @@ from diffusionmodel_tpu_torch.kernels import (
     per_sample_conv,
     per_sample_matmul,
 )
+from diffusionmodel_tpu_torch.kernels.group_norm import (
+    activation,
+    gelu,
+    group_norm_act,
+    group_norm_f32,
+    on_card,
+    takes,
+)
 from diffusionmodel_tpu_torch.kernels.se_block import se_block, se_block_slab
 from diffusionmodel_tpu_torch.ops.fused_upconv import (
     up2_conv3x3_align_corners_nchw,
@@ -83,16 +92,6 @@ def div_scalar(x: torch.Tensor, s: float) -> torch.Tensor:
     if x.dtype == _F32:
         return x / s
     return x / torch.tensor(s, dtype=x.dtype)
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU, torch ``nn.GELU()``'s default. Below float32 it
-    follows ``jax.nn.gelu(approximate=False)`` op for op, rounding where
-    the JAX program rounds: ``0.5*x * erfc(-x * sqrt(1/2))`` with
-    sqrt(1/2) in x's dtype and each product and the erfc rounded to it."""
-    if x.dtype == _F32:
-        return F.gelu(x)
-    return (x * 0.5) * torch.erfc(x * torch.tensor(-0.5 ** 0.5, dtype=x.dtype))
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -252,39 +251,57 @@ class Linear(_OutputBlocks, nn.Linear):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm whose output stays channels_last. ``eps`` is PyTorch's
-    1e-5 by default (the ContextUnet reference); flax's GroupNorm, which
-    the latent-diffusion modules mirror, uses 1e-6. With a bf16
-    ``compute_dtype`` the statistics and the affine run in float32 and the
-    output is rounded once, as flax's GroupNorm at ``dtype=bfloat16``.
+    """GroupNorm whose output stays channels_last, followed by ``act``
+    (None, "gelu" or "relu"; parameterless, so the ``state_dict`` is
+    nn.GroupNorm's). ``eps`` is PyTorch's 1e-5 by default (the ContextUnet
+    reference); flax's GroupNorm, which the latent-diffusion modules
+    mirror, uses 1e-6. With a bf16 ``compute_dtype`` the statistics and the
+    affine run in float32 and the output is rounded once, as flax's
+    GroupNorm at ``dtype=bfloat16``; ``act`` then runs in bf16.
 
-    On a CPU tensor each sample is normalised on its own: the CPU kernel
-    splits its work across samples by thread count (3 intra-op threads do),
-    which would let batch neighbours move a sample's result. CUDA tensors
-    take one call for the batch."""
+    With ``use_pallas``, a bf16 map on the card without gradients
+    (inference), whole and not a slab, of a shape the kernel takes
+    (``kernels.group_norm.takes``) takes the CUDA kernel
+    (``kernels.group_norm.group_norm_act``: the norm and ``act`` in one
+    launch). Everything else (no ``use_pallas``, training, float32, slabs,
+    the CPU, shapes past the kernel's limits) runs
+    ``F.group_norm`` (``kernels.group_norm.group_norm_f32``: per sample on
+    the CPU), then ``act``: the same operations as a GroupNorm followed by
+    the activation's module, so autograd and a checkpointed recompute see
+    the same graph."""
 
     spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
     precast = False  # the affine rounded to bf16 (``precast_params``)
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
-                 compute_dtype: torch.dtype = _F32):
+                 compute_dtype: torch.dtype = _F32,
+                 act: Optional[str] = None, use_pallas: bool = False):
         super().__init__(num_groups, num_channels, eps=eps)
         self.compute_dtype = compute_dtype
+        self.act = act
+        self.use_pallas = use_pallas
+
+    def _takes_kernel(self, x) -> bool:
+        b, c, h, w = x.shape
+        return (self.use_pallas and on_card(x) and x.dtype == torch.bfloat16
+                and self.compute_dtype == torch.bfloat16
+                and not torch.is_grad_enabled()
+                and not is_slab(self.spatial, x)
+                and takes(b, h, w, c, self.num_groups))
 
     def forward(self, x):
         dt = self.compute_dtype
+        w, b = _affine(self)
+        if self._takes_kernel(x):
+            return group_norm_act(to_nhwc(x), w, b, self.num_groups,
+                                  self.eps, self.act).permute(0, 3, 1, 2)
         if dt != _F32:
             x = x.float()
-        w, b = _affine(self)
         if is_slab(self.spatial, x):
             y = self._slab_forward(x, w, b)
-        elif x.device.type == "cpu" and x.shape[0] > 1:
-            y = torch.cat([channels_last(F.group_norm(
-                s, self.num_groups, w, b, self.eps)) for s in x.split(1)])
         else:
-            y = channels_last(F.group_norm(x, self.num_groups, w, b,
-                                           self.eps))
-        return y if dt == _F32 else y.to(dt)
+            y = group_norm_f32(x, w, b, self.num_groups, self.eps)
+        return activation(y if dt == _F32 else y.to(dt), self.act)
 
     def _slab_forward(self, x, weight, bias):
         """GroupNorm of the whole map from this slab (float32 x): per
@@ -460,15 +477,29 @@ def global_batch_stats(model: nn.Module, group):
 
 
 def norm_layer(kind: str, channels: int, groups: int = 8,
-               dtype: torch.dtype = _F32) -> nn.Module:
+               dtype: torch.dtype = _F32,
+               use_pallas: bool = False) -> nn.Module:
     """The JAX package's ``Norm``: GroupNorm(gn_groups(C, groups)) by
     default, BatchNorm for reference parity (SURVEY Q2)."""
     if kind == "group":
         return GroupNorm(gn_groups(channels, groups), channels,
-                         compute_dtype=dtype)
+                         compute_dtype=dtype, use_pallas=use_pallas)
     if kind == "batch":
         return BatchNorm2d(channels, compute_dtype=dtype)
     raise ValueError(f"unknown norm kind {kind!r}")
+
+
+def norm_act(kind: str, channels: int, act: str, dtype: torch.dtype = _F32,
+             use_pallas: bool = False) -> tuple:
+    """(norm, the activation's slot) for ``Sequential(..., norm, act)``: a
+    GroupNorm applies ``act`` itself and leaves ``nn.Identity`` in the slot;
+    a BatchNorm leaves it to the slot's GELU or ReLU module. Neither slot
+    holds parameters, so the ``state_dict`` keys are the same either way."""
+    norm = norm_layer(kind, channels, dtype=dtype, use_pallas=use_pallas)
+    if isinstance(norm, GroupNorm):
+        norm.act = act
+        return norm, nn.Identity()
+    return norm, (GELU() if act == "gelu" else nn.ReLU())
 
 
 def conv(in_features: int, features: int, kernel: int, stride: int = 1,
@@ -564,13 +595,13 @@ class LocalEnhancer(nn.Module):
     (sampling) the block is the identity, and the branch is not computed."""
 
     def __init__(self, channels: int, high_thresh: float = 1.2,
-                 act: str = "gelu", dtype: torch.dtype = _F32):
+                 act: str = "gelu", dtype: torch.dtype = _F32,
+                 use_pallas: bool = False):
         super().__init__()
         self.high_thresh = high_thresh
         self.conv = nn.Sequential(
             conv(channels, channels, 3, dtype=dtype),
-            GroupNorm(gn_groups(channels, 8), channels, compute_dtype=dtype),
-            GELU() if act == "gelu" else nn.ReLU(),
+            *norm_act("group", channels, act, dtype, use_pallas),
             conv(channels, channels, 3, dtype=dtype))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
@@ -591,12 +622,12 @@ class ResConvBlock(nn.Module):
         super().__init__()
         self.is_res = is_res
         self.same_channels = in_ch == out_ch
-        self.conv1 = nn.Sequential(conv(in_ch, out_ch, 3, dtype=dtype),
-                                   norm_layer(norm, out_ch, dtype=dtype),
-                                   GELU())
-        self.conv2 = nn.Sequential(conv(out_ch, out_ch, 3, dtype=dtype),
-                                   norm_layer(norm, out_ch, dtype=dtype),
-                                   GELU())
+        self.conv1 = nn.Sequential(
+            conv(in_ch, out_ch, 3, dtype=dtype),
+            *norm_act(norm, out_ch, "gelu", dtype, use_pallas))
+        self.conv2 = nn.Sequential(
+            conv(out_ch, out_ch, 3, dtype=dtype),
+            *norm_act(norm, out_ch, "gelu", dtype, use_pallas))
         self.se = (SEBlock(out_ch, attn_reduction, use_pallas, dtype)
                    if is_res and use_se else None)
 
@@ -623,11 +654,11 @@ class UnetDown(nn.Module):
         cc = in_ch // compress_ratio
         self.channel_compress = nn.Sequential(
             conv(in_ch, cc, 1, dtype=dtype),
-            norm_layer(norm, cc, dtype=dtype), GELU())
+            *norm_act(norm, cc, "gelu", dtype, use_pallas))
         self.ch_adjust = conv(cc, out_ch, 1, dtype=dtype)
         self.down = nn.Sequential(
             conv(out_ch, out_ch, 3, dtype=dtype),
-            norm_layer(norm, out_ch, dtype=dtype), GELU(),
+            *norm_act(norm, out_ch, "gelu", dtype, use_pallas),
             ResConvBlock(out_ch, out_ch, is_res=True, use_se=use_se,
                          norm=norm, attn_reduction=attn_reduction,
                          use_pallas=use_pallas, dtype=dtype),
@@ -672,15 +703,17 @@ class UnetUp(nn.Module):
     ``state_dict`` is the same with and without it."""
 
     def __init__(self, in_ch: int, out_ch: int, norm: str = "group",
-                 dtype: torch.dtype = _F32, fused_upsample: bool = False):
+                 dtype: torch.dtype = _F32, fused_upsample: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
         self.dtype = dtype
         self.fused_upsample = fused_upsample
+        res = dict(norm=norm, use_pallas=use_pallas, dtype=dtype)
         self.model = nn.Sequential(
             nn.Sequential(UpsampleBilinear2x(dtype),
                           conv(in_ch, out_ch, 3, dtype=dtype)),
-            ResConvBlock(out_ch, out_ch, norm=norm, dtype=dtype),
-            ResConvBlock(out_ch, out_ch, norm=norm, dtype=dtype))
+            ResConvBlock(out_ch, out_ch, **res),
+            ResConvBlock(out_ch, out_ch, **res))
 
     spatial = None  # a parallel.spatial.SpatialGroup on a sharded forward
 

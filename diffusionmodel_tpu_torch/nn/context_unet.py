@@ -46,7 +46,6 @@ import torch.nn.functional as F
 from diffusionmodel_tpu_torch.nn.blocks import (
     ConvTranspose2d,
     EmbedFC,
-    GroupNorm,
     LocalEnhancer,
     ResConvBlock,
     UnetDown,
@@ -54,7 +53,7 @@ from diffusionmodel_tpu_torch.nn.blocks import (
     channels_last,
     conv,
     gelu,
-    gn_groups,
+    norm_act,
 )
 from diffusionmodel_tpu_torch.nn.coord_attn import CoordAttn
 from diffusionmodel_tpu_torch.parallel.spatial import (
@@ -113,18 +112,19 @@ class ContextUnet(nn.Module):
         self.up0 = nn.Sequential(
             ConvTranspose2d(8 * nf, 8 * nf, pool, stride=pool,
                             compute_dtype=dt),
-            GroupNorm(gn_groups(8 * nf, 8), 8 * nf, compute_dtype=dt),
-            nn.ReLU())
-        up = dict(norm=norm, dtype=dt, fused_upsample=fused_upsample)
+            *norm_act("group", 8 * nf, "relu", dt, use_pallas))
+        up = dict(norm=norm, dtype=dt, fused_upsample=fused_upsample,
+                  use_pallas=use_pallas)
         self.up1 = UnetUp(16 * nf, 4 * nf, **up)
         self.up2 = UnetUp(8 * nf, 2 * nf, **up)
         self.up3 = UnetUp(4 * nf, nf, **up)
         self.up4 = UnetUp(2 * nf, nf, **up)
-        self.local_enhance = (LocalEnhancer(nf, high_thresh, dtype=dt)
+        self.local_enhance = (LocalEnhancer(nf, high_thresh, dtype=dt,
+                                            use_pallas=use_pallas)
                               if use_local_enhancer else None)
         self.out = nn.Sequential(
             conv(2 * nf, nf, 3, dtype=dt),
-            GroupNorm(gn_groups(nf, 8), nf, compute_dtype=dt), nn.ReLU(),
+            *norm_act("group", nf, "relu", dt, use_pallas),
             conv(nf, in_ch, 3, dtype=dt))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,

@@ -11,8 +11,10 @@ it, with ``bench_gpu.spans.SpanTracer`` in the place of ``trace.Tracer``
 and the per-layer metrics that read the spans (``PENDING``, the entries a
 ``BENCHMARK.json`` would list for them) added to the cell's. Prints the
 result line; to standard error, the share of the sub-window's busy time
-attributed to program spans, the device seconds by span, and the spans
-that lie wholly in the sub-window.
+attributed to program spans, the device seconds by span, the spans
+that lie wholly in the sub-window, and the counters' increments, with
+``conv.per_sample_calls`` and ``group_norm.fused_calls`` also per image
+returned.
 
 ``--gc`` (with ``run``) also times Python's garbage collections and
 names, for each of the ten longest idle gaps, those that overlap it.
@@ -58,6 +60,11 @@ PENDING = [
 ]
 
 
+# counters printed per image returned: per-sample convolution calls (each
+# adds its batch size) and GroupNorm + activation kernel calls (each adds 1)
+PER_IMAGE = ("conv.per_sample_calls", "group_norm.fused_calls")
+
+
 def _with_pending(load):
     def load_spec():
         spec = load()
@@ -71,12 +78,15 @@ def _report(read):
         t = rec.get("trace") or {}
         if "span_s" in t:
             top = sorted(t["span_s"].items(), key=lambda kv: -kv[1])
+            counts, images = t["program"]["counters"], rec.get("images")
             print("spans " + json.dumps({
                 "attributed_share": t["attributed_s"] / t["busy_s"],
                 "attributed_s": t["attributed_s"], "busy_s": t["busy_s"],
                 "span_s": dict(top),
                 "whole": t["whole"],
-                "counters": t["program"]["counters"],
+                "counters": counts,
+                "per_image": {k: counts[k] / images for k in PER_IMAGE
+                              if images and k in counts},
                 "gc_gaps": t.get("gc_gaps"), "gc_ms": t.get("gc_ms"),
                 "host_s": {k: [len(v), sum(v)] for k, v in
                            t["program"]["durations"].items()}}),
