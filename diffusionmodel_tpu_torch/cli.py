@@ -8,7 +8,8 @@
     python -m diffusionmodel_tpu_torch.cli --mode serve --ckpt PATH \
         [--port 8000] [--max_batch 8] [--sampler ddim] [--steps 50]
     python -m diffusionmodel_tpu_torch.cli --mode txt2img --prompt TEXT \
-        [--ldm_arch sd] [--ldm_sampler ddim] [--steps 50] [--batch_size 1]
+        [--ldm_arch sd|sdxl] [--ldm_sampler ddim] [--steps 50] \
+        [--batch_size 1]
     python -m diffusionmodel_tpu_torch.cli --mode img2img|inpaint \
         --orig_img FILE [--strength 0.75]
     python -m diffusionmodel_tpu_torch.cli --mode img2img|inpaint \
@@ -50,7 +51,9 @@ an image folder or a synthetic one, as the JAX CLI does.
 ``--inception_weights`` (a torchvision inception_v3 state dict,
 ``.npz`` or ``.pt``) scores true FID in train, generate and eval;
 without it the score is ``fid_proxy``. Flags keep the JAX CLI's
-spellings and defaults; ``--device`` (default cuda) is the port's own.
+spellings and defaults; ``--device`` (default cuda) and ``--ldm_arch
+sdxl`` (SDXL base 1.0 at 1024 px, conditioned through the prompt hash's
+context and pooled vector; txt2img, img2img, inpaint) are the port's own.
 """
 
 from __future__ import annotations
@@ -147,16 +150,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "txt2img / 5.0 img2img+inpaint)")
     p.add_argument("--strength", type=float, default=0.75,
                    help="img2img/inpaint: noising strength")
-    p.add_argument("--height", type=int, default=512)
-    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=None,
+                   help="LDM image height (default the arch's: 512, 1024 "
+                        "for sdxl)")
+    p.add_argument("--width", type=int, default=None,
+                   help="LDM image width (default the arch's)")
     p.add_argument("--flash", dest="flash", action="store_true",
                    default=True, help="self-attention through the CUDA "
                    "flash-attention kernel at N >= 2048 (default on)")
     p.add_argument("--no_flash", dest="flash", action="store_false")
     p.add_argument("--ldm_arch", type=str, default="sd",
-                   choices=["sd", "tiny", "mid"],
+                   choices=["sd", "tiny", "mid", "sdxl", "sdxl-tiny"],
                    help="sd = SD-v1 scale (860M); tiny = smoke-test size; "
-                        "mid = ~1/10 of sd")
+                        "mid = ~1/10 of sd; sdxl = SDXL base 1.0 (2.57B "
+                        "UNet, 1024 px), conditioned through the prompt "
+                        "hash's context [77, 2048] and pooled vector in "
+                        "place of its two text encoders (no train_ldm); "
+                        "sdxl-tiny = its smoke-test size")
     p.add_argument("--family", type=str, default="ldm",
                    choices=["ldm", "main"],
                    help="img2img/inpaint: ldm (the latent-diffusion stack) "
@@ -477,7 +487,8 @@ def _ldm(args) -> int:
             w=args.width, uncond_scale=7.5 if args.scale is None
             else args.scale, generator=gen)
     else:
-        img = load_img(args.orig_img, size=(args.height, args.width))
+        img = load_img(args.orig_img, size=(args.height or runner.size,
+                                            args.width or runner.size))
         img = img.repeat(args.batch_size, axis=0)
         fn = runner.img2img if args.mode == "img2img" else runner.inpaint
         imgs = fn(img, args.prompt, strength=args.strength,
@@ -507,6 +518,9 @@ def _train_ldm(args) -> int:
 
     if not args.data_root:
         print("Error: --data_root required for train_ldm mode")
+        return 1
+    if args.ldm_arch.startswith("sdxl"):
+        print("Error: train_ldm trains the SD-v1 archs (sd, tiny, mid)")
         return 1
     size = args.img_size
     if size % 8:

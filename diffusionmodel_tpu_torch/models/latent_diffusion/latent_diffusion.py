@@ -4,7 +4,7 @@
 beta = linspace(sqrt(beta_start), sqrt(beta_end), T)², built in fp32 as
 the JAX package builds it (fp32 linspace, squared, fp32 cumprod); the two
 agree to fp32 rounding (the cumprod's order differs), not bit for bit.
-Latents are scaled by 0.18215.
+Latents are scaled by 0.18215 (SD-v1; SDXL's VAE takes 0.13025).
 
 ``CLIPTextEmbedder`` is the text encoder (HF CLIP ViT-L/14,
 reference clip_embedder.py:20-50) through transformers' PyTorch
@@ -87,12 +87,12 @@ class LatentDiffusion:
     GaussianDistribution; ``decode_fn(z)`` -> images. The schedule lives on
     ``device`` (``None``: the GPU, which must be present)."""
 
-    latent_scaling_factor: float = 0.18215
-
     def __init__(self, eps_fn: Callable, encode_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None, n_steps: int = 1000,
                  linear_start: float = 0.00085, linear_end: float = 0.0120,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 latent_scaling_factor: float = 0.18215):
+        self.latent_scaling_factor = latent_scaling_factor
         self.eps_fn = eps_fn
         self.encode_fn = encode_fn
         self.decode_fn = decode_fn
@@ -102,7 +102,7 @@ class LatentDiffusion:
                                   self.device)
 
     def autoencoder_encode(self, img, generator=None, noise=None):
-        """Scaled latents of ``img``: 0.18215 · a draw from the posterior
+        """Scaled latents of ``img``: the scale · a draw from the posterior
         (``noise`` when given, else from ``generator``)."""
         dist = self.encode_fn(img)
         return self.latent_scaling_factor * dist.sample(generator, noise)

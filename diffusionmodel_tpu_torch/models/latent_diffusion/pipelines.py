@@ -2,10 +2,11 @@
 ``diffusionmodel_tpu/models/latent_diffusion/pipelines.py``).
 
 Each pipeline takes a ``LatentDiffusion`` and conditioning arrays
-([B, 77, d_cond]); without ``uncond`` the unconditional embedding is zeros,
-as in the JAX package when no text embedder is given. Random draws come
-from ``generator`` unless injected (``x_last``, ``encode_noise``,
-``q_noise``, ``orig_noise``, ``noise_fn``), which the parity tests use.
+([B, 77, d_cond], or (context, y) pairs for SDXL); without ``uncond`` the
+unconditional embedding is zeros, as in the JAX package when no text
+embedder is given. Random draws come from ``generator`` unless injected
+(``x_last``, ``encode_noise``, ``q_noise``, ``orig_noise``,
+``noise_fn``), which the parity tests use.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from diffusionmodel_tpu_torch.models.latent_diffusion.samplers import (
     DDIMSampler,
     DDPMSampler,
     DPMPPSampler,
+    map_cond,
 )
 
 
@@ -32,17 +34,16 @@ def make_sampler(model, sampler_name: str, n_steps: int, ddim_eta: float):
     raise ValueError(sampler_name)
 
 
-def _conds(model, cond, uncond):
-    cond = torch.as_tensor(cond, dtype=torch.float32, device=model.device)
-    if uncond is None:
-        return cond, torch.zeros_like(cond)
-    return cond, torch.as_tensor(uncond, dtype=torch.float32,
-                                 device=model.device)
-
-
 def _as(x, model):
     return None if x is None else torch.as_tensor(
         x, dtype=torch.float32, device=model.device)
+
+
+def _conds(model, cond, uncond):
+    cond = map_cond(lambda c: _as(c, model), cond)
+    if uncond is None:
+        return cond, map_cond(torch.zeros_like, cond)
+    return cond, map_cond(lambda c: _as(c, model), uncond)
 
 
 class Txt2Img:

@@ -3,6 +3,8 @@
 
 Classifier-free guidance in the standard orientation,
 ``eps = e_uncond + scale · (e_cond − e_uncond)``, through one doubled batch.
+A conditioning is a context tensor, or a (context, y) pair (SDXL), whose
+members are doubled alike.
 The JAX package's ``lax.scan`` loops are Python loops here. Per-step
 coefficients are computed once on the host in fp32 numpy (the JAX package
 computes the same fp32 expressions on the device) and applied as Python
@@ -27,12 +29,28 @@ from diffusionmodel_tpu_torch.diffusion import dpmpp_terms
 NoiseFn = Callable[[int], object]
 
 
+def map_cond(fn, *conds):
+    """``fn`` over conditionings: of the context tensors, or of each member
+    of (context, y) pairs in turn (a pair out)."""
+    if isinstance(conds[0], tuple):
+        return tuple(fn(*parts) for parts in zip(*conds))
+    return fn(*conds)
+
+
+def _device(cond) -> torch.device:
+    return (cond[0] if isinstance(cond, tuple) else cond).device
+
+
+def _cat(a, b):
+    return torch.cat([a, b])
+
+
 def cfg_eps(eps_fn, x, t, cond, uncond, scale):
     """Doubled-batch classifier-free guidance (standard orientation)."""
     if uncond is None or scale == 1.0:
         return eps_fn(x, t, cond)
     e = eps_fn(torch.cat([x, x]), torch.cat([t, t]),
-               torch.cat([uncond, cond]))
+               map_cond(_cat, uncond, cond))
     e_uncond, e_cond = e.chunk(2)
     return e_uncond + scale * (e_cond - e_uncond)
 
@@ -119,7 +137,7 @@ class DDIMSampler:
                temperature: float = 1.0, x_last=None,
                uncond_scale: float = 1.0, uncond_cond=None,
                skip_steps: int = 0, noise_fn: Optional[NoiseFn] = None):
-        x = _start(x_last, shape, generator, cond.device)
+        x = _start(x_last, shape, generator, _device(cond))
         for index in range(self.n_steps - 1 - skip_steps, -1, -1):
             x = self._step(x, index, cond, uncond_scale, uncond_cond,
                            temperature, generator, noise_fn, repeat_noise)
@@ -170,7 +188,7 @@ class DPMPPSampler:
     @torch.inference_mode()
     def sample(self, shape, cond, generator=None, x_last=None,
                uncond_scale: float = 1.0, uncond_cond=None):
-        x = _start(x_last, shape, generator, cond.device)
+        x = _start(x_last, shape, generator, _device(cond))
         x0_prev = torch.zeros_like(x)
         for k, tau in enumerate(self.time_steps):
             with tracing.span("sample.step"):
@@ -209,7 +227,7 @@ class DDPMSampler:
     def sample(self, shape, cond, generator=None, temperature: float = 1.0,
                x_last=None, uncond_scale: float = 1.0, uncond_cond=None,
                skip_steps: int = 0, noise_fn: Optional[NoiseFn] = None):
-        x = _start(x_last, shape, generator, cond.device)
+        x = _start(x_last, shape, generator, _device(cond))
         for t in range(self.n_steps - 1 - skip_steps, -1, -1):
             with tracing.span("sample.step"):
                 eps = cfg_eps(self.model.eps_fn, x,

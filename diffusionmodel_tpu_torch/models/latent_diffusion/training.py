@@ -201,7 +201,11 @@ def fit_ldm(runner, images: np.ndarray, prompts: Sequence[str], *,
     permutations with the last partial batch dropped. Returns
     ``(LdmTrainState, history)`` with the mean loss of each epoch; with
     ``out_path`` the trained UNet and the VAE are written as the JAX
-    package's pickle (:func:`save_ldm_native`)."""
+    package's pickle (:func:`save_ldm_native`). The SD-v1 archs only: an
+    SDXL runner raises ValueError."""
+    if runner.d_pooled is not None:
+        raise ValueError(f"fit_ldm trains the SD-v1 archs, not "
+                         f"{runner.arch!r}")
     n = int(images.shape[0])
     if len(prompts) != n:
         raise ValueError(f"{n} images but {len(prompts)} prompts")

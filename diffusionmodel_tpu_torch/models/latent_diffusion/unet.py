@@ -6,6 +6,14 @@ levels, a sinusoidal time embedding (cos before sin). SpatialTransformer =
 GroupNorm + 1×1 in/out projections around pre-LayerNorm blocks of
 self-attention → cross-attention(cond) → GeGLU feed-forward.
 
+SD-v1 takes one depth and one head count for every level. SDXL (sgm's
+``sd_xl_base.yaml``) adds what its UNet needs: a depth per level, the
+middle taking the last level's (``tf_layers=(0, 2, 10)``); heads set by a
+head width (``d_head=64``: 10 heads at 640 channels, 20 at 1280); Linear
+in/out projections on the [B, H·W, C] tokens after the GroupNorm
+(``linear_proj``); and a vector condition ``y`` (``adm_in_channels``)
+through ``label_emb`` (Linear, SiLU, Linear), added to the time embedding.
+
 Submodules carry the SD-v1 checkpoint's names (``time_embed.0``,
 ``input_blocks.{i}.0.in_layers.0``, ``…transformer_blocks.0.attn1.to_q``,
 ``output_blocks.{i}.{1|2}.conv``, ``out.2``, …): a real
@@ -14,26 +22,34 @@ and the JAX package's ``compat/sd_convert.convert_sd_unet`` reads this
 module's ``state_dict()`` as it is.
 
 Public layout is the JAX package's: NHWC latents, integer ``t`` [B],
-conditioning [B, M, d_cond]. Inside, tensors are NCHW in channels_last
-memory, so a feature map viewed as [B, H·W, C] tokens is free. Every norm
-uses eps 1e-6 (flax's default) and ``32 if C % 32 == 0 else 1`` groups.
+conditioning [B, M, d_cond], or with a vector condition the pair
+(context [B, M, d_cond], y [B, adm_in_channels]). Inside, tensors are
+NCHW in channels_last memory, so a feature map viewed as [B, H·W, C]
+tokens is free. Every norm uses eps 1e-6 (flax's default) and ``32 if C %
+32 == 0 else 1`` groups.
 
 Self-attention goes through :func:`kernels.flash_attn.flash_attention`
 (the CUDA kernel for CUDA tensors) when ``use_flash`` is set and the
 sequence has at least ``flash_min_seq`` tokens: the JAX package's gate,
-set from TPU measurements (2048). Cross-attention (M = 77) is always the
-plain einsum-softmax.
+set from TPU measurements (2048); the ``sdxl`` arch takes 1024, measured
+on the card. Cross-attention (M = 77) is always the plain einsum-softmax.
+
+With ``tracing`` on, every SpatialTransformer call is an
+``ldm.transformer`` span (ids ``tokens``, ``depth``) and every
+self-attention adds one to ``ldm.attn_flash_calls`` or
+``ldm.attn_plain_calls``, by the path it took.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffusionmodel_tpu_torch import tracing
 from diffusionmodel_tpu_torch.kernels.flash_attn import flash_attention
 from diffusionmodel_tpu_torch.nn.blocks import GroupNorm, channels_last, to_nhwc
 
@@ -94,7 +110,11 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, n, self.n_heads, self.d_head)
         k = self.to_k(c).view(b, m, self.n_heads, self.d_head)
         v = self.to_v(c).view(b, m, self.n_heads, self.d_head)
-        if self.use_flash and cond is None and n >= self.flash_min_seq:
+        flash = self.use_flash and cond is None and n >= self.flash_min_seq
+        if cond is None:
+            tracing.count("ldm.attn_flash_calls" if flash
+                          else "ldm.attn_plain_calls")
+        if flash:
             out = flash_attention(q, k, v)
         else:
             attn = torch.einsum("bihd,bjhd->bhij", q, k) * self.d_head ** -0.5
@@ -143,24 +163,41 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
+    """GroupNorm, in-projection, ``n_layers`` blocks, out-projection, plus
+    the input. The projections are 1×1 convolutions on the map (SD-v1) or,
+    with ``linear``, Linear layers on the tokens (SDXL)."""
+
     def __init__(self, channels: int, n_heads: int, n_layers: int = 1,
                  d_cond: int = 768, use_flash: bool = True,
-                 flash_min_seq: int = 2048):
+                 flash_min_seq: int = 2048, linear: bool = False):
         super().__init__()
+        self.linear = linear
+
+        def proj():
+            return (nn.Linear(channels, channels) if linear
+                    else nn.Conv2d(channels, channels, 1))
+
         self.norm = gn32(channels)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(channels, n_heads, channels // n_heads,
                                   d_cond, use_flash, flash_min_seq)
             for _ in range(n_layers))
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x, cond):
         h, w = x.shape[2:]
-        t = tokens(self.proj_in(self.norm(x)))
-        for block in self.transformer_blocks:
-            t = block(t, cond)
-        return self.proj_out(from_tokens(t, h, w)) + x
+        with tracing.span("ldm.transformer", tokens=h * w,
+                          depth=len(self.transformer_blocks)):
+            if self.linear:
+                t = self.proj_in(tokens(self.norm(x)))
+            else:
+                t = tokens(self.proj_in(self.norm(x)))
+            for block in self.transformer_blocks:
+                t = block(t, cond)
+            if self.linear:
+                return from_tokens(self.proj_out(t), h, w) + x
+            return self.proj_out(from_tokens(t, h, w)) + x
 
 
 class ResBlock(nn.Module):
@@ -221,42 +258,60 @@ class Stage(nn.ModuleList):
 class UNetModel(nn.Module):
     """Latent-space eps-predictor with text cross-attention.
 
-    ``forward(x [B,h,w,in_channels], t [B] int, cond [B,M,d_cond])`` ->
-    eps [B,h,w,out_channels]."""
+    ``forward(x [B,h,w,in_channels], t [B] int, cond)`` -> eps
+    [B,h,w,out_channels]; ``cond`` is the context [B,M,d_cond], or with
+    ``adm_in_channels`` the pair (context, y [B, adm_in_channels]).
+
+    ``tf_layers`` is the transformer depth of every level and the middle
+    (an int), or of each level, the middle taking the last level's (a
+    sequence). Heads: ``n_heads`` at every level, or with ``d_head`` as
+    many as the level's channels over ``d_head``."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  channels: int = 320, n_res_blocks: int = 2,
                  attention_levels: Sequence[int] = (0, 1, 2),
                  channel_multipliers: Sequence[int] = (1, 2, 4, 4),
-                 n_heads: int = 8, tf_layers: int = 1, d_cond: int = 768,
-                 use_flash: bool = True, flash_min_seq: int = 2048):
+                 n_heads: int = 8, tf_layers: Union[int, Sequence[int]] = 1,
+                 d_cond: int = 768, use_flash: bool = True,
+                 flash_min_seq: int = 2048, d_head: Optional[int] = None,
+                 linear_proj: bool = False,
+                 adm_in_channels: Optional[int] = None):
         super().__init__()
         self.channels = channels
         d_emb = channels * 4
+        n_levels = len(channel_multipliers)
+        depth = ([tf_layers] * n_levels if isinstance(tf_layers, int)
+                 else list(tf_layers))
 
-        def attn(ch):
-            return SpatialTransformer(ch, n_heads, tf_layers, d_cond,
-                                      use_flash, flash_min_seq)
+        def attn(ch, level):
+            return SpatialTransformer(
+                ch, ch // d_head if d_head else n_heads, depth[level],
+                d_cond, use_flash, flash_min_seq, linear_proj)
 
         self.time_embed = nn.Sequential(nn.Linear(channels, d_emb), nn.SiLU(),
                                         nn.Linear(d_emb, d_emb))
+        self.label_emb = None
+        if adm_in_channels:
+            self.label_emb = nn.Sequential(nn.Sequential(
+                nn.Linear(adm_in_channels, d_emb), nn.SiLU(),
+                nn.Linear(d_emb, d_emb)))
         self.input_blocks = nn.ModuleList(
             [Stage([nn.Conv2d(in_channels, channels, 3, padding=1)])])
         skip_ch = [channels]
         ch = channels
-        n_levels = len(channel_multipliers)
         for i, mult in enumerate(channel_multipliers):
             for _ in range(n_res_blocks):
                 layers = [ResBlock(ch, channels * mult, d_emb)]
                 ch = channels * mult
                 if i in attention_levels:
-                    layers.append(attn(ch))
+                    layers.append(attn(ch, i))
                 self.input_blocks.append(Stage(layers))
                 skip_ch.append(ch)
             if i != n_levels - 1:
                 self.input_blocks.append(Stage([Downsample(ch)]))
                 skip_ch.append(ch)
-        self.middle_block = Stage([ResBlock(ch, ch, d_emb), attn(ch),
+        self.middle_block = Stage([ResBlock(ch, ch, d_emb),
+                                   attn(ch, n_levels - 1),
                                    ResBlock(ch, ch, d_emb)])
         self.output_blocks = nn.ModuleList()
         for i in reversed(range(n_levels)):
@@ -265,7 +320,7 @@ class UNetModel(nn.Module):
                 layers = [ResBlock(ch + skip_ch.pop(), out, d_emb)]
                 ch = out
                 if i in attention_levels:
-                    layers.append(attn(ch))
+                    layers.append(attn(ch, i))
                 if i != 0 and j == n_res_blocks:
                     layers.append(Upsample(ch))
                 self.output_blocks.append(Stage(layers))
@@ -279,7 +334,13 @@ class UNetModel(nn.Module):
                 mod.use_flash = flag
 
     def forward(self, x, t, cond):
+        cond, y = cond if isinstance(cond, tuple) else (cond, None)
+        if (y is None) != (self.label_emb is None):
+            raise ValueError("the vector condition y is given if and only "
+                             "if the model has adm_in_channels")
         emb = self.time_embed(sinusoidal_time_emb(t, self.channels))
+        if y is not None:
+            emb = emb + self.label_emb(y)
         x = channels_last(x.permute(0, 3, 1, 2))
         skips = []
         for stage in self.input_blocks:

@@ -30,8 +30,11 @@ The clock is ``time.time_ns()``: ``CLOCK_REALTIME``, the clock PyTorch's
 profiler stamps its events with (``c10::getTime``), so a span and the
 CUDA runtime calls made inside it read on one clock.
 
-Spans sit at layer boundaries only, never inside a model's forward, so a
-forward recomputed by ``torch.utils.checkpoint`` records nothing twice.
+Spans sit at layer boundaries, and inside a model's forward only at the
+LDM UNet's SpatialTransformers (``ldm.transformer``, with the counters
+``ldm.attn_flash_calls`` / ``ldm.attn_plain_calls``): a forward that
+``torch.utils.checkpoint`` recomputes (``fit_ldm``'s remat) records those
+again.
 """
 
 from __future__ import annotations

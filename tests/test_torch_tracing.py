@@ -155,12 +155,18 @@ def test_txt2img_records_one_decode_and_a_step_per_step():
     runner.txt2img("a crack", batch_size=2, h=64, w=64)
     spans, _ = tracing.drain()
     by = _by_name(spans)
+    # the tiny UNet's 4 SpatialTransformers a denoiser call (level 0's 1
+    # down and 2 up at 64 tokens, the middle's at 16), depth 1
     assert Counter(s.name for s in spans) == {
         "ldm.txt2img": 1, "ldm.cond": 2, "ldm.sample": 1, "sample.step": 3,
-        "ldm.decode": 1, "ldm.out": 1}
+        "ldm.transformer": 12, "ldm.decode": 1, "ldm.out": 1}
     (top,), (sample,) = by["ldm.txt2img"], by["ldm.sample"]
     assert by["ldm.decode"][0].ids == {"images": 2}
     assert {s.parent for s in by["sample.step"]} == {sample.id}
+    steps = {s.id for s in by["sample.step"]}
+    assert {s.parent for s in by["ldm.transformer"]} == steps
+    assert {(s.ids["tokens"], s.ids["depth"])
+            for s in by["ldm.transformer"]} == {(64, 1), (16, 1)}
     assert {s.parent for n in ("ldm.cond", "ldm.sample", "ldm.decode",
                                "ldm.out") for s in by[n]} == {top.id}
 
